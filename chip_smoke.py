@@ -1,0 +1,527 @@
+#!/usr/bin/env python3
+"""On-card smoke of the PyTorch/CUDA port (``deepspeed_tpu_torch``).
+
+Run from the repository root on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+  1. device: the card's name and power limit, TF32 switched off;
+  2. build: every kernel under ``deepspeed_tpu_torch/ops/csrc`` compiled by
+     nvcc for sm_90a (one process per source, all started together);
+  3. kernel_check: each kernel against its plain PyTorch version on the
+     card, at the main path's shapes (llama3-8b: H=32, KVH=8, D=128,
+     bs=128, bf16), plus window / ALiBi / softcap cases and the other
+     compiled instantiations (D=64/256, pages of 16/32 slots);
+  4. kernel_time: kernel, plain version and one PyTorch library call
+     (pages gather + scaled_dot_product_attention) by CUDA events, beside
+     the card's bound for the same work;
+  5. main_path: ``InferenceEngineV2.serve()`` on llama3-8b at full width
+     with random weights: 8 greedy requests over 3 frame boundaries; every
+     request must complete, the kernel's launches must equal layers x
+     steps, and the KV pool must drain;
+  6. reference_check: the paged forward (128-token chunks through the
+     kernel) against a dense causal forward written out in this script, on
+     a 300-token prompt: last-position logits within 5% of their range;
+  7. step_profile: one decode and one prefill step at the main path's
+     shapes, host wall time per step and device time by kernel class
+     (torch.profiler), and the device's idle share.
+Then the kernel summary line, the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
+the last line. Without CUDA, or without the package beside it, it exits 1.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+ATOL = RTOL = 2e-2        # bf16 kernel vs the plain version in f32
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, same source
+REPLACES = "deepspeed_tpu/ops/pallas/paged_attention.py:35"
+SOURCE = "deepspeed_tpu_torch/ops/csrc/paged_attention.cu"
+H, KVH, D, BS = 32, 8, 128, 128          # llama3-8b attention shapes
+
+
+def emit(phase, **kw):
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def nvidia_smi():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi exit {out.returncode}: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------- kernel cases
+
+def make_case(torch, name, *, ctx, c, valid=None, window=0, alibi=False,
+              softcap=0.0, layers=1, seed=0, h=H, kvh=KVH, d=D, bs=BS):
+    """One paged-attention input set on the card in bf16 (llama3-8b
+    shapes unless given). ``ctx[i]``: tokens of sequence i already in the pool;
+    the chunk holds the next ``valid[i]`` (default c) tokens, pad rows at
+    -1. Pool pages are distinct per sequence and shuffled."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    b = len(ctx)
+    valid = [c] * b if valid is None else valid
+    mb = max(-(-(n + c) // bs) for n in ctx)
+    nb = b * mb + 1
+    perm = torch.randperm(nb - 1, generator=g)[:b * mb] + 1
+    tables = perm.reshape(b, mb).to(torch.int32)
+    pos = torch.full((b, c), -1, dtype=torch.int32)
+    for i, (n, v) in enumerate(zip(ctx, valid)):
+        pos[i, :v] = torch.arange(n, n + v, dtype=torch.int32)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(torch.bfloat16)
+
+    case = dict(
+        name=name, ctx=list(ctx), valid=list(valid),
+        q=rnd(b, c, h, d), kpool=rnd(layers, kvh, nb, bs, d),
+        vpool=rnd(layers, kvh, nb, bs, d), block_tables=tables,
+        positions=pos, chunk_k=rnd(b, c, kvh, d), chunk_v=rnd(b, c, kvh, d),
+        window=window, softcap=softcap,
+        alibi_slopes=(torch.linspace(0.5, 0.004, h) if alibi else None))
+    return {k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in case.items()}
+
+
+def call(fn, case, layer=0, cast=None):
+    cv = (lambda t: t) if cast is None else cast   # noqa: E731
+    return fn(cv(case["q"]), cv(case["kpool"]), cv(case["vpool"]),
+              case["block_tables"], case["positions"], cv(case["chunk_k"]),
+              cv(case["chunk_v"]), layer=layer, window=case["window"],
+              alibi_slopes=case["alibi_slopes"], softcap=case["softcap"])
+
+
+def library_call(torch, case, layer=0):
+    """The same function as one PyTorch library call: gather the table's
+    pages, then scaled_dot_product_attention with a boolean mask. A
+    yardstick only; the port never calls it."""
+    import torch.nn.functional as F
+    q, bt, pos = case["q"], case["block_tables"].long(), case["positions"].long()
+    b, c, h, d = q.shape
+    kvh, mb = case["kpool"].shape[1], bt.shape[1]
+    keys = case["kpool"][layer][:, bt].reshape(kvh, b, mb * BS, d).transpose(0, 1)
+    vals = case["vpool"][layer][:, bt].reshape(kvh, b, mb * BS, d).transpose(0, 1)
+    keys = torch.cat([keys, case["chunk_k"].transpose(1, 2)], dim=2)
+    vals = torch.cat([vals, case["chunk_v"].transpose(1, 2)], dim=2)
+    cs = torch.where(pos >= 0, pos, 1 << 30).amin(dim=1)
+    slot = torch.arange(mb * BS, device=q.device)
+    kpos = torch.cat([torch.where(slot[None] < cs[:, None], slot[None], -1),
+                      pos], dim=1)
+    mask = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= pos[:, :, None])
+    rep = h // kvh
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), keys.repeat_interleave(rep, dim=1),
+        vals.repeat_interleave(rep, dim=1), attn_mask=mask[:, None])
+
+
+def case_work(case):
+    """(bytes, flops) the function needs on this case's data: each live key
+    and value row (pool and chunk) read once, the q rows of live positions
+    read once (a pad row's output is 0 whatever its q), out written once;
+    4*D flops per (query row, visible key)."""
+    b, c = case["positions"].shape
+    live_q = int((case["positions"] >= 0).sum()) * H
+    keys = sum(n + v for n, v in zip(case["ctx"], case["valid"]))
+    elt = 2
+    nbytes = (keys * KVH * D * 2 * elt           # K and V rows
+              + live_q * D * elt                 # q in, live rows
+              + b * c * H * D * elt              # out, every row
+              + 4 * (case["positions"].numel() + case["block_tables"].numel()))
+    flops = 0
+    for n, v in zip(case["ctx"], case["valid"]):
+        for j in range(v):
+            visible = n + j + 1
+            if case["window"] > 0:
+                visible = min(visible, case["window"])
+            flops += 4 * D * H * visible
+    return nbytes, flops
+
+
+def cuda_ms(torch, fn, reps=5, iters=20):
+    """Median over ``reps`` of the mean per-call time of ``iters`` calls
+    (after one warm-up), by CUDA events."""
+    fn(0)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(iters):
+            fn(i)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def kernel_phases(torch):
+    """Phases 2-4 for the paged attention kernel. Returns the kernel's
+    summary entry (without ``launches``, which the main path fills)."""
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops.paged_attention import (
+        paged_ragged_attention, paged_ragged_attention_plain)
+
+    t0 = time.perf_counter()
+    secs = op_builder.build()
+    emit("build", kernels=secs, wall_s=time.perf_counter() - t0,
+         ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "smem" in ln]
+                for k, v in op_builder.BUILD_LOGS.items()})
+
+    # the two step shapes of the main path: 16 slots, 8 of them live (the
+    # other 8 frozen, positions -1), decode at ragged contexts and a
+    # 128-token prefill chunk at staggered offsets
+    main = {
+        "decode": dict(ctx=[99, 1999, 732, 1499, 256, 1023, 1898, 411] + [0] * 8,
+                       c=1, valid=[1] * 8 + [0] * 8),
+        "prefill": dict(ctx=[0, 256, 512, 768, 1024, 1280, 1536, 1792] + [0] * 8,
+                        c=128, valid=[128] * 7 + [57] + [0] * 8, seed=1),
+    }
+    cases = [make_case(torch, name, **kw) for name, kw in main.items()] + [
+        make_case(torch, "decode_window", ctx=[99, 1999, 700], c=1,
+                  window=256, seed=2),
+        make_case(torch, "prefill_window", ctx=[0, 900], c=128,
+                  valid=[128, 77], window=200, seed=3),
+        make_case(torch, "decode_alibi", ctx=[50, 1200], c=1, alibi=True, seed=4),
+        make_case(torch, "prefill_softcap", ctx=[0, 640], c=128,
+                  valid=[100, 128], softcap=50.0, seed=5),
+        # the other compiled instantiations: head dims 64 and 256, pages
+        # smaller than the kernel's 64-key tile, MHA and MQA
+        make_case(torch, "decode_d64_bs16_mha", ctx=[5, 300, 77], c=1,
+                  h=16, kvh=16, d=64, bs=16, seed=6),
+        make_case(torch, "prefill_d64_bs32_mqa", ctx=[0, 200], c=40,
+                  valid=[40, 23], h=8, kvh=1, d=64, bs=32, seed=7),
+        make_case(torch, "prefill_d256_bs16", ctx=[0, 333], c=96,
+                  valid=[96, 50], h=16, kvh=8, d=256, bs=16, window=64, seed=8),
+        make_case(torch, "decode_d256", ctx=[1000, 17], c=1, h=8, kvh=2,
+                  d=256, alibi=True, seed=9),
+    ]
+    worst = 0.0
+    for case in cases:
+        paged_ragged_attention.launches = 0
+        got = call(paged_ragged_attention, case).float()
+        ref = call(paged_ragged_attention_plain, case, cast=lambda t: t.float())
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        ok = bool((err <= ATOL + RTOL * ref.abs()).all())
+        pad = case["positions"] < 0
+        pad_zero = bool((got[pad] == 0).all()) if pad.any() else True
+        max_err = float(err.max())
+        worst = max(worst, max_err)
+        emit("kernel_check", kernel="paged_attention", case=case["name"],
+             max_abs_err=max_err, atol=ATOL, rtol=RTOL, within=ok,
+             pad_rows_zero=pad_zero)
+        if not (ok and pad_zero) or paged_ragged_attention.launches != 1:
+            fail(f"paged_attention {case['name']}: max_abs_err {max_err}, "
+                 f"pad rows zero {pad_zero}")
+    del cases
+
+    # timing: 8 layers of pool cycled, so a call finds its pages cold in L2
+    # as each layer of a real step does
+    shapes = {}
+    for name, kw in main.items():
+        case = make_case(torch, name, layers=8, **kw)
+        f32 = {k: case[k].float() for k in ("q", "kpool", "vpool", "chunk_k", "chunk_v")}
+        plain_case = {**case, **f32}
+        nbytes, flops = case_work(case)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        row = dict(
+            ms=cuda_ms(torch, lambda i: call(paged_ragged_attention, case, i % 8)),
+            plain_ms=cuda_ms(torch, lambda i: call(
+                paged_ragged_attention_plain, plain_case, i % 8), reps=3, iters=5),
+            library_ms=cuda_ms(torch, lambda i: library_call(torch, case, i % 8)),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=nbytes, flops=flops,
+            shape=dict(B=len(case["ctx"]), C=int(case["positions"].shape[1]),
+                       H=H, KVH=KVH, D=D, bs=BS, dtype="bfloat16"))
+        emit("kernel_time", kernel="paged_attention", case=name, **row)
+        shapes[name] = row
+        del case, plain_case, f32
+    torch.cuda.empty_cache()
+    dec = shapes["decode"]
+    return {"name": "paged_attention", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES, "max_abs_err": worst,
+            "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+            "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+            "library_ms": dec["library_ms"], "shapes": shapes}
+
+
+# ------------------------------------------------------------------ main path
+
+def main_path(torch, smi):
+    """Phase 5: serve 8 greedy requests through InferenceEngineV2.serve() on
+    llama3-8b at full width (random weights from seed 0)."""
+    from deepspeed_tpu_torch.inference.v2 import (DeviceSlotTable,
+                                                  InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.ops.paged_attention import paged_ragged_attention
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model("llama3-8b")
+    cfg = model.cfg
+    config = RaggedInferenceEngineConfig(
+        max_ragged_batch_size=16, kv_block_size=BS, prefill_chunk_size=128,
+        dtype="bfloat16")
+    eng = InferenceEngineV2(model, config, max_seq_len=2048)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    g = torch.Generator().manual_seed(0)
+    lens = [64, 1500, 333, 900, 128, 1200, 77, 640]
+    prompts = {u: torch.randint(0, cfg.vocab_size, (n,), generator=g).numpy()
+               for u, n in enumerate(lens)}
+    eos_uid, eos_id = 5, int(prompts[5][0])
+    schedule = {0: [0, 1, 2], 1: [3, 4, 5], 2: [6, 7]}
+    arrival_t = {}
+
+    def arrivals():
+        for k in range(3):
+            batch = []
+            for u in schedule[k]:
+                arrival_t[u] = time.perf_counter()
+                batch.append((u, prompts[u], None, None, eos_id)
+                             if u == eos_uid else (u, prompts[u]))
+            yield batch
+
+    # frames and steps dispatched, and each request's first emission (the
+    # host replay of a frame is where a token becomes visible)
+    steps = {"n": 0, "frames": 0}
+    first_tok = {}
+    run_frame_loop = eng.runner.frame_loop
+    absorb = DeviceSlotTable.absorb
+
+    def counting_frame_loop(*a, **kw):
+        steps["n"] += kw["steps"]
+        steps["frames"] += 1
+        return run_frame_loop(*a, **kw)
+
+    def timed_absorb(self, *a, **kw):
+        emissions, finished = absorb(self, *a, **kw)
+        now = time.perf_counter()
+        for uid in emissions:
+            first_tok.setdefault(uid, now)
+        return emissions, finished
+
+    eng.runner.frame_loop = counting_frame_loop
+    DeviceSlotTable.absorb = timed_absorb
+    paged_ragged_attention.launches = 0
+    t_serve = time.perf_counter()
+    try:
+        got = dict(eng.serve(arrivals(), max_new_tokens=32))
+        torch.cuda.synchronize()
+    finally:
+        DeviceSlotTable.absorb = absorb
+        eng.runner.frame_loop = run_frame_loop
+    serve_s = time.perf_counter() - t_serve
+    launches = paged_ragged_attention.launches
+
+    if set(got) != set(prompts):
+        fail(f"main path: completed {sorted(got)}, expected {sorted(prompts)}")
+    for uid, toks in got.items():
+        if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            fail(f"main path: uid {uid} emitted tokens outside [0, vocab)")
+        want = 32
+        if uid == eos_uid and eos_id in toks.tolist():
+            want = toks.tolist().index(eos_id) + 1
+        if len(toks) != want:
+            fail(f"main path: uid {uid} emitted {len(toks)} tokens, expected {want}")
+    if launches != cfg.num_layers * steps["n"]:
+        fail(f"main path: {launches} paged attention launches, expected "
+             f"{cfg.num_layers} layers x {steps['n']} steps")
+    if eng.kv.free_blocks != eng.kv.num_blocks - 1 or eng.state.seqs:
+        fail(f"main path: pool did not drain ({eng.kv.free_blocks} of "
+             f"{eng.kv.num_blocks - 1} blocks free)")
+    n_tok = sum(len(t) for t in got.values())
+    emit("main_path", model="llama3-8b", layers=cfg.num_layers,
+         hidden=cfg.hidden_size, requests=len(got), tokens=n_tok,
+         prompt_tokens=sum(lens), frames=steps["frames"], steps=steps["n"],
+         paged_attention_launches=launches,
+         launches_per_step=launches / steps["n"],
+         serve_s=serve_s, tokens_per_s=n_tok / serve_s,
+         ttft_first_request_s=first_tok[0] - arrival_t[0],
+         prefill_tokens=eng.serve_counters["prefill_tokens"],
+         engine_build_s=build_s,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         kv_blocks=eng.kv.num_blocks, card=smi)
+    reference_check(torch, eng, prompts[1][:300])
+    step_profile(torch, eng, smi)
+    return launches
+
+
+def dense_logits(torch, eng, ids):
+    """Last-position logits of ``ids`` by a dense causal forward written
+    out here (no pages, no kernel; f32 softmax over every earlier token),
+    with the engine's weights and dtype."""
+    from deepspeed_tpu_torch.models import layers as L
+    from deepspeed_tpu_torch.models.transformer import layer_slice
+    cfg, p, dev = eng.model.cfg, eng.params, eng.device
+    dt, e, h, kvh, d = (cfg.act_dtype, cfg.hidden_size, cfg.num_heads,
+                        cfg.kv_heads, cfg.dims_per_head)
+    s = len(ids)
+    x = p["embed"]["tok"][ids].to(dt)[None]
+    pos = torch.arange(s, device=dev)[None]
+    inv = eng.model.inv_freq(dev)
+    causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    for li in range(cfg.num_layers):
+        lp = layer_slice(p["layers"], li)
+        a = L.apply_norm(lp["norm1"], x, cfg)
+        q = (a @ lp["attn"]["wq"].reshape(e, h * d)).view(1, s, h, d)
+        k = (a @ lp["attn"]["wk"].reshape(e, kvh * d)).view(1, s, kvh, d)
+        v = (a @ lp["attn"]["wv"].reshape(e, kvh * d)).view(1, s, kvh, d)
+        q, k = L.apply_rope(q, pos, inv), L.apply_rope(k, pos, inv)
+        k = k.repeat_interleave(h // kvh, dim=2)
+        v = v.repeat_interleave(h // kvh, dim=2)
+        sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d ** -0.5
+        pr = sc.masked_fill(~causal, float("-inf")).softmax(dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", pr.to(dt).float(), v.float()).to(dt)
+        x = x + (o.reshape(1, s, h * d) @ lp["attn"]["wo"].reshape(h * d, e))
+        x = x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["norm2"], x, cfg), cfg)
+    x = L.apply_norm(p["final_norm"], x, cfg)
+    return (x[0, -1] @ p["embed"]["lm_head"]).float()
+
+
+def reference_check(torch, eng, prompt):
+    """The paged path (the kernel, 128-token chunks reading earlier chunks
+    back from the pool) against ``dense_logits`` on one prompt: the last
+    position's logits must agree within 5% of their range (bf16 through
+    32 layers), and both must be finite."""
+    kv, dev = eng.kv, eng.device
+    n, chunk = len(prompt), eng._config.prefill_chunk_size
+    ids = torch.as_tensor(prompt, dtype=torch.int32, device=dev)
+    blocks = kv.allocator.allocate(kv.blocks_for(n))
+    try:
+        table = torch.zeros((1, eng.max_blocks_per_seq), dtype=torch.int32, device=dev)
+        table[0, :len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
+        for c0 in range(0, n, chunk):
+            w = min(chunk, n - c0)
+            cids = torch.zeros((1, chunk), dtype=torch.int32, device=dev)
+            cids[0, :w] = ids[c0:c0 + w]
+            pos = torch.full((1, chunk), -1, dtype=torch.int32, device=dev)
+            pos[0, :w] = torch.arange(c0, c0 + w, dtype=torch.int32, device=dev)
+            valid = torch.tensor([w], dtype=torch.int32, device=dev)
+            logits, _, _ = eng.runner.run(eng.params, cids, pos, table, valid, kv.k, kv.v)
+    finally:
+        kv.allocator.free(blocks)
+    paged = logits[0]
+    dense = dense_logits(torch, eng, ids.long())
+    err = float((paged - dense).abs().max())
+    span = float(dense.max() - dense.min())
+    ok = bool(torch.isfinite(paged).all() and torch.isfinite(dense).all()) \
+        and err <= 0.05 * span
+    emit("reference_check", prompt_tokens=n, max_abs_logit_err=err,
+         logit_range=span, tolerance=0.05 * span,
+         paged_argmax=int(paged.argmax()), dense_argmax=int(dense.argmax()), within=ok)
+    if not ok:
+        fail(f"paged forward disagrees with the dense reference: {err} > 5% of {span}")
+
+
+def _kernel_class(name):
+    if "paged_attention" in name:
+        return "paged_attention"
+    if any(s in name.lower() for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+        return "gemm"
+    return "other"
+
+
+def step_profile(torch, eng, smi):
+    """Where a main-path step's time goes: one decode step (16 slots, the 8
+    live rows at the kernel case's contexts) and one prefill step (8 rows of
+    a 128-token chunk at offsets 0..1792), each timed by the host clock over
+    synchronized steps and traced by torch.profiler for device time by
+    kernel class; the idle share is 1 - device busy / step wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    kv, dev, cfg = eng.kv, eng.device, eng.model.cfg
+    n_slots, mbw = 16, eng.max_blocks_per_seq
+    g = torch.Generator().manual_seed(2)
+    shapes = {"decode": ([99, 1999, 732, 1499, 256, 1023, 1898, 411], 1),
+              "prefill": ([0, 256, 512, 768, 1024, 1280, 1536, 1792], 128)}
+    for name, (starts, c) in shapes.items():
+        owned = []
+        table = torch.zeros((n_slots, mbw), dtype=torch.int32)
+        pos = torch.full((n_slots, c), -1, dtype=torch.int32)
+        for i, s0 in enumerate(starts):
+            blk = kv.allocator.allocate(kv.blocks_for(s0 + c + 1))
+            owned += blk
+            table[i, :len(blk)] = torch.tensor(blk, dtype=torch.int32)
+            pos[i] = torch.arange(s0, s0 + c, dtype=torch.int32)
+        valid = (pos >= 0).sum(dim=1).to(torch.int32)
+        ids = torch.randint(0, cfg.vocab_size, (n_slots, c), generator=g, dtype=torch.int32)
+        args = [t.to(dev) for t in (ids, pos, table, valid)]
+
+        def step():
+            return eng.runner.run(eng.params, *args, kv.k, kv.v)
+
+        try:
+            step()
+            torch.cuda.synchronize()
+            reps = 10
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    step()
+                torch.cuda.synchronize()
+        finally:
+            kv.allocator.free(owned)
+        by_class, by_name = {}, {}
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = ev.time_range.elapsed_us() / 3
+            by_class[_kernel_class(ev.name)] = by_class.get(_kernel_class(ev.name), 0.0) + us
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + us
+        busy_ms = sum(by_class.values()) / 1e3
+        top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:6]
+        emit("step_profile", step=name, live_rows=len(starts), slots=n_slots, width=c,
+             wall_ms=wall_ms, device_busy_ms=busy_ms,
+             idle_share=max(0.0, 1 - busy_ms / wall_ms),
+             device_ms_by_class={k: v / 1e3 for k, v in by_class.items()},
+             top_kernels_ms=[(k[:80], v / 1e3) for k, v in top], card=smi)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: the smoke runs on a GPU")
+    try:
+        import deepspeed_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"deepspeed_tpu_torch not importable beside chip_smoke.py ({e})")
+    smi = nvidia_smi()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda,
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    entry = kernel_phases(torch)
+    entry["launches"] = main_path(torch, smi)
+    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

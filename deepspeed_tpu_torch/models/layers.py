@@ -1,0 +1,243 @@
+"""Transformer layer primitives: plain functions over dicts of tensors.
+
+Mirrors the dense subset of ``deepspeed_tpu/models/layers.py`` that the
+serving path runs: norms, rotary embeddings, ALiBi slopes, q/k norms, the
+MLP, and the initializers of the attention, MLP, norm and embedding
+leaves (same leaf names, shapes and distributions: normal(0.02), output
+projections scaled by 1/sqrt(2L), the untied LM head by E^-0.5), drawn from
+a ``torch.Generator``. Sharding axes are not carried: the port's slice
+serves on one device.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .config import TransformerConfig
+
+# ---- init helpers -------------------------------------------------------
+
+
+def _normal(gen, shape, dtype, stddev, device):
+    """normal(0, stddev) drawn in f32 and cast, as the JAX initializer does.
+    On the meta device only the shape and dtype are made
+    (``CausalLM.abstract_params``)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * stddev).to(dtype)
+
+
+def _zeros(shape, dtype, device):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _ones(shape, dtype, device):
+    return torch.ones(shape, dtype=dtype, device=device)
+
+
+def bcast(w, ndim: int):
+    """Left-pad ``w`` with size-1 axes to rank ``ndim`` (explicit
+    trailing-dim broadcasting, as the JAX forward writes it)."""
+    return w.reshape((1,) * (ndim - w.dim()) + tuple(w.shape))
+
+
+# ---- norms --------------------------------------------------------------
+
+
+def init_norm(cfg: TransformerConfig, dtype, device):
+    params = {"scale": _ones((cfg.hidden_size,), dtype, device)}
+    if cfg.norm == "layernorm":
+        params["bias"] = _zeros((cfg.hidden_size,), dtype, device)
+    return params
+
+
+def apply_norm(params, x, cfg: TransformerConfig):
+    x32 = x.float()
+    if cfg.norm == "rmsnorm":
+        var = x32.square().mean(dim=-1, keepdim=True)
+        y = x32 * torch.rsqrt(var + cfg.norm_eps)
+        return (y * bcast(params["scale"].float(), y.dim())).to(x.dtype)
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mean) * torch.rsqrt(var + cfg.norm_eps)
+    y = (y * bcast(params["scale"].float(), y.dim())
+         + bcast(params["bias"].float(), y.dim()))
+    return y.to(x.dtype)
+
+
+# ---- rotary embeddings --------------------------------------------------
+
+
+def rope_frequencies(cfg: TransformerConfig, device=None):
+    d = int(cfg.dims_per_head * cfg.rotary_pct)  # partial rotary (GPT-NeoX)
+    d -= d % 2
+    exps = torch.arange(0, d, 2, dtype=torch.float32, device=device) / d
+    return 1.0 / (cfg.rope_theta ** exps)        # (d/2,)
+
+
+def apply_rope(x, positions, inv_freq, *, interleaved=False):
+    """x: (B, S, H, D); positions: (B, S) int.
+
+    ``inv_freq`` has rd/2 entries where rd <= D is the rotary span (partial
+    rotary); dims past rd pass through untouched. ``interleaved`` uses the
+    (x0,x1),(x2,x3)... pair layout (GPT-J/NeoX) instead of split halves."""
+    rd = 2 * inv_freq.shape[0]
+    rot = x[..., :rd].float()
+    angles = positions[..., None].float() * inv_freq[None, None, :]  # (B, S, rd/2)
+    sin = torch.sin(angles)[:, :, None, :]
+    cos = torch.cos(angles)[:, :, None, :]
+    if interleaved:
+        x1 = rot[..., 0::2]
+        x2 = rot[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                          dim=-1).reshape(rot.shape)
+    else:
+        x1, x2 = rot.chunk(2, dim=-1)
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if rd < x.shape[-1]:
+        out = torch.cat([out, x[..., rd:].float()], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---- ALiBi --------------------------------------------------------------
+
+
+def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
+    """Per-head ALiBi slopes (Press et al.; the layout HF BLOOM uses): a
+    geometric sequence from 2^(-8/n) for a power-of-two head count, else the
+    closest power of two's sequence extended with the odd-indexed slopes of
+    the doubled one."""
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if math.log2(num_heads).is_integer():
+        s = pow2_slopes(num_heads)
+    else:
+        base = 2 ** math.floor(math.log2(num_heads))
+        s = pow2_slopes(base) + pow2_slopes(2 * base)[0::2][: num_heads - base]
+    return torch.tensor(s, dtype=torch.float32, device=device)
+
+
+# ---- attention ----------------------------------------------------------
+
+
+def init_attention(gen, cfg: TransformerConfig, dtype, device):
+    e, h, kvh, d = cfg.hidden_size, cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
+    std = 0.02
+    params = {
+        "wq": _normal(gen, (e, h, d), dtype, std, device),
+        "wk": _normal(gen, (e, kvh, d), dtype, std, device),
+        "wv": _normal(gen, (e, kvh, d), dtype, std, device),
+        "wo": _normal(gen, (h, d, e), dtype, std / math.sqrt(2 * cfg.num_layers), device),
+    }
+    if cfg.use_bias or cfg.qkv_bias:
+        params.update(bq=_zeros((h, d), dtype, device),
+                      bk=_zeros((kvh, d), dtype, device),
+                      bv=_zeros((kvh, d), dtype, device))
+    out_bias = cfg.use_bias if cfg.out_bias is None else cfg.out_bias
+    if out_bias:
+        params["bo"] = _zeros((e,), dtype, device)
+    if cfg.qk_norm:
+        q_shape, k_shape = {
+            "full": ((h * d,), (kvh * d,)),
+            "head_dim": ((d,), (d,)),
+            "per_head": ((h, d), (kvh, d)),
+        }[cfg.qk_norm]
+        for nm, shape in (("q_norm", q_shape), ("k_norm", k_shape)):
+            grp = {"scale": _ones(shape, dtype, device)}
+            if cfg.norm == "layernorm" and cfg.qk_norm_bias:
+                grp["bias"] = _zeros(shape, dtype, device)
+            params[nm] = grp
+    return params
+
+
+def apply_qk_norm(norm_params, x, cfg: TransformerConfig):
+    """Normalize q or k heads: x (B, S, H, D). "full" normalizes the
+    flattened per-token (H*D) vector; "head_dim"/"per_head" each head's D
+    dims (the weight is shared or per head)."""
+    b, s, h, d = x.shape
+    x32 = x.float()
+    if cfg.qk_norm == "full":
+        x32 = x32.reshape(b, s, h * d)
+    if cfg.norm == "rmsnorm":
+        var = x32.square().mean(dim=-1, keepdim=True)
+        y = x32 * torch.rsqrt(var + cfg.norm_eps)
+    else:
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = x32.var(dim=-1, keepdim=True, unbiased=False)
+        y = (x32 - mean) * torch.rsqrt(var + cfg.norm_eps)
+    y = y * bcast(norm_params["scale"].float(), y.dim())
+    if "bias" in norm_params:
+        y = y + bcast(norm_params["bias"].float(), y.dim())
+    return y.reshape(b, s, h, d).to(x.dtype)
+
+
+# ---- MLP ----------------------------------------------------------------
+
+
+def init_mlp(gen, cfg: TransformerConfig, dtype, device):
+    e, f = cfg.hidden_size, cfg.ffn_size
+    std = 0.02
+    wo_std = std / math.sqrt(2 * cfg.num_layers)
+    if cfg.activation in ("swiglu", "geglu"):
+        params = {"wi_gate": _normal(gen, (e, f), dtype, std, device),
+                  "wi_up": _normal(gen, (e, f), dtype, std, device),
+                  "wo": _normal(gen, (f, e), dtype, wo_std, device)}
+    else:
+        params = {"wi": _normal(gen, (e, f), dtype, std, device),
+                  "wo": _normal(gen, (f, e), dtype, wo_std, device)}
+    mlp_bias = cfg.use_bias if cfg.mlp_bias is None else cfg.mlp_bias
+    if mlp_bias:
+        params.update(bi=_zeros((f,), dtype, device), bo=_zeros((e,), dtype, device))
+    return params
+
+
+def _mm(x, w):
+    """(..., K) @ (K, N) as one 2-D GEMM."""
+    return (x.reshape(-1, x.shape[-1]) @ w).reshape(*x.shape[:-1], w.shape[-1])
+
+
+def apply_mlp(params, x, cfg: TransformerConfig):
+    dt = cfg.act_dtype
+    mlp_bias = cfg.use_bias if cfg.mlp_bias is None else cfg.mlp_bias
+    if cfg.activation in ("swiglu", "geglu"):
+        g = _mm(x, params["wi_gate"].to(dt))
+        u = _mm(x, params["wi_up"].to(dt))
+        gate = (F.gelu(g, approximate="tanh") if cfg.activation == "geglu"
+                else F.silu(g))
+        h = gate * u
+    else:
+        h = _mm(x, params["wi"].to(dt))
+        if mlp_bias:
+            h = h + bcast(params["bi"].to(dt), h.dim())
+        if cfg.activation == "relu":
+            h = F.relu(h)
+        else:  # "gelu" = tanh approximation (gelu_new); "gelu_exact" = erf
+            h = F.gelu(h, approximate="none" if cfg.activation == "gelu_exact" else "tanh")
+    y = _mm(h, params["wo"].to(dt))
+    if mlp_bias:
+        y = y + bcast(params["bo"].to(dt), y.dim())
+    return y
+
+
+# ---- embeddings ---------------------------------------------------------
+
+
+def init_embeddings(gen, cfg: TransformerConfig, dtype, device):
+    params = {"tok": _normal(gen, (cfg.vocab_size, cfg.hidden_size), dtype, 0.02, device)}
+    if cfg.position == "learned":
+        params["pos"] = _normal(gen, (cfg.max_seq_len, cfg.hidden_size), dtype, 0.02, device)
+    if cfg.type_vocab_size:
+        params["type"] = _normal(gen, (cfg.type_vocab_size, cfg.hidden_size), dtype,
+                                 0.02, device)
+    if cfg.embedding_norm:
+        params["emb_norm"] = init_norm(cfg, dtype, device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _normal(gen, (cfg.hidden_size, cfg.vocab_size), dtype,
+                                    cfg.hidden_size ** -0.5, device)
+        if cfg.lm_head_bias:
+            params["lm_head_bias"] = _zeros((cfg.vocab_size,), dtype, device)
+    return params
