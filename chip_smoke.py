@@ -26,12 +26,31 @@ Phases, each printing one JSON line:
   7. step_profile: one decode and one prefill step at the main path's
      shapes, host wall time per step and device time by kernel class
      (torch.profiler), and the device's idle share.
+The serving engine is then freed, and the training slice runs:
+  8. train_kernel_check: flash attention forward, dq and dk/dv (K3, K4, K5)
+     against their plain versions at gpt2-xl and llama3-8b shapes and on
+     every mask (window, ALiBi, segments, non-causal, an S that is no tile
+     multiple, D = 256); the fused Adam step (K10) at gpt2-xl's largest leaf;
+  9. train_kernel_time: each kernel, its plain version and one PyTorch
+     library call by CUDA events, beside the card's bound;
+ 10. train_path: ``deepspeed_tpu_torch.initialize()`` on gpt2-xl at full
+     width and depth (bf16, AdamW, WarmupLR, clipping, ZeRO-1, 16 x 1024
+     tokens a step in micro-batches of 8), 2 warm-up and 6 timed
+     ``train_batch`` steps and one through ``forward``/``backward``/``step``:
+     finite falling loss, launches = layers x micro-steps for K3/K4/K5 and
+     leaves x steps for K10;
+ 11. train_reference_check: one micro-batch through the flash kernels and
+     through the reference attention: loss, gradient norm, leaf cosines;
+ 12. train_step_profile: device time of a train step by kernel class and
+     the device's idle share.
 Then the kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
 the last line. Without CUDA, or without the package beside it, it exits 1.
 """
 
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -498,6 +517,457 @@ def step_profile(torch, eng, smi):
              top_kernels_ms=[(k[:80], v / 1e3) for k, v in top], card=smi)
 
 
+# ------------------------------------------------------------ training slice
+
+FLASH_SOURCE = "deepspeed_tpu_torch/ops/csrc/flash_attention.cu"
+ADAM_SOURCE = "deepspeed_tpu_torch/ops/csrc/fused_adam.cu"
+FLASH_REPLACES = {"flash_attention_fwd": "deepspeed_tpu/ops/pallas/flash_attention.py:64",
+                  "flash_attention_dq": "deepspeed_tpu/ops/pallas/flash_attention.py:159",
+                  "flash_attention_dkv": "deepspeed_tpu/ops/pallas/flash_attention.py:211"}
+ADAM_REPLACES = "deepspeed_tpu/ops/pallas/fused_adam.py:22"
+TRAIN_MODEL = "gpt2-xl"
+TRAIN_SEQ, TRAIN_MICRO, TRAIN_BATCH = 1024, 8, 16
+FRO_TOL = 1e-2             # relative Frobenius error of each flash output
+# f32 K10 vs the plain version, per buffer (p, m, v) and scaled to that
+# buffer's change in the step: |got - plain| <= ADAM_REL |plain - before|
+# + ADAM_FLOOR max |plain - before|. A kernel that leaves a buffer as it
+# was, or drops a term of its update, misses this by orders of magnitude;
+# f32 rounding stays below a tenth of it.
+ADAM_REL, ADAM_FLOOR = 1e-3, 1e-4
+F32_FLOPS = 67e12          # f32 outside the tensor cores, NVIDIA data sheet
+
+
+def flash_case(torch, name, *, b, s, h, kvh, d, causal=True, window=0, alibi=False,
+               seg=False, seed=0):
+    """One flash-attention input set on the card in bf16: q already scaled
+    by D^-0.5 (as the wrapper hands it to the kernels), k, v, the output
+    cotangent do, and the mask options."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(torch.bfloat16).cuda()
+
+    segs = None
+    if seg:
+        segs = torch.zeros(b, s, dtype=torch.int32)
+        segs[:, s // 3:] = 1
+        segs[:, (2 * s) // 3:] = 2
+        segs[-1, s // 5:] = 3
+        segs = segs.cuda()
+    return dict(name=name, q=rnd(b, s, h, d, scale=d ** -0.5), k=rnd(b, s, kvh, d),
+                v=rnd(b, s, kvh, d), do=rnd(b, s, h, d),
+                kw=dict(causal=causal, window=window, segment_ids=segs,
+                        alibi_slopes=torch.linspace(0.5, 0.01, h).cuda() if alibi else None))
+
+
+def flash_work(case):
+    """(bytes, flops) per kernel on this case's data: each input read once,
+    each output written once; 4 D flops per visible (q, k) pair forward, 6 D
+    for dq, 8 D for dk/dv (two products each per pair)."""
+    import torch
+    q, k, kw = case["q"], case["k"], case["kw"]
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    idx = torch.arange(s, device=q.device)
+    vis = torch.ones(s, s, dtype=torch.bool, device=q.device)
+    if kw["causal"]:
+        vis &= idx[:, None] >= idx[None, :]
+    if kw["window"]:
+        vis &= idx[:, None] - idx[None, :] < kw["window"]
+    if kw["segment_ids"] is not None:
+        sg = kw["segment_ids"]
+        pairs = int((vis[None] & (sg[:, :, None] == sg[:, None, :])).sum()) * h
+    else:
+        pairs = int(vis.sum()) * b * h
+    q_b = b * s * h * d * 2
+    kv_b = b * s * kvh * d * 2
+    row_b = b * h * s * 4
+    return {"flash_attention_fwd": (2 * q_b + 2 * kv_b + row_b, 4 * d * pairs),
+            "flash_attention_dq": (3 * q_b + 2 * kv_b + 2 * row_b, 6 * d * pairs),
+            "flash_attention_dkv": (2 * q_b + 4 * kv_b + 2 * row_b, 8 * d * pairs)}
+
+
+def bound(nbytes, flops, peak_flops=BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_flash(torch, case):
+    """K3, K4, K5 once each on the case, against the plain versions on f32
+    copies of the same inputs (the backward from the kernel's lse and
+    delta). Forward: |out - plain| <= 2e-2 + 2e-2 |plain| (and lse);
+    gradients: max |d - plain| <= 2e-2 max |plain| + 2e-2. The largest
+    values sit in the first causal rows, so that limit alone would pass a
+    kernel wrong on most rows: out, dq, dk and dv are also held to a
+    relative Frobenius error ||got - plain|| / ||plain|| <= 1e-2, and the
+    median |plain| is printed beside each limit."""
+    from deepspeed_tpu_torch.ops import flash_attention as FA
+    q, k, v, do, kw = case["q"], case["k"], case["v"], case["do"], case["kw"]
+    before = [f.launches for f in (FA.flash_attention_fwd, FA.flash_attention_dq,
+                                   FA.flash_attention_dkv)]
+    out, lse = FA.flash_attention_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    dq = FA.flash_attention_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = FA.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    after = [f.launches for f in (FA.flash_attention_fwd, FA.flash_attention_dq,
+                                  FA.flash_attention_dkv)]
+    f32 = [t.float() for t in (q, k, v, do)]
+    p_out, p_lse = FA.flash_attention_fwd_plain(*f32[:3], **kw)
+    p_dq, p_dk, p_dv = FA.flash_attention_bwd_plain(*f32, lse, delta, **kw)
+    row = {"kernel_launches": [a - b for a, b in zip(after, before)]}
+    ok = row["kernel_launches"] == [1, 1, 1]
+    for nm, got, ref in (("out", out, p_out), ("lse", lse, p_lse)):
+        err = (got.float() - ref).abs()
+        row[nm] = float(err.max())
+        ok &= bool((err <= ATOL + RTOL * ref.abs()).all())
+    for nm, got, ref in (("dq", dq, p_dq), ("dk", dk, p_dk), ("dv", dv, p_dv)):
+        err, scale = float((got.float() - ref.float()).abs().max()), float(ref.abs().max())
+        row[nm] = err
+        row[nm + "_limit"] = RTOL * scale + ATOL
+        row[nm + "_median_plain"] = float(ref.abs().median())
+        ok &= err <= row[nm + "_limit"]
+    for nm, got, ref in (("out", out, p_out), ("dq", dq, p_dq), ("dk", dk, p_dk),
+                         ("dv", dv, p_dv)):
+        rel = float(torch.linalg.vector_norm(got.float() - ref.float())
+                    / torch.linalg.vector_norm(ref.float()))
+        row[nm + "_rel_fro"] = rel
+        ok &= rel <= FRO_TOL
+    q_, k_ = case["q"], case["k"]
+    emit("train_kernel_check", kernel="flash_attention", case=case["name"],
+         shape=dict(B=q_.shape[0], S=q_.shape[1], H=q_.shape[2], KVH=k_.shape[2],
+                    D=q_.shape[3], causal=kw["causal"], window=kw["window"],
+                    alibi=kw["alibi_slopes"] is not None,
+                    segments=kw["segment_ids"] is not None),
+         max_abs_err=row, within=ok)
+    if not ok:
+        fail(f"flash attention {case['name']}: {row}")
+    return row
+
+
+def adam_inputs(torch, n, seed=0):
+    """A mid-training state of one f32 leaf of n elements on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.randn(n, generator=g, device="cuda") * 0.02
+    grad = torch.randn(n, generator=g, device="cuda") * 1e-3
+    m = torch.randn(n, generator=g, device="cuda") * 1e-4
+    v = torch.rand(n, generator=g, device="cuda") * 1e-6
+    return p, grad, m, v
+
+
+ADAM_KW = dict(step=3.0, lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1)
+
+
+def train_kernel_phases(torch, largest_leaf):
+    """train_kernel_check and train_kernel_time. Returns the kernel entries
+    (without launches) for K3, K4, K5 and K10."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import flash_attention as FA
+    from deepspeed_tpu_torch.ops.fused_adam import fused_adam_flat, fused_adam_flat_plain
+
+    main = dict(b=TRAIN_MICRO, s=TRAIN_SEQ, h=25, kvh=25, d=64)     # gpt2-xl, causal
+    cases = [
+        ("gpt2xl_causal", main),
+        ("llama3_8b_gqa", dict(b=1, s=2048, h=32, kvh=8, d=128, seed=1)),
+        ("d256", dict(b=1, s=512, h=4, kvh=2, d=256, seed=2)),
+        ("window256", dict(b=2, s=1024, h=8, kvh=8, d=64, window=256, seed=3)),
+        ("alibi", dict(b=2, s=512, h=8, kvh=4, d=64, alibi=True, seed=4)),
+        ("segments", dict(b=2, s=512, h=4, kvh=2, d=128, seg=True, seed=5)),
+        ("noncausal", dict(b=2, s=512, h=4, kvh=4, d=64, causal=False, seed=6)),
+        ("tail_s1000", dict(b=2, s=1000, h=4, kvh=2, d=64, seed=7)),
+    ]
+    worst = {"out": 0.0, "dq": 0.0, "dkv": 0.0}
+    for name, kw in cases:
+        row = check_flash(torch, flash_case(torch, name, **kw))
+        worst["out"] = max(worst["out"], row["out"])
+        worst["dq"] = max(worst["dq"], row["dq"])
+        worst["dkv"] = max(worst["dkv"], row["dk"], row["dv"])
+        torch.cuda.empty_cache()
+
+    # K10 at the largest leaf of the main path, from a mid-training state
+    ap, ag, am, av = adam_inputs(torch, largest_leaf)
+    ref = [t.clone() for t in (ap, ag, am, av)]
+    start = [t.clone() for t in (ap, am, av)]
+    before = fused_adam_flat.launches
+    fused_adam_flat(ap, ag, am, av, **ADAM_KW)
+    fused_adam_flat_plain(*ref, **ADAM_KW)
+    torch.cuda.synchronize()
+    adam_err, adam_ok = 0.0, fused_adam_flat.launches == before + 1
+    adam_rows = {}
+    for nm, got, want, was in (("p", ap, ref[0], start[0]), ("m", am, ref[2], start[1]),
+                               ("v", av, ref[3], start[2])):
+        change = was.sub_(want).abs_()
+        max_change = float(change.max())
+        err = (got - want).abs_()
+        max_err = float(err.max())
+        adam_err = max(adam_err, max_err)
+        # the largest err / (ADAM_REL |change| + ADAM_FLOOR max|change|)
+        used = float(err.div_(change.mul_(ADAM_REL).add_(ADAM_FLOOR * max_change)).max())
+        adam_rows[nm] = dict(max_abs_err=max_err, max_change=max_change,
+                             share_of_limit=used)
+        adam_ok &= used <= 1.0
+        del change, err
+    del start
+    emit("train_kernel_check", kernel="fused_adam", case=f"{TRAIN_MODEL}_largest_leaf",
+         n=largest_leaf, max_abs_err=adam_err, per_buffer=adam_rows,
+         rel=ADAM_REL, floor=ADAM_FLOOR, within=adam_ok)
+    if not adam_ok:
+        fail(f"fused adam: {adam_rows}")
+    del ref
+
+    # timing at the main path's shapes
+    entries = []
+    case = flash_case(torch, "gpt2xl_causal", **main)
+    q, k, v, do, kw = case["q"], case["k"], case["v"], case["do"], case["kw"]
+    f32 = [t.float() for t in (q, k, v, do)]
+    out, lse = FA.flash_attention_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_do = do.transpose(1, 2)
+    # the library yardsticks once each, with the kernels' repetitions and
+    # before the plain versions fill the allocator with large temporaries;
+    # one SDPA backward computes dq, dk and dv, so it stands beside K4 and K5
+    library_ms = {
+        "fwd": cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        "bwd": cuda_ms(torch, lambda i: torch.autograd.grad(
+            lib_out, (qt, kt, vt), lib_do, retain_graph=True))}
+    timed = {
+        "flash_attention_fwd": (
+            lambda i: FA.flash_attention_fwd(q, k, v, **kw),
+            lambda i: FA.flash_attention_fwd_plain(*f32[:3], **kw), "fwd"),
+        "flash_attention_dq": (
+            lambda i: FA.flash_attention_dq(q, k, v, do, lse, delta, **kw),
+            lambda i: FA.flash_attention_bwd_plain(*f32, lse, delta, **kw), "bwd"),
+        "flash_attention_dkv": (
+            lambda i: FA.flash_attention_dkv(q, k, v, do, lse, delta, **kw),
+            lambda i: FA.flash_attention_bwd_plain(*f32, lse, delta, **kw), "bwd"),
+    }
+    work = flash_work(case)
+    errs = {"flash_attention_fwd": worst["out"], "flash_attention_dq": worst["dq"],
+            "flash_attention_dkv": worst["dkv"]}
+    for name, (kern, plain, lib) in timed.items():
+        nbytes, flops = work[name]
+        b_ms, b_by = bound(nbytes, flops)
+        row = dict(ms=cuda_ms(torch, kern),
+                   plain_ms=cuda_ms(torch, plain, reps=3, iters=3),
+                   library_ms=library_ms[lib],
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+        emit("train_kernel_time", kernel=name, case="gpt2xl_causal",
+             shape=dict(B=TRAIN_MICRO, S=TRAIN_SEQ, H=25, KVH=25, D=64, dtype="bfloat16"),
+             library=("F.scaled_dot_product_attention forward" if name.endswith("fwd") else
+                      "autograd backward of F.scaled_dot_product_attention (dq, dk and dv "
+                      "together)"), **row)
+        entries.append({"name": name, "route": "cuda", "source": FLASH_SOURCE,
+                        "replaces": FLASH_REPLACES[name], "max_abs_err": errs[name],
+                        **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms")}})
+    del case, f32, out, lse, delta, qt, kt, vt, lib_out, timed
+    torch.cuda.empty_cache()
+
+    nbytes, flops = 28 * largest_leaf, 15 * largest_leaf
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    lib_p = torch.nn.Parameter(ap)
+    lib_p.grad = ag
+    lib_opt = torch.optim.AdamW([lib_p], lr=ADAM_KW["lr"], betas=ADAM_KW["betas"],
+                                eps=ADAM_KW["eps"], weight_decay=ADAM_KW["weight_decay"],
+                                fused=True)
+    lib_opt.step()
+    row = dict(ms=cuda_ms(torch, lambda i: fused_adam_flat(ap, ag, am, av, **ADAM_KW)),
+               plain_ms=cuda_ms(torch, lambda i: fused_adam_flat_plain(ap, ag, am, av, **ADAM_KW),
+                                reps=3, iters=3),
+               library_ms=cuda_ms(torch, lambda i: lib_opt.step(), reps=3, iters=10),
+               bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+    emit("train_kernel_time", kernel="fused_adam", case=f"{TRAIN_MODEL}_largest_leaf",
+         n=largest_leaf, library="torch.optim.AdamW(fused=True).step()", **row)
+    entries.append({"name": "fused_adam", "route": "cuda", "source": ADAM_SOURCE,
+                    "replaces": ADAM_REPLACES, "max_abs_err": adam_err,
+                    **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms")}})
+    del ap, ag, am, av, lib_p, lib_opt
+    torch.cuda.empty_cache()
+    return entries
+
+
+def train_config():
+    return {
+        "train_batch_size": TRAIN_BATCH,
+        "train_micro_batch_size_per_gpu": TRAIN_MICRO,
+        "bf16": {"enabled": True},
+        "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.1}},
+        "scheduler": {"type": "WarmupLR", "params": {"warmup_num_steps": 8}},
+        "gradient_clipping": 1.0,
+        "zero_optimization": {"stage": 1},
+        "steps_per_print": 10 ** 9,
+        "seed": 0,
+    }
+
+
+def train_path(torch, smi):
+    """train_path: initialize() on gpt2-xl at full width and depth (random
+    weights from seed 0, bf16 activations, f32 params and Adam state), then
+    2 warm-up and 6 timed train_batch steps on one fixed random batch, and
+    one more step through forward/backward/step. Returns (engine, batch,
+    launches by kernel name, timed ms per step)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.ops import flash_attention as FA
+    from deepspeed_tpu_torch.ops.fused_adam import fused_adam_flat
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, _, _, _ = dst.initialize(model=build_model(TRAIN_MODEL), config=train_config())
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = engine.model.cfg
+    n_params = sum(p.numel() for p in tree_leaves(engine.module_params))
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), generator=g)
+    batch = {"input_ids": ids[:, :-1].cuda(), "labels": ids[:, 1:].cuda()}
+
+    counters = [FA.flash_attention_fwd, FA.flash_attention_dq, FA.flash_attention_dkv,
+                fused_adam_flat]
+    for f in counters:
+        f.launches = 0
+    warm, timed = 2, 6
+    losses = [engine.train_batch(batch) for _ in range(warm)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [engine.train_batch(batch) for _ in range(timed)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # one more step through the decomposed API, micro-batch by micro-batch
+    micro_losses = []
+    for i in range(engine.gradient_accumulation_steps()):
+        loss = engine.forward({k: v[i * TRAIN_MICRO:(i + 1) * TRAIN_MICRO]
+                               for k, v in batch.items()})
+        engine.backward(loss)
+        engine.step()
+        micro_losses.append(loss.detach())
+    losses.append(sum(micro_losses) / len(micro_losses))
+    launches = {f.__name__: f.launches for f in counters}
+    losses = [float(x) for x in losses]
+
+    steps = warm + timed + 1
+    micro = steps * engine.gradient_accumulation_steps()
+    want = {"flash_attention_fwd": cfg.num_layers * micro,
+            "flash_attention_dq": cfg.num_layers * micro,
+            "flash_attention_dkv": cfg.num_layers * micro,
+            "fused_adam_flat": len(tree_leaves(engine.module_params)) * steps}
+    ms_step = wall * 1e3 / timed
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ * timed / wall
+    flops_token = 6 * n_params + 12 * cfg.num_layers * cfg.hidden_size * TRAIN_SEQ
+    ok = (all(map(math.isfinite, losses)) and losses[-1] < losses[0] and launches == want)
+    emit("train_path", model=TRAIN_MODEL, layers=cfg.num_layers, hidden=cfg.hidden_size,
+         heads=cfg.num_heads, params=n_params, seq=TRAIN_SEQ, micro_batch=TRAIN_MICRO,
+         gas=engine.gradient_accumulation_steps(), train_batch_size=TRAIN_BATCH,
+         zero_stage=engine.zero_optimization_stage(), dtype="bfloat16 activations, f32 params",
+         steps=steps, warmup_steps=warm, timed_steps=timed,
+         losses=losses, last_step="forward/backward/step", launches=launches,
+         launches_expected=want, ms_per_step=ms_step, tokens_per_s=tokens_s,
+         mfu=flops_token * tokens_s / BF16_FLOPS,
+         mfu_formula="(6 * params + 12 * layers * hidden * seq) * tokens/s / 989e12",
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, init_s=init_s, card=smi,
+         within=ok)
+    if not ok:
+        fail(f"train path: losses {losses}, launches {launches} (expected {want})")
+    return engine, batch, launches, ms_step
+
+
+def train_reference_check(torch, engine, batch):
+    """One 2 x 1024 micro-batch through the flash kernels and through
+    attn_impl="reference", on the trained weights: loss within 1 %, global
+    gradient norm within 2 %, per-leaf gradient cosine >= 0.99."""
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_paths
+    leaves = tree_leaves(engine.module_params)
+    mb = {k: v[:2] for k, v in batch.items()}
+    results = {}
+    for impl in ("flash", "reference"):
+        model = build_model(engine.model.cfg.replace(attn_impl=impl))
+        loss = model.loss(engine.module_params, mb)
+        grads = torch.autograd.grad(loss, leaves)
+        results[impl] = (float(loss), [g.float() for g in grads])
+        del loss, grads
+    (lf, gf), (lr, gr) = results["flash"], results["reference"]
+    nf = float(torch.stack([g.norm() for g in gf]).norm())
+    nr = float(torch.stack([g.norm() for g in gr]).norm())
+    paths = [path for path, _ in tree_paths(engine.module_params)]
+    # the key bias adds one q.bk to every score of a query row, which the
+    # softmax cancels: its exact gradient is 0 and both paths give rounding
+    # noise, so its cosine is not compared (its norms are reported)
+    zero = {p: (float(a.norm()), float(b.norm()))
+            for p, a, b in zip(paths, gf, gr) if p.endswith("attn.bk")}
+    cos = {p: float(torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0))
+           for p, a, b in zip(paths, gf, gr) if p not in zero}
+    worst = min(cos, key=cos.get)
+    ok = (abs(lf - lr) <= 0.01 * abs(lr) and abs(nf - nr) <= 0.02 * nr
+          and cos[worst] >= 0.99 and math.isfinite(lf))
+    emit("train_reference_check", micro_batch=2, seq=TRAIN_SEQ, loss_flash=lf,
+         loss_reference=lr, grad_norm_flash=nf, grad_norm_reference=nr,
+         min_leaf_cosine=cos[worst], min_cosine_leaf=worst, leaf_cosines=cos,
+         zero_gradient_leaf_norms=zero, within=ok)
+    if not ok:
+        fail(f"train reference check: loss {lf} vs {lr}, norm {nf} vs {nr}, "
+             f"cosine {cos[worst]} at {worst}")
+
+
+def _train_kernel_class(name):
+    low = name.lower()
+    if "flash_fwd" in low:
+        return "flash_fwd"
+    if "flash_dq" in low or "flash_dkv" in low:
+        return "flash_bwd"
+    if "adam_kernel" in low:
+        return "adam"
+    if any(s in low for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")):
+        return "gemm"
+    return "other"
+
+
+def train_step_profile(torch, engine, batch, ms_step, smi):
+    """Device time of two train_batch steps by kernel class (torch.profiler)
+    against the timed steps' wall time: the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    steps = 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.train_batch(batch)
+        torch.cuda.synchronize()
+    by_class, by_name = {}, {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us() / steps
+        cls = _train_kernel_class(ev.name)
+        by_class[cls] = by_class.get(cls, 0.0) + us
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + us
+    busy_ms = sum(by_class.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:8]
+    emit("train_step_profile", model=TRAIN_MODEL, wall_ms=ms_step, device_busy_ms=busy_ms,
+         idle_share=max(0.0, 1 - busy_ms / ms_step),
+         device_ms_by_class={k: v / 1e3 for k, v in by_class.items()},
+         top_kernels_ms=[(k[:80], v / 1e3) for k, v in top], card=smi)
+
+
+def train_phases(torch, smi):
+    """The training slice's phases; returns its kernel entries."""
+    from deepspeed_tpu_torch.models import build_model
+    cfg = build_model(TRAIN_MODEL).cfg
+    largest_leaf = cfg.num_layers * cfg.hidden_size * cfg.ffn_size   # mlp.wi / mlp.wo
+    entries = train_kernel_phases(torch, largest_leaf)
+    engine, batch, launches, ms_step = train_path(torch, smi)
+    train_reference_check(torch, engine, batch)
+    train_step_profile(torch, engine, batch, ms_step, smi)
+    for e in entries:
+        e["launches"] = launches["fused_adam_flat" if e["name"] == "fused_adam" else e["name"]]
+    del engine
+    torch.cuda.empty_cache()
+    return entries
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -516,7 +986,10 @@ def main():
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     entry = kernel_phases(torch)
     entry["launches"] = main_path(torch, smi)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    gc.collect()                  # the serving engine is gone: its pools go back
+    torch.cuda.empty_cache()
+    entries = train_phases(torch, smi)
+    print(json.dumps({"kernels": [entry] + entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,45 @@
-"""PyTorch/CUDA port of deepspeed_tpu."""
+"""PyTorch/CUDA port of deepspeed_tpu.
+
+``initialize()`` returns a training engine over one card; the serving
+engine is ``inference.v2.InferenceEngineV2``.
+"""
+
+
+def initialize(args=None,
+               model=None,
+               optimizer=None,
+               model_parameters=None,
+               training_data=None,
+               lr_scheduler=None,
+               distributed_port=29500,
+               mpu=None,
+               dist_init_required=None,
+               collate_fn=None,
+               config=None,
+               config_params=None,
+               device=None):
+    """Initialize the training engine. Mirrors ``deepspeed_tpu.initialize``.
+
+    Arguments:
+        model: a ``deepspeed_tpu_torch`` ``CausalLM`` (``models.build_model``).
+        optimizer: optional optimizer name or instance overriding the config.
+        config: DeepSpeed-style JSON config (dict, path, or JSON string).
+        device: where to train; None means the current CUDA device and
+            raises without a GPU (``"cpu"`` runs the plain PyTorch path).
+
+    Returns: ``engine, optimizer, training_dataloader, lr_scheduler``. The
+    engine's dataloader is not ported yet: ``training_data`` raises.
+    """
+    from .runtime.engine import DeepSpeedEngine
+
+    if config is None:
+        config = config_params
+    if config is None and args is not None:
+        config = getattr(args, "deepspeed_config", None)
+    if model is None:
+        raise ValueError("deepspeed_tpu_torch.initialize requires a model")
+    engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
+                             model_parameters=model_parameters, training_data=training_data,
+                             lr_scheduler=lr_scheduler, mpu=mpu, collate_fn=collate_fn,
+                             config=config, device=device)
+    return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler

@@ -1,8 +1,9 @@
 """Transformer layer primitives: plain functions over dicts of tensors.
 
 Mirrors the dense subset of ``deepspeed_tpu/models/layers.py`` that the
-serving path runs: norms, rotary embeddings, ALiBi slopes, q/k norms, the
-MLP, and the initializers of the attention, MLP, norm and embedding
+serving and training paths run: norms, rotary embeddings, ALiBi slopes, q/k
+norms, the training branch of ``apply_attention``, the MLP, and the
+initializers of the attention, MLP, norm and embedding
 leaves (same leaf names, shapes and distributions: normal(0.02), output
 projections scaled by 1/sqrt(2L), the untied LM head by E^-0.5), drawn from
 a ``torch.Generator``. Sharding axes are not carried: the port's slice
@@ -14,6 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..ops.attention import multihead_attention
 from .config import TransformerConfig
 
 # ---- init helpers -------------------------------------------------------
@@ -54,16 +56,17 @@ def init_norm(cfg: TransformerConfig, dtype, device):
 
 
 def apply_norm(params, x, cfg: TransformerConfig):
+    """RMSNorm or LayerNorm over the last axis in f32, cast back to x's
+    dtype. The fused torch norms compute the JAX formula
+    ((x - mean) * rsqrt(var + eps) * scale + bias) and save only their
+    input and row statistics for the backward."""
     x32 = x.float()
+    shape = (x.shape[-1],)
     if cfg.norm == "rmsnorm":
-        var = x32.square().mean(dim=-1, keepdim=True)
-        y = x32 * torch.rsqrt(var + cfg.norm_eps)
-        return (y * bcast(params["scale"].float(), y.dim())).to(x.dtype)
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = x32.var(dim=-1, keepdim=True, unbiased=False)
-    y = (x32 - mean) * torch.rsqrt(var + cfg.norm_eps)
-    y = (y * bcast(params["scale"].float(), y.dim())
-         + bcast(params["bias"].float(), y.dim()))
+        y = F.rms_norm(x32, shape, params["scale"].float(), cfg.norm_eps)
+    else:
+        y = F.layer_norm(x32, shape, params["scale"].float(), params["bias"].float(),
+                         cfg.norm_eps)
     return y.to(x.dtype)
 
 
@@ -173,6 +176,45 @@ def apply_qk_norm(norm_params, x, cfg: TransformerConfig):
     if "bias" in norm_params:
         y = y + bcast(norm_params["bias"].float(), y.dim())
     return y.reshape(b, s, h, d).to(x.dtype)
+
+
+def apply_attention(params, x, cfg: TransformerConfig, *, positions=None, inv_freq=None,
+                    segment_ids=None, window=None):
+    """The training branch of the JAX ``apply_attention`` (no KV cache):
+    x (B, S, E) -> (B, S, E). q/k/v projections, biases, q/k norm and RoPE,
+    then ``multihead_attention`` (the flash kernels on the card where
+    eligible; an ALiBi model passes its slopes down) and the output
+    projection. ``window``: this layer's sliding window (int, or a tensor;
+    <= 0 is global); None takes a uniform ``cfg.sliding_window``."""
+    if window is None and cfg.sliding_window is not None and cfg.local_attention_every is None:
+        window = cfg.sliding_window   # uniform window (Mistral)
+    dt = cfg.act_dtype
+    b, s, e = x.shape
+    h, kvh, d = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
+    q = _mm(x, params["wq"].to(dt).reshape(e, h * d)).view(b, s, h, d)
+    k = _mm(x, params["wk"].to(dt).reshape(e, kvh * d)).view(b, s, kvh, d)
+    v = _mm(x, params["wv"].to(dt).reshape(e, kvh * d)).view(b, s, kvh, d)
+    if cfg.use_bias or cfg.qkv_bias:
+        q = q + bcast(params["bq"].to(dt), q.dim())
+        k = k + bcast(params["bk"].to(dt), k.dim())
+        v = v + bcast(params["bv"].to(dt), v.dim())
+    if cfg.qk_norm:
+        q = apply_qk_norm(params["q_norm"], q, cfg)
+        k = apply_qk_norm(params["k_norm"], k, cfg)
+    if cfg.position == "rope":
+        if positions is None:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+        q = apply_rope(q, positions, inv_freq, interleaved=cfg.rope_interleaved)
+        k = apply_rope(k, positions, inv_freq, interleaved=cfg.rope_interleaved)
+    slopes = alibi_slopes(cfg.num_heads, x.device) if cfg.position == "alibi" else None
+    out = multihead_attention(q, k, v, causal=cfg.causal, segment_ids=segment_ids,
+                              alibi_slopes=slopes, window=window,
+                              impl=None if cfg.attn_impl == "auto" else cfg.attn_impl,
+                              scale=cfg.attn_scale, softcap=cfg.attn_softcap)
+    y = _mm(out.reshape(b, s, h * d), params["wo"].to(dt).reshape(h * d, e))
+    if "bo" in params:
+        y = y + bcast(params["bo"].to(dt), y.dim())
+    return y
 
 
 # ---- MLP ----------------------------------------------------------------

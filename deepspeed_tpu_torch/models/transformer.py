@@ -1,17 +1,32 @@
-"""Causal transformer LM: the serving model of the port.
+"""Causal transformer LM: the serving and training model of the port.
 
 Mirrors ``deepspeed_tpu/models/transformer.py`` for what the paged serving
-path needs: ``CausalLM`` with ``init`` (a plain dict of tensors keyed like
-the JAX params tree, layer leaves stacked along a leading layer axis),
-``abstract_params``, ``_layer_windows``, the homogeneous branch of
-``walk_layer_plan`` (a Python loop in place of ``lax.scan``) and
-``build_model``. Heterogeneous (grouped) layer plans, MoE layers and the
-BERT-style encoders are not ported yet (see ROADMAP.md).
+path and the training path need: ``CausalLM`` with ``init`` (a plain dict
+of tensors keyed like the JAX params tree, layer leaves stacked along a
+leading layer axis), ``abstract_params``, ``_layer_windows``, the
+homogeneous branch of ``walk_layer_plan`` (a Python loop in place of
+``lax.scan``), the training forward and loss (``embed_fwd``, ``_layer_fn``,
+``hidden_states``, ``head_loss``, ``apply``, ``loss``), the loss helpers
+``lm_head_logits`` / ``masked_token_nll`` / ``logit_buffer_bytes``, and
+``build_model``. Heterogeneous (grouped) layer plans, MoE layers,
+``act_quant_bits`` and the BERT-style encoders are not ported yet (see
+ROADMAP.md).
+
+The training forward keeps the parameters f32 and stacked (L, ...). Each
+stacked leaf that JAX casts with ``.astype(dt)`` is cast to the activation
+dtype once per forward, then split into per-layer views with one
+``torch.unbind`` per leaf: the backward of ``unbind`` stacks the layer
+gradients into one (L, ...) tensor, where indexing ``leaf[i]`` per layer
+would write a full (L, ...) zero tensor per layer. The backward of the
+cast yields f32 gradients, as JAX's ``astype`` does. Norm leaves stay in
+their stored dtype (``apply_norm`` reads them in f32).
 """
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..accelerator import get_device
+from ..ops.cross_entropy import lm_cross_entropy
 from . import layers as L
 from .config import TransformerConfig, get_config
 
@@ -21,6 +36,59 @@ def layer_slice(tree, i: int):
     indexed on its leading (layer) axis, as views."""
     return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def training_layer_views(layers_params, num_layers: int, dt):
+    """Per-layer param trees for the training forward: every stacked leaf
+    outside a norm group cast to ``dt`` once, then unbound along the layer
+    axis (see the module docstring)."""
+    def split(tree, in_norm=False):
+        out = {}
+        for k, v in tree.items():
+            norm = in_norm or "norm" in k
+            if isinstance(v, dict):
+                out[k] = split(v, norm)
+            else:
+                out[k] = (v if norm else v.to(dt)).unbind(0)
+        return out
+
+    def pick(tree, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+    views = split(layers_params)
+    return [pick(views, i) for i in range(num_layers)]
+
+
+def lm_head_logits(h, w, transpose, dt, bias=None, softcap=0.0):
+    """logits = h @ (w if transpose else w.T) (+ bias): (B, S, E) -> (B, S, V).
+
+    ``softcap``: final-logit softcapping (cap * tanh(logits / cap))."""
+    w = w.to(dt)
+    logits = h @ (w if transpose else w.t())
+    if bias is not None:
+        logits = logits + bias.to(logits.dtype)
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    return logits
+
+
+def masked_token_nll(logits, labels, loss_mask=None):
+    """Mean f32 cross-entropy over (B, S) tokens; ``loss_mask`` weights (or
+    drops) positions."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logits = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - label_logits
+    if loss_mask is None:
+        return nll.mean()
+    loss_mask = loss_mask.float()
+    return (nll * loss_mask).sum() / loss_mask.sum().clamp_min(1.0)
+
+
+def logit_buffer_bytes(n_tokens, cfg):
+    """Size of the (B, S, V) logits the dense loss would materialize: the
+    chunked cross-entropy's engagement test."""
+    return n_tokens * cfg.vocab_size * (2 if cfg.act_dtype != torch.float32 else 4)
 
 
 def walk_layer_plan(layers_params, num_layers: int, xs, carry, body):
@@ -92,6 +160,129 @@ class CausalLM:
     def abstract_params(self, dtype=None):
         """The params tree on the meta device: shapes and dtypes, no memory."""
         return self.init(device="meta", dtype=dtype)
+
+    # -- training forward and loss --
+
+    def embed_fwd(self, embed_params, input_ids, positions=None):
+        """Token (+ learned position) embedding lookup: (B, S) -> (B, S, E)."""
+        cfg = self.cfg
+        dt = cfg.act_dtype
+        input_ids = input_ids.long()
+        h = embed_params["tok"].to(dt)[input_ids]
+        if cfg.embed_scale != 1.0:   # Gemma: sqrt(E), cast like HF's normalizer
+            h = h * torch.tensor(cfg.embed_scale, dtype=dt)
+        if cfg.position == "learned":
+            if positions is None:
+                positions = torch.arange(input_ids.shape[1], device=h.device).expand(
+                    input_ids.shape)
+            h = h + embed_params["pos"].to(dt)[positions.long() + cfg.position_offset]
+        if cfg.embedding_norm:   # BLOOM post-embedding layernorm
+            h = L.apply_norm(embed_params["emb_norm"], h, cfg)
+        return h
+
+    def _layer_fn(self, lp, h, positions, segment_ids, inv_freq, window=None):
+        """One pre-norm decoder layer: (B, S, E) -> (B, S, E)."""
+        cfg = self.cfg
+        a_in = L.apply_norm(lp["norm1"], h, cfg)
+        attn_out = L.apply_attention(lp["attn"], a_in, cfg, positions=positions,
+                                     inv_freq=inv_freq, segment_ids=segment_ids,
+                                     window=window)
+        if cfg.sandwich_norm:   # Gemma-2: norm the sublayer OUTPUT pre-residual
+            attn_out = L.apply_norm(lp["norm3"], attn_out, cfg)
+        if cfg.parallel_block:
+            # NeoX/Falcon parallel residual: attn and mlp both read the
+            # pre-attention stream; one residual add
+            m_in = L.apply_norm(lp["norm2"], h, cfg)
+        else:
+            h = h + attn_out
+            m_in = L.apply_norm(lp["norm2"], h, cfg)
+        mlp_out = L.apply_mlp(lp["mlp"], m_in, cfg)
+        if cfg.sandwich_norm:
+            mlp_out = L.apply_norm(lp["norm4"], mlp_out, cfg)
+        if cfg.parallel_block:
+            return h + attn_out + mlp_out
+        return h + mlp_out
+
+    def hidden_states(self, params, input_ids, *, positions=None, segment_ids=None):
+        """Embed + layer stack + final norm: (B, S) -> (B, S, E).
+
+        ``cfg.remat``: "none", or "full" (each layer recomputed in the
+        backward through ``torch.utils.checkpoint``)."""
+        cfg = self.cfg
+        if cfg.act_quant_bits or cfg.post_norm:
+            raise NotImplementedError(
+                "act_quant_bits and post-norm blocks are not ported yet "
+                "(ROADMAP.md section A, item 2)")
+        if cfg.remat not in ("none", "full"):
+            raise NotImplementedError(
+                f"remat policy {cfg.remat!r} is not ported (the port has 'none' and "
+                "'full'; ROADMAP.md section A, item 16)")
+        h = self.embed_fwd(params["embed"], input_ids, positions)
+        if positions is not None:
+            positions = positions.long()
+        inv_freq = self.inv_freq(h.device)
+        windows = self._layer_windows() or [None] * cfg.num_layers
+        views = training_layer_views(params["layers"], cfg.num_layers, cfg.act_dtype)
+        for lp, win in zip(views, windows):
+            if cfg.remat == "full":
+                h = checkpoint(self._layer_fn, lp, h, positions, segment_ids, inv_freq, win,
+                               use_reentrant=False)
+            else:
+                h = self._layer_fn(lp, h, positions, segment_ids, inv_freq, win)
+        return L.apply_norm(params["final_norm"], h, cfg)
+
+    def _lm_head_weight(self, params):
+        """(w, transpose): logits = h @ (w.T if not transpose else w)."""
+        if self.cfg.tie_embeddings:
+            return params["embed"]["tok"], False
+        return params["embed"]["lm_head"], True
+
+    def _chunked_loss(self, n_tokens):
+        cfg = self.cfg
+        return (cfg.loss_chunks > 0 and cfg.vocab_size >= 4096
+                and logit_buffer_bytes(n_tokens, cfg) > cfg.loss_chunk_threshold_bytes)
+
+    def head_loss(self, head_params, h, labels, loss_mask=None):
+        """Final norm + lm head + cross-entropy from hidden states.
+        ``head_params``: {"embed": ..., "final_norm": ...}."""
+        cfg = self.cfg
+        h = L.apply_norm(head_params["final_norm"], h, cfg)
+        w, transpose = self._lm_head_weight(head_params)
+        if self._chunked_loss(labels.numel()):
+            return lm_cross_entropy(h, w.to(h.dtype), labels, loss_mask=loss_mask,
+                                    n_chunks=cfg.loss_chunks, transpose_w=transpose,
+                                    softcap=cfg.logit_softcap)
+        logits = lm_head_logits(h, w, transpose, cfg.act_dtype, softcap=cfg.logit_softcap)
+        return masked_token_nll(logits, labels, loss_mask)
+
+    def apply(self, params, input_ids, *, positions=None, segment_ids=None):
+        """input_ids: (B, S) -> logits (B, S, V)."""
+        h = self.hidden_states(params, input_ids, positions=positions,
+                               segment_ids=segment_ids)
+        w, transpose = self._lm_head_weight(params)
+        return lm_head_logits(h, w, transpose, self.cfg.act_dtype,
+                              bias=params["embed"].get("lm_head_bias"),
+                              softcap=self.cfg.logit_softcap)
+
+    def loss(self, params, batch):
+        """batch: dict(input_ids (B, S), labels (B, S), optional loss_mask,
+        positions, segment_ids). f32 cross-entropy; past
+        ``loss_chunk_threshold_bytes`` of logits the vocab-chunked fused loss
+        takes over and the (B, S, V) logits never exist."""
+        cfg = self.cfg
+        labels = batch["labels"]
+        mask = batch.get("loss_mask")
+        if self._chunked_loss(batch["input_ids"].numel()):
+            h = self.hidden_states(params, batch["input_ids"],
+                                   positions=batch.get("positions"),
+                                   segment_ids=batch.get("segment_ids"))
+            w, transpose = self._lm_head_weight(params)
+            return lm_cross_entropy(h, w.to(h.dtype), labels, loss_mask=mask,
+                                    n_chunks=cfg.loss_chunks, transpose_w=transpose,
+                                    softcap=cfg.logit_softcap)
+        logits = self.apply(params, batch["input_ids"], positions=batch.get("positions"),
+                            segment_ids=batch.get("segment_ids"))
+        return masked_token_nll(logits, labels, mask)
 
     def _layer_windows(self):
         """Per-layer window list for mixed local/global patterns

@@ -26,6 +26,7 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "deepspeed_tpu_torch.inference.v2.engine_v2" in mods
+    assert "deepspeed_tpu_torch.runtime.engine" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
