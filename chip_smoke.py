@@ -43,6 +43,32 @@ The serving engine is then freed, and the training slice runs:
      through the reference attention: loss, gradient norm, leaf cosines;
  12. train_step_profile: device time of a train step by kernel class and
      the device's idle share.
+The training engine is then freed, and the v1 inference and weight-only
+quantization slice runs:
+ 13. v1_kernel_check / v1_kernel_time: fused decode attention (K2) against
+     its plain version at llama3-8b decode shapes (cache_len 8192, 8065,
+     4097, 1 and 0 in one batch; the main path's B = 4 full caches; head
+     dims 64/192/256 and 1 to 16 query heads per kv head), timed beside its
+     bound and SDPA; v1_crossover: K2 against the masked einsum at S_max
+     2048, 4096 and 8192;
+ 14. quant_kernel_check / quant_kernel_time: the int8 and int4 group
+     quantizers (K7, K8) on llama3-8b's stacked wi_gate leaf, q and scales
+     byte-identical to their plain versions;
+ 15. woq_kernel_time: the weight-only-quantized matmul (K6) at bits 8, 4, 6
+     on the seven projection shapes at M = 4 and 2048 (relative Frobenius
+     error <= 1e-2), beside its bound and torch.matmul on the dequantized
+     weight;
+ 16. v1_main_path: ``init_inference(llama3-8b).generate()`` at full width
+     and depth, 4 prompts of 8064 tokens, 128 greedy new tokens over an
+     8192-slot cache: K2 launches = layers x 127 decode steps; TTFT, decode
+     tokens/s, peak memory;
+ 17. v1_reference_check: the prefill's last logits against
+     ``engine.forward`` (flash) and one decode step through K2 against the
+     masked einsum, within 5 % of the logit range; v1_step_profile;
+ 18. quant_path: ``quantize_model_params`` at bits 8 and 4 over llama3-8b
+     (one K7/K8 launch per quantized leaf, every leaf within half a step),
+     ``dequantize_model_params``, and ``QuantizedLinear`` at bits 8/4/6 on
+     one layer's projections and SwiGLU MLP (K6).
 Then the kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
 the last line. Without CUDA, or without the package beside it, it exits 1.
@@ -968,6 +994,572 @@ def train_phases(torch, smi):
     return entries
 
 
+# ------------------------------------------ v1 inference and quantization slice
+
+V1_MODEL = "llama3-8b"
+V1_B, V1_PROMPT, V1_NEW = 4, 8064, 128   # S_max = 8192: the fused decode route
+DECODE_SOURCE = "deepspeed_tpu_torch/ops/csrc/decode_attention.cu"
+DECODE_REPLACES = "deepspeed_tpu/ops/pallas/decode_attention.py:26"
+QUANT_SOURCE = "deepspeed_tpu_torch/ops/csrc/quantizer.cu"
+QUANT_REPLACES = {8: "deepspeed_tpu/ops/pallas/quantizer.py:43",     # quantize_int8's call
+                  4: "deepspeed_tpu/ops/pallas/quantizer.py:70"}     # quantize_int4's call
+WOQ_SOURCE = "deepspeed_tpu_torch/ops/csrc/woq_matmul.cu"
+WOQ_REPLACES = "deepspeed_tpu/ops/pallas/woq_matmul.py:121"
+WOQ_GROUP = 256            # QuantizedLinear's default group (fused at llama3-8b's K)
+L2_BYTES = 50e6            # H100 L2: timed operands are cycled past it
+
+
+def kernel_counters():
+    """Every kernel wrapper of the port, by kernel name: each counts its own
+    launches in ``.launches``."""
+    from deepspeed_tpu_torch.ops import decode_attention as DA
+    from deepspeed_tpu_torch.ops import flash_attention as FA
+    from deepspeed_tpu_torch.ops import fused_adam, paged_attention
+    from deepspeed_tpu_torch.ops import quantizer as Q
+    from deepspeed_tpu_torch.ops import woq_matmul as W
+    return {"paged_attention": paged_attention.paged_ragged_attention,
+            "flash_attention_fwd": FA.flash_attention_fwd,
+            "flash_attention_dq": FA.flash_attention_dq,
+            "flash_attention_dkv": FA.flash_attention_dkv,
+            "fused_adam": fused_adam.fused_adam_flat,
+            "fused_decode_attention": DA.fused_decode_attention,
+            "woq_matmul": W.woq_matmul,
+            "quantize_int8": Q.quantize_int8, "quantize_int4": Q.quantize_int4}
+
+
+def zero_counts():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def decode_case(torch, lens, s_max=8192, h=H, kvh=KVH, d=D, seed=0):
+    """One fused-decode input set on the card in bf16: q (B, H, D), the
+    (B, S_max, KVH, D) caches, cache_len (B,) int32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    b = len(lens)
+    return dict(q=rnd(b, h, d), k=rnd(b, s_max, kvh, d), v=rnd(b, s_max, kvh, d),
+                lens=torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+def decode_work(case):
+    """(bytes, flops) of one fused decode on this case's data: each live K
+    and V row read once, q read and out written once, cache_len read; 4 D
+    flops per (query head, live slot)."""
+    b, h, d = case["q"].shape
+    s_max, kvh = case["k"].shape[1], case["k"].shape[2]
+    live = int(case["lens"].clamp(0, s_max).sum())
+    return 2 * live * kvh * d * 2 + 2 * b * h * d * 2 + 4 * b, 4 * d * h * live
+
+
+def sdpa_decode(torch, case):
+    """The library yardstick: scaled_dot_product_attention on (B, H, 1, D)
+    q over (B, KVH, S, D) keys laid out beforehand, a boolean mask of the
+    live slots and enable_gqa. Never called by the port."""
+    import torch.nn.functional as F
+    q = case["q"][:, :, None]
+    k, v = (case[n].transpose(1, 2).contiguous() for n in ("k", "v"))
+    mask = (torch.arange(k.shape[2], device="cuda")[None] < case["lens"][:, None])[:, None, None]
+    return lambda i: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def check_decode(torch, name, case):
+    """K2 once against its plain version on f32 copies of the inputs:
+    |out - plain| <= 2e-2 + 2e-2 |plain| everywhere, relative Frobenius error
+    <= 1e-2, and rows with cache_len 0 exactly 0."""
+    from deepspeed_tpu_torch.ops.decode_attention import (fused_decode_attention,
+                                                          fused_decode_attention_plain)
+    before = fused_decode_attention.launches
+    got = fused_decode_attention(case["q"], case["k"], case["v"], case["lens"]).float()
+    ref = fused_decode_attention_plain(case["q"].float(), case["k"].float(),
+                                       case["v"].float(), case["lens"])
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+    empty = case["lens"] == 0
+    zero = bool((got[empty] == 0).all()) if empty.any() else True
+    ok = (bool((err <= ATOL + RTOL * ref.abs()).all()) and rel <= FRO_TOL and zero
+          and fused_decode_attention.launches == before + 1)
+    b, h, d = case["q"].shape
+    emit("v1_kernel_check", kernel="fused_decode_attention", case=name,
+         shape=dict(B=b, S_max=case["k"].shape[1], H=h, KVH=case["k"].shape[2], D=d,
+                    cache_len=case["lens"].tolist(), dtype="bfloat16"),
+         max_abs_err=float(err.max()), rel_fro=rel, atol=ATOL, rtol=RTOL, fro_tol=FRO_TOL,
+         empty_rows_zero=zero, within=ok)
+    if not ok:
+        fail(f"fused decode attention {name}: max err {float(err.max())}, rel {rel}")
+    return float(err.max())
+
+
+def v1_kernel_phases(torch):
+    """v1_kernel_check / v1_kernel_time / v1_crossover for K2. Returns its
+    kernel entry (without launches)."""
+    from deepspeed_tpu_torch.ops.attention import masked_decode_attention
+    from deepspeed_tpu_torch.ops.decode_attention import (fused_decode_attention,
+                                                          fused_decode_attention_plain)
+    main = dict(lens=[V1_PROMPT + V1_NEW] * V1_B)                      # the main path, full
+    mixed = dict(lens=[8192, 8065, 4097, 1, 0], seed=1)
+    cases = {"main": main, "mixed": mixed,
+             # the other compiled head dims and query-group counts
+             "d64_mha": dict(lens=[8192, 300], h=8, kvh=8, d=64, seed=2),
+             "d192_g2": dict(lens=[129, 8000], h=4, kvh=2, d=192, seed=3),
+             "d256_g16_s8320": dict(lens=[8320, 77], s_max=8320, h=16, kvh=1, d=256, seed=4)}
+    worst, rows = 0.0, {}
+    for name, kw in cases.items():
+        worst = max(worst, check_decode(torch, name, decode_case(torch, **kw)))
+        torch.cuda.empty_cache()
+    for name in ("main", "mixed"):
+        case = decode_case(torch, **cases[name])
+        f32 = {k: case[k].float() for k in ("q", "k", "v")}
+        nbytes, flops = decode_work(case)
+        b_ms, b_by = bound(nbytes, flops)
+        row = dict(
+            ms=cuda_ms(torch, lambda i: fused_decode_attention(
+                case["q"], case["k"], case["v"], case["lens"])),
+            plain_ms=cuda_ms(torch, lambda i: fused_decode_attention_plain(
+                f32["q"], f32["k"], f32["v"], case["lens"]), reps=3, iters=5),
+            library_ms=cuda_ms(torch, sdpa_decode(torch, case)),
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+        emit("v1_kernel_time", kernel="fused_decode_attention", case=name,
+             cache_len=cases[name]["lens"], library="F.scaled_dot_product_attention "
+             "(boolean mask, enable_gqa) on pre-laid-out (B, H, 1, D) q", **row)
+        rows[name] = row
+        del case, f32
+        torch.cuda.empty_cache()
+    # the einsum branch against K2 on full caches: where the H100 crosses over
+    cross = {}
+    for s_max in (2048, 4096, 8192):
+        case = decode_case(torch, [s_max] * V1_B, s_max=s_max, seed=5)
+        q4 = case["q"][:, None]
+        cross[s_max] = dict(
+            fused_ms=cuda_ms(torch, lambda i: fused_decode_attention(
+                case["q"], case["k"], case["v"], case["lens"])),
+            einsum_ms=cuda_ms(torch, lambda i: masked_decode_attention(
+                q4, case["k"], case["v"], case["lens"]), reps=3, iters=10))
+        del case, q4
+    emit("v1_crossover", B=V1_B, H=H, KVH=KVH, D=D, by_s_max=cross,
+         note="full caches; the dispatch keeps the JAX rule (fused from S_max 8192)")
+    torch.cuda.empty_cache()
+    m = rows["main"]
+    return {"name": "fused_decode_attention", "route": "cuda", "source": DECODE_SOURCE,
+            "replaces": DECODE_REPLACES, "max_abs_err": worst,
+            **{k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+
+
+def v1_main_path(torch, smi):
+    """v1_main_path: init_inference(llama3-8b, bf16).generate() at full
+    width and depth, B = 4 prompts of 8064 random tokens (seed 0), 128
+    greedy new tokens over an 8192-slot cache; then the two reference
+    checks and a decode step's profile. Returns (K2 launches, engine)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import build_model
+
+    t0 = time.perf_counter()
+    eng = dst.init_inference(build_model(V1_MODEL), dtype="bfloat16")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = eng.model.cfg
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (V1_B, V1_PROMPT), generator=g, dtype=torch.int32)
+    # the first apply_decode is the prefill: note when it ends, its logits
+    # and the cache generate() fills in place
+    seen = {"calls": 0}
+    apply_decode = eng.model.apply_decode
+
+    def watched(*a, **kw):
+        out = apply_decode(*a, **kw)
+        if seen["calls"] == 0:
+            torch.cuda.synchronize()
+            seen.update(prefill_end=time.perf_counter(), prefill_logits=out[0][:, -1].float(),
+                        cache=out[1])
+        seen["calls"] += 1
+        return out
+
+    eng.model.apply_decode = watched
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t_start = time.perf_counter()
+    try:
+        out = eng.generate(ids, max_new_tokens=V1_NEW)
+        torch.cuda.synchronize()
+    finally:
+        del eng.model.apply_decode
+    t_end = time.perf_counter()
+    counts = read_counts()
+    launches = counts["fused_decode_attention"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = cfg.num_layers * (V1_NEW - 1)
+    new = out[:, V1_PROMPT:]
+    ok = (tuple(out.shape) == (V1_B, V1_PROMPT + V1_NEW)
+          and bool((out[:, :V1_PROMPT].cpu() == ids).all())
+          and bool(((new >= 0) & (new < cfg.vocab_size)).all())
+          and launches == want and seen["calls"] == V1_NEW)
+    decode_s = t_end - seen["prefill_end"]
+    emit("v1_main_path", model=V1_MODEL, layers=cfg.num_layers, hidden=cfg.hidden_size,
+         batch=V1_B, prompt_tokens=V1_PROMPT, new_tokens=V1_NEW,
+         cache_slots=V1_PROMPT + V1_NEW, dtype="bfloat16",
+         ttft_s=seen["prefill_end"] - t_start, decode_s=decode_s,
+         decode_tokens_per_s=V1_B * (V1_NEW - 1) / decode_s,
+         generate_s=t_end - t_start, fused_decode_launches=launches,
+         launches_expected=want, launches_by_kernel=counts, peak_memory_gb=peak, init_s=init_s,
+         first_new_tokens=new[:, :8].tolist(), card=smi, within=ok)
+    if not ok:
+        fail(f"v1 main path: shape {tuple(out.shape)}, launches {launches} (expected {want}), "
+             f"apply_decode calls {seen['calls']}")
+    v1_reference_checks(torch, eng, ids, out, seen)
+    v1_step_profile(torch, eng, out, seen["cache"], smi)
+    return launches, eng
+
+
+def _within_span(torch, name, got, want, **extra):
+    err = float((got - want).abs().max())
+    span = float(want.max() - want.min())
+    ok = (bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+          and err <= 0.05 * span)
+    emit("v1_reference_check", check=name, max_abs_logit_err=err, logit_range=span,
+         tolerance=0.05 * span, argmax=[int(got.argmax()), int(want.argmax())],
+         within=ok, **extra)
+    if not ok:
+        fail(f"v1 reference check {name}: {err} > 5% of {span}")
+
+
+def v1_reference_checks(torch, eng, ids, out, seen):
+    """(1) the prefill's last-position logits (masked einsum over the
+    cache) against engine.forward on the first prompt (the flash path);
+    (2) one decode step through K2 against the same step through the plain
+    einsum (the device rule patched off), on the cache generate() left:
+    each within 5 % of the logit range."""
+    from deepspeed_tpu_torch.ops import attention as A
+    from deepspeed_tpu_torch.ops.decode_attention import fused_decode_attention
+    fwd = eng.forward(ids[:1])[0, -1].float()
+    _within_span(torch, "prefill_vs_forward", seen["prefill_logits"][0], fwd,
+                 prompt_tokens=V1_PROMPT, forward="flash attention (K3)")
+    del fwd
+    cache = seen["cache"]
+    cl = torch.full((V1_B,), V1_PROMPT + V1_NEW - 1, dtype=torch.int32, device="cuda")
+    tok = out[:, -1:]
+    before = fused_decode_attention.launches
+    fused, _ = eng.model.apply_decode(eng.module_params, tok, cache, cl, last_only=True)
+    k2 = fused_decode_attention.launches - before
+    on_card = A._on_card
+    A._on_card = lambda t: False
+    try:
+        plain, _ = eng.model.apply_decode(eng.module_params, tok, cache, cl, last_only=True)
+    finally:
+        A._on_card = on_card
+    torch.cuda.synchronize()
+    if k2 != eng.model.cfg.num_layers or fused_decode_attention.launches != before + k2:
+        fail(f"v1 decode reference: {k2} fused launches in the fused step")
+    for b in range(V1_B):
+        _within_span(torch, "decode_step_fused_vs_einsum", fused[b, 0].float(), plain[b, 0].float(),
+                     row=b, cache_len=V1_PROMPT + V1_NEW)
+
+
+def _v1_kernel_class(name):
+    low = name.lower()
+    if "decode_partial" in low or "decode_combine" in low:
+        return "fused_decode_attention"
+    if any(s in low for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")):
+        return "gemm"
+    return "other"
+
+
+def v1_step_profile(torch, eng, out, cache, smi):
+    """One decode step of the main path (B = 4 at cache_len 8191): host
+    wall time over synchronized steps and device time by kernel class
+    (torch.profiler); the idle share is 1 - device busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+    cl = torch.full((V1_B,), V1_PROMPT + V1_NEW - 1, dtype=torch.int32, device="cuda")
+    tok = out[:, -1:]
+
+    def step():
+        with torch.no_grad():
+            return eng.model.apply_decode(eng.module_params, tok, cache, cl, last_only=True)
+
+    step()
+    torch.cuda.synchronize()
+    reps = 10
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    by_class, by_name = {}, {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us() / 3
+        cls = _v1_kernel_class(ev.name)
+        by_class[cls] = by_class.get(cls, 0.0) + us
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + us
+    busy_ms = sum(by_class.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:6]
+    emit("v1_step_profile", step="decode", batch=V1_B, cache_len=V1_PROMPT + V1_NEW,
+         wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=max(0.0, 1 - busy_ms / wall_ms),
+         device_ms_by_class={k: v / 1e3 for k, v in by_class.items()},
+         top_kernels_ms=[(k[:80], v / 1e3) for k, v in top], card=smi)
+
+
+def quant_kernel_phases(torch):
+    """quant_kernel_check / quant_kernel_time: K7 and K8 on llama3-8b's
+    stacked wi_gate leaf (32 x 4096 x 14336 bf16, groups of 256) against
+    their plain versions on the card: q and scales byte-identical (counted
+    layer by layer). Returns the two kernel entries (without launches)."""
+    from deepspeed_tpu_torch.ops import quantizer as Q
+    cfg_l, e, f = 32, 4096, 14336
+    gs = 256
+    g = torch.Generator(device="cuda").manual_seed(3)
+    w = torch.randn(cfg_l, e, f, generator=g, device="cuda", dtype=torch.bfloat16).mul_(0.02)
+    n = w.numel()
+    per_layer = e * f
+    entries = {}
+    for bits, fn in ((8, Q.quantize_int8), (4, Q.quantize_int4)):
+        before = fn.launches
+        q, s = Q.quantize_groups(w, bits, gs)
+        torch.cuda.synchronize()
+        launched = fn.launches - before
+        qb = q.view(-1).view(torch.uint8)
+        sb = s.view(-1).view(torch.int32)
+        per_q = per_layer if bits == 8 else per_layer // 2
+        diff_q = diff_s = 0
+        for li in range(cfg_l):
+            pq, ps = Q.quantize_groups_plain(w[li], bits, gs)
+            diff_q += int((qb[li * per_q:(li + 1) * per_q] != pq.view(-1).view(torch.uint8)).sum())
+            g0 = li * per_layer // gs
+            diff_s += int((sb[g0:g0 + per_layer // gs] != ps.view(-1).view(torch.int32)).sum())
+            del pq, ps
+        ok = diff_q == 0 and diff_s == 0 and launched == 1
+        emit("quant_kernel_check", kernel=fn.__name__, leaf="layers.mlp.wi_gate",
+             shape=[cfg_l, e, f], group_size=gs, dtype="bfloat16", elements=n,
+             differing_q_bytes=diff_q, differing_scales=diff_s, within=ok)
+        if not ok:
+            fail(f"{fn.__name__}: {diff_q} q bytes and {diff_s} scales differ from the plain "
+                 f"version ({launched} launches)")
+        del q, s, qb, sb
+        torch.cuda.empty_cache()
+        out_b = n if bits == 8 else n // 2
+        nbytes = 2 * n + out_b + 4 * (n // gs)
+        b_ms, b_by = bound(nbytes, 4 * n, F32_FLOPS)
+        row = dict(ms=cuda_ms(torch, lambda i: Q.quantize_groups(w, bits, gs), reps=5, iters=5),
+                   plain_ms=cuda_ms(torch, lambda i: Q.quantize_groups_plain(w, bits, gs),
+                                    reps=2, iters=1),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=4 * n)
+        emit("quant_kernel_time", kernel=fn.__name__, leaf="layers.mlp.wi_gate",
+             library="none: no single PyTorch call computes it", **row)
+        torch.cuda.empty_cache()
+        entries[bits] = {"name": fn.__name__, "route": "cuda", "source": QUANT_SOURCE,
+                         "replaces": QUANT_REPLACES[bits], "max_abs_err": 0.0,
+                         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")}}
+    del w
+    torch.cuda.empty_cache()
+    return entries
+
+
+# llama3-8b's seven projections of one layer as 2-D (K, N) weights
+PROJ = {"q": (4096, 4096), "k": (4096, 1024), "v": (4096, 1024), "o": (4096, 4096),
+        "gate": (4096, 14336), "up": (4096, 14336), "down": (14336, 4096)}
+
+
+def woq_kernel_phases(torch):
+    """woq_kernel_check / woq_kernel_time: K6 at bits 8, 4 and 6 on the seven
+    projection shapes at M = 4 and M = 2048 (random weights, group 256)
+    against its plain version (the same bf16-rounded tiles, one f32 product):
+    relative Frobenius error <= 1e-2. Times cycle through copies of the
+    weight past the L2 cache, as a layer's weights are cold in a real step.
+    Returns the kernel entry (the gate projection, int8, M = 4)."""
+    from deepspeed_tpu_torch.ops import woq_matmul as W
+    g = torch.Generator(device="cuda").manual_seed(4)
+    worst, rows = 0.0, {}
+    for pname, (k, n) in PROJ.items():
+        w = torch.randn(k, n, generator=g, device="cuda").mul_(0.02).to(torch.bfloat16)
+        for bits in (8, 4, 6):
+            st = W.quantize_woq(w, bits, WOQ_GROUP)
+            qbytes = st["q"].numel() + st["scales"].numel() * 4
+            copies = [st] + [dict(st, q=st["q"].clone(), scales=st["scales"].clone())
+                             for _ in range(int(2 * L2_BYTES // qbytes))]
+            w_deq = W.woq_dequantize(st, torch.bfloat16)
+            libs = [w_deq] + [w_deq.clone() for _ in range(int(2 * L2_BYTES // (2 * k * n)))]
+            for m in (4, 2048):
+                x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+                before = W.woq_matmul.launches
+                got = W.woq_matmul(x, st).float()
+                ref = W.woq_matmul_plain(x, st).float()
+                torch.cuda.synchronize()
+                rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+                err = float((got - ref).abs().max())
+                worst = max(worst, err)
+                ok = rel <= FRO_TOL and W.woq_matmul.launches == before + 1
+                nbytes = qbytes + m * k * 2 + m * n * 2
+                b_ms, b_by = bound(nbytes, 2 * m * k * n)
+                row = dict(
+                    ms=cuda_ms(torch, lambda i: W.woq_matmul(x, copies[i % len(copies)])),
+                    plain_ms=cuda_ms(torch, lambda i: W.woq_matmul_plain(x, st), reps=3, iters=3),
+                    library_ms=cuda_ms(torch, lambda i: x @ libs[i % len(libs)]),
+                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=2 * m * k * n)
+                emit("woq_kernel_time", kernel="woq_matmul", proj=pname, K=k, N=n, M=m,
+                     bits=bits, group_size=WOQ_GROUP, rel_fro=rel, max_abs_err=err,
+                     fro_tol=FRO_TOL, within=ok,
+                     library="x @ the pre-dequantized bf16 weight (torch.matmul)", **row)
+                if not ok:
+                    fail(f"woq_matmul {pname} bits {bits} M {m}: rel {rel}")
+                rows[(pname, bits, m)] = row
+                del x, got, ref
+            del copies, libs, w_deq, st
+        del w
+        torch.cuda.empty_cache()
+    m = rows[("gate", 8, 4)]
+    return {"name": "woq_matmul", "route": "cuda", "source": WOQ_SOURCE,
+            "replaces": WOQ_REPLACES, "max_abs_err": worst,
+            **{k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+
+
+def _half_step_check(w, deq, scales, gs):
+    """The largest |dequantized - w| over its limit (half the group's step
+    plus one bf16 rounding of the dequantized value), chunked by groups."""
+    wf, df = w.reshape(-1), deq.reshape(-1)
+    scales = scales.reshape(-1)
+    worst, chunk = 0.0, 1 << 20                       # groups a chunk
+    for g0 in range(0, scales.numel(), chunk):
+        g1 = min(scales.numel(), g0 + chunk)
+        a = wf[g0 * gs:g1 * gs].float().view(-1, gs)
+        d = df[g0 * gs:g1 * gs].float().view(-1, gs)
+        lim = 0.5 * scales[g0:g1, None] * (1 + 1e-6) + d.abs() * 2.0 ** -8 + 1e-30
+        worst = max(worst, float(((d - a).abs() / lim).max()))
+    return worst
+
+
+def quant_path(torch, params, smi):
+    """quant_path: the weight-only quantization API on llama3-8b's weights
+    (the v1 engine's, bf16). quantize_model_params at bits 8 and 4 over the
+    whole tree (one K7 or K8 launch per quantized leaf), resident bytes,
+    dequantize_model_params and every dequantized leaf within half a step of
+    its group; then QuantizedLinear at bits 8, 4 and 6 on one layer's seven
+    projections at M = 4 and 2048, and its SwiGLU MLP against the dense bf16
+    one (gate at int8: max |y_q - y| < 0.15 max |y|, the JAX contract).
+    Returns the K6, K7 and K8 launches."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.inference.quantization.layers import (QuantizedLinear,
+                                                                   QuantizedParameter,
+                                                                   dequantize_model_params,
+                                                                   quantize_model_params)
+    from deepspeed_tpu_torch.models.transformer import layer_slice
+    from deepspeed_tpu_torch.ops import quantizer as Q
+    from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_paths
+
+    dense_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    zero_counts()
+    launches = {}
+    for bits in (8, 4):
+        counter = Q.quantize_int8 if bits == 8 else Q.quantize_int4
+        before = (Q.quantize_int8.launches, Q.quantize_int4.launches)
+        t0 = time.perf_counter()
+        qparams = quantize_model_params(params, bits=bits)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        qleaves = [(p, x) for p, x in tree_paths(qparams) if isinstance(x, QuantizedParameter)]
+        n_launch = counter.launches - before[0 if bits == 8 else 1]
+        other = (Q.quantize_int4.launches - before[1] if bits == 8
+                 else Q.quantize_int8.launches - before[0])
+        resident = sum(x.nbytes if isinstance(x, QuantizedParameter)
+                       else x.numel() * x.element_size() for x in tree_leaves(qparams))
+        t0 = time.perf_counter()
+        deq = dequantize_model_params(qparams)
+        torch.cuda.synchronize()
+        deq_s = time.perf_counter() - t0
+        originals = dict(tree_paths(params))
+        dequant = dict(tree_paths(deq))
+        worst = {}
+        for p, x in qleaves:
+            worst[p] = _half_step_check(originals[p], dequant[p], x.scales, x.group_size)
+            if dequant[p].dtype != originals[p].dtype or dequant[p].shape != originals[p].shape:
+                fail(f"quant path: {p} dequantized to {dequant[p].dtype} {tuple(dequant[p].shape)}")
+        ok = (n_launch == len(qleaves) and other == 0 and max(worst.values()) <= 1.0)
+        emit("quant_path", api="quantize_model_params", bits=bits, group_size=256,
+             quantized_leaves=len(qleaves), kernel=counter.__name__, launches=n_launch,
+             resident_bytes=resident, dense_bytes=dense_bytes,
+             resident_share=resident / dense_bytes, quantize_s=quant_s, dequantize_s=deq_s,
+             worst_share_of_half_step=max(worst.values()), per_leaf=worst, within=ok)
+        if not ok:
+            fail(f"quant path bits {bits}: {n_launch} launches for {len(qleaves)} leaves "
+                 f"(other kernel {other}), worst share {max(worst.values())}")
+        launches[counter.__name__] = n_launch
+        del qparams, deq, dequant, qleaves
+        torch.cuda.empty_cache()
+
+    cfg_e = params["embed"]["tok"].shape[1]
+    lp = layer_slice(params["layers"], 0)
+    attn, mlp = lp["attn"], lp["mlp"]
+    mats = {"q": attn["wq"].reshape(cfg_e, -1), "k": attn["wk"].reshape(cfg_e, -1),
+            "v": attn["wv"].reshape(cfg_e, -1), "o": attn["wo"].reshape(-1, cfg_e),
+            "gate": mlp["wi_gate"], "up": mlp["wi_up"], "down": mlp["wo"]}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for bits in (8, 4, 6):
+        lins = {nm: QuantizedLinear(w, bits=bits) for nm, w in mats.items()}
+        if not all(lin.fused is not None for lin in lins.values()):
+            fail(f"QuantizedLinear bits {bits}: a projection took the flat path")
+        for m in (4, 2048):
+            proj = {}
+            for nm, w in mats.items():
+                x = torch.randn(m, w.shape[0], generator=g, device="cuda").to(torch.bfloat16)
+                y, yq = x @ w, lins[nm](x)
+                proj[nm] = float(torch.linalg.vector_norm((yq - y).float())
+                                 / torch.linalg.vector_norm(y.float()))
+            x = torch.randn(m, cfg_e, generator=g, device="cuda").to(torch.bfloat16)
+            y = (F.silu(x @ mats["gate"]) * (x @ mats["up"])) @ mats["down"]
+            yq = lins["down"](F.silu(lins["gate"](x)) * lins["up"](x))
+            torch.cuda.synchronize()
+            max_err = float((yq - y).abs().max().float())
+            ratio = max_err / float(y.abs().max().float())
+            rel = float(torch.linalg.vector_norm((yq - y).float())
+                        / torch.linalg.vector_norm(y.float()))
+            ok = math.isfinite(ratio) and (bits != 8 or ratio < 0.15)
+            emit("quant_path", api="QuantizedLinear", bits=bits, M=m, group_size=256,
+                 projection_rel_fro=proj, mlp_max_abs_over_max=ratio, mlp_rel_fro=rel,
+                 gate="max |y_q - y| < 0.15 max |y| at int8", nbytes={
+                     nm: lin.nbytes for nm, lin in lins.items()}, within=ok)
+            if not ok:
+                fail(f"QuantizedLinear SwiGLU bits {bits} M {m}: max err / max |y| = {ratio}")
+        del lins
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    path = ("quantize_int8", "quantize_int4", "woq_matmul")
+    ok = (all(counts[k] > 0 for k in path) and counts["quantize_int8"] == launches["quantize_int8"]
+          and counts["quantize_int4"] == launches["quantize_int4"])
+    emit("quant_path_launches", launches_by_kernel=counts, within=ok, card=smi)
+    if not ok:
+        fail(f"quant path launches {counts}")
+    return counts
+
+
+def v1_phases(torch, smi):
+    """The v1 inference and weight-only quantization slice; returns its
+    kernel entries."""
+    k2 = v1_kernel_phases(torch)
+    quant = quant_kernel_phases(torch)
+    woq = woq_kernel_phases(torch)
+    k2["launches"], eng = v1_main_path(torch, smi)
+    launches = quant_path(torch, eng.module_params, smi)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    woq["launches"] = launches["woq_matmul"]
+    quant[8]["launches"] = launches["quantize_int8"]
+    quant[4]["launches"] = launches["quantize_int4"]
+    return [k2, woq, quant[8], quant[4]]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -989,6 +1581,9 @@ def main():
     gc.collect()                  # the serving engine is gone: its pools go back
     torch.cuda.empty_cache()
     entries = train_phases(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    entries += v1_phases(torch, smi)
     print(json.dumps({"kernels": [entry] + entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """PyTorch/CUDA port of deepspeed_tpu.
 
-``initialize()`` returns a training engine over one card; the serving
-engine is ``inference.v2.InferenceEngineV2``.
+``initialize()`` returns a training engine over one card;
+``init_inference()`` the v1 inference engine (``generate``); the serving
+engine is ``inference.v2.InferenceEngineV2``; weight-only quantization is
+``inference.quantization``.
 """
 
 
@@ -43,3 +45,28 @@ def initialize(args=None,
                              lr_scheduler=lr_scheduler, mpu=mpu, collate_fn=collate_fn,
                              config=config, device=device)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
+
+
+def init_inference(model=None, config=None, *, params=None, device=None, **kwargs):
+    """Initialize the v1 inference engine. Mirrors
+    ``deepspeed_tpu.init_inference``: ``config`` is a dict (updated with
+    ``kwargs``) or a ``DeepSpeedInferenceConfig``. The port adds ``params``
+    (port tensors, for example from ``module_inject.params_from_numpy``) and
+    ``device`` (None: the current CUDA device, raising without a GPU)."""
+    from .inference.config import DeepSpeedInferenceConfig
+    from .inference.engine import InferenceEngine
+
+    if config is None:
+        config = {}
+    if isinstance(config, dict):
+        config = DeepSpeedInferenceConfig.from_dict({**config, **kwargs})
+    return InferenceEngine(model, config, params=params, device=device)
+
+
+def default_inference_config():
+    """The default inference config as a plain dict (field names, nested
+    blocks as dicts)."""
+    import dataclasses
+
+    from .inference.config import DeepSpeedInferenceConfig
+    return dataclasses.asdict(DeepSpeedInferenceConfig())

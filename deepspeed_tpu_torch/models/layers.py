@@ -1,8 +1,9 @@
 """Transformer layer primitives: plain functions over dicts of tensors.
 
 Mirrors the dense subset of ``deepspeed_tpu/models/layers.py`` that the
-serving and training paths run: norms, rotary embeddings, ALiBi slopes, q/k
-norms, the training branch of ``apply_attention``, the MLP, and the
+serving, training and v1 inference paths run: norms, rotary embeddings,
+ALiBi slopes and bias, q/k norms, ``apply_attention`` (training and
+KV-cache branches) with ``_scatter_cache``, the MLP, and the
 initializers of the attention, MLP, norm and embedding
 leaves (same leaf names, shapes and distributions: normal(0.02), output
 projections scaled by 1/sqrt(2L), the untied LM head by E^-0.5), drawn from
@@ -15,7 +16,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import multihead_attention
+from ..ops.attention import decode_attention, multihead_attention
 from .config import TransformerConfig
 
 # ---- init helpers -------------------------------------------------------
@@ -124,6 +125,17 @@ def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
     return torch.tensor(s, dtype=torch.float32, device=device)
 
 
+def alibi_bias(num_heads: int, q_pos, k_pos) -> torch.Tensor:
+    """Additive attention bias slope_h * (k - q): (..., H, Sq, Sk) f32.
+
+    q_pos: (Sq,) or (B, Sq); k_pos: (Sk,). The relative form differs from
+    HF's per-key-position form by a per-row constant, which softmax
+    cancels."""
+    slopes = alibi_slopes(num_heads, k_pos.device)                       # (H,)
+    rel = (k_pos[None, :] - q_pos[..., :, None]).float()                  # (..., Sq, Sk)
+    return slopes[:, None, None] * rel[..., None, :, :]
+
+
 # ---- attention ----------------------------------------------------------
 
 
@@ -179,13 +191,22 @@ def apply_qk_norm(norm_params, x, cfg: TransformerConfig):
 
 
 def apply_attention(params, x, cfg: TransformerConfig, *, positions=None, inv_freq=None,
-                    segment_ids=None, window=None):
-    """The training branch of the JAX ``apply_attention`` (no KV cache):
-    x (B, S, E) -> (B, S, E). q/k/v projections, biases, q/k norm and RoPE,
-    then ``multihead_attention`` (the flash kernels on the card where
-    eligible; an ALiBi model passes its slopes down) and the output
-    projection. ``window``: this layer's sliding window (int, or a tensor;
-    <= 0 is global); None takes a uniform ``cfg.sliding_window``."""
+                    segment_ids=None, window=None, kv_cache=None, cache_len=None,
+                    attn_bias=None):
+    """The JAX ``apply_attention``: x (B, S, E). q/k/v projections, biases,
+    q/k norm and RoPE, attention, and the output projection. ``window``:
+    this layer's sliding window (int, or a tensor; <= 0 is global); None
+    takes a uniform ``cfg.sliding_window``.
+
+    Training (``kv_cache`` None) returns y (B, S, E): ``multihead_attention``
+    (the flash kernels on the card where eligible; an ALiBi model passes its
+    slopes down). Decode (``kv_cache`` = (k, v), each (B, S_max, KVH, D))
+    writes the S new keys and values at slots ``cache_len + i`` and returns
+    ``(y, (k, v))`` through ``decode_attention`` (the fused decode kernel
+    where eligible). The cache is updated IN PLACE and the same tensors are
+    returned, where JAX returns a new cache. ``attn_bias``: a precomputed
+    (B, H, S, S_max) ALiBi bias, built here when an ALiBi model passes
+    none."""
     if window is None and cfg.sliding_window is not None and cfg.local_attention_every is None:
         window = cfg.sliding_window   # uniform window (Mistral)
     dt = cfg.act_dtype
@@ -206,15 +227,34 @@ def apply_attention(params, x, cfg: TransformerConfig, *, positions=None, inv_fr
             positions = torch.arange(s, device=x.device).expand(b, s)
         q = apply_rope(q, positions, inv_freq, interleaved=cfg.rope_interleaved)
         k = apply_rope(k, positions, inv_freq, interleaved=cfg.rope_interleaved)
-    slopes = alibi_slopes(cfg.num_heads, x.device) if cfg.position == "alibi" else None
-    out = multihead_attention(q, k, v, causal=cfg.causal, segment_ids=segment_ids,
-                              alibi_slopes=slopes, window=window,
-                              impl=None if cfg.attn_impl == "auto" else cfg.attn_impl,
-                              scale=cfg.attn_scale, softcap=cfg.attn_softcap)
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        idx = cache_len.long()[:, None] + torch.arange(s, device=x.device)[None, :]   # (B, S)
+        _scatter_cache(ck, k, idx)
+        _scatter_cache(cv, v, idx)
+        bias = attn_bias
+        if cfg.position == "alibi" and bias is None:
+            bias = alibi_bias(cfg.num_heads, idx, torch.arange(ck.shape[1], device=x.device))
+        out = decode_attention(q, ck, cv, cache_len + s, bias=bias, window=window,
+                               scale=cfg.attn_scale, softcap=cfg.attn_softcap)
+    else:
+        slopes = alibi_slopes(cfg.num_heads, x.device) if cfg.position == "alibi" else None
+        out = multihead_attention(q, k, v, causal=cfg.causal, segment_ids=segment_ids,
+                                  alibi_slopes=slopes, window=window,
+                                  impl=None if cfg.attn_impl == "auto" else cfg.attn_impl,
+                                  scale=cfg.attn_scale, softcap=cfg.attn_softcap)
     y = _mm(out.reshape(b, s, h * d), params["wo"].to(dt).reshape(h * d, e))
     if "bo" in params:
         y = y + bcast(params["bo"].to(dt), y.dim())
-    return y
+    return y if kv_cache is None else (y, (ck, cv))
+
+
+def _scatter_cache(cache, new, idx):
+    """cache: (B, S_max, H, D); new: (B, S, H, D); idx: (B, S) slots.
+    Writes ``new`` at ``cache[b, idx[b, s]]`` in place and returns cache."""
+    bidx = torch.arange(cache.shape[0], device=cache.device)[:, None].expand_as(idx)
+    cache[bidx, idx] = new.to(cache.dtype)
+    return cache
 
 
 # ---- MLP ----------------------------------------------------------------

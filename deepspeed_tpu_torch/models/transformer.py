@@ -6,11 +6,12 @@ of tensors keyed like the JAX params tree, layer leaves stacked along a
 leading layer axis), ``abstract_params``, ``_layer_windows``, the
 homogeneous branch of ``walk_layer_plan`` (a Python loop in place of
 ``lax.scan``), the training forward and loss (``embed_fwd``, ``_layer_fn``,
-``hidden_states``, ``head_loss``, ``apply``, ``loss``), the loss helpers
-``lm_head_logits`` / ``masked_token_nll`` / ``logit_buffer_bytes``, and
-``build_model``. Heterogeneous (grouped) layer plans, MoE layers,
-``act_quant_bits`` and the BERT-style encoders are not ported yet (see
-ROADMAP.md).
+``hidden_states``, ``head_loss``, ``apply``, ``loss``), the KV-cache decode
+of the v1 inference engine (``init_cache``, ``apply_decode``), the loss
+helpers ``lm_head_logits`` / ``masked_token_nll`` / ``logit_buffer_bytes``,
+and ``build_model``. Heterogeneous (grouped) layer plans, MoE layers,
+``act_quant_bits`` and the BERT-style encoders are not ported yet (ROADMAP.md
+section A, item 2).
 
 The training forward keeps the parameters f32 and stacked (L, ...). Each
 stacked leaf that JAX casts with ``.astype(dt)`` is cast to the activation
@@ -110,7 +111,7 @@ class CausalLM:
         if cfg.is_moe or cfg.layer_types is not None:
             raise NotImplementedError(
                 "MoE and heterogeneous layer stacks are not ported yet "
-                "(ROADMAP.md, section A)")
+                "(ROADMAP.md section A, item 2)")
         self.cfg = cfg
 
     def inv_freq(self, device=None):
@@ -283,6 +284,68 @@ class CausalLM:
         logits = self.apply(params, batch["input_ids"], positions=batch.get("positions"),
                             segment_ids=batch.get("segment_ids"))
         return masked_token_nll(logits, labels, mask)
+
+    # -- decode (KV cache) --
+
+    def init_cache(self, batch_size, max_len, dtype=None, device=None):
+        """Stacked KV cache: {"k", "v"}, each (L, B, S_max, KVH, D) zeros in
+        ``dtype`` (default the activation dtype) on ``device`` (default the
+        current CUDA device, raising without a GPU)."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch_size, max_len, cfg.kv_heads, cfg.dims_per_head)
+        kw = dict(dtype=dtype or cfg.act_dtype, device=get_device(device))
+        return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+
+    def apply_decode(self, params, input_ids, cache, cache_len, *, last_only=False):
+        """Incremental forward: input_ids (B, S_new) at cache slots
+        ``cache_len + i``; returns (logits, cache). A Python loop over the
+        layers in place of the JAX ``lax.scan``; each layer writes its new
+        keys and values into ``cache`` IN PLACE (the returned cache is the
+        same dict of tensors). ``last_only`` computes the LM head on the last
+        position only, (B, 1, V), which is all that generation reads."""
+        cfg = self.cfg
+        if cfg.act_quant_bits or cfg.post_norm:
+            raise NotImplementedError(
+                "act_quant_bits and post-norm blocks are not ported yet "
+                "(ROADMAP.md section A, item 2)")
+        s = input_ids.shape[1]
+        dev = cache["k"].device
+        positions = cache_len.to(dev).long()[:, None] + torch.arange(s, device=dev)[None, :]
+        h = self.embed_fwd(params["embed"], input_ids.to(dev), positions)
+        attn_bias = None
+        if cfg.position == "alibi":
+            attn_bias = L.alibi_bias(cfg.num_heads, positions,
+                                     torch.arange(cache["k"].shape[2], device=dev))
+        inv_freq = self.inv_freq(dev)
+        cache_len = cache_len.to(dev)
+        windows = self._layer_windows() or [None] * cfg.num_layers
+        for li, win in enumerate(windows):
+            lp = layer_slice(params["layers"], li)
+            a_in = L.apply_norm(lp["norm1"], h, cfg)
+            attn_out, _ = L.apply_attention(lp["attn"], a_in, cfg, positions=positions,
+                                            inv_freq=inv_freq,
+                                            kv_cache=(cache["k"][li], cache["v"][li]),
+                                            cache_len=cache_len, attn_bias=attn_bias,
+                                            window=win)
+            if cfg.sandwich_norm:
+                attn_out = L.apply_norm(lp["norm3"], attn_out, cfg)
+            if cfg.parallel_block:
+                m_in = L.apply_norm(lp["norm2"], h, cfg)
+            else:
+                h = h + attn_out
+                m_in = L.apply_norm(lp["norm2"], h, cfg)
+            mlp_out = L.apply_mlp(lp["mlp"], m_in, cfg)
+            if cfg.sandwich_norm:
+                mlp_out = L.apply_norm(lp["norm4"], mlp_out, cfg)
+            h = h + attn_out + mlp_out if cfg.parallel_block else h + mlp_out
+        if last_only:
+            h = h[:, -1:]
+        h = L.apply_norm(params["final_norm"], h, cfg)
+        w, transpose = self._lm_head_weight(params)
+        logits = lm_head_logits(h, w, transpose, cfg.act_dtype,
+                                bias=params["embed"].get("lm_head_bias"),
+                                softcap=cfg.logit_softcap)
+        return logits, cache
 
     def _layer_windows(self):
         """Per-layer window list for mixed local/global patterns

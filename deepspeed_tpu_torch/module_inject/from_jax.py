@@ -5,6 +5,12 @@ The JAX package keeps a ``CausalLM``'s parameters as a nested dict pytree
 the same tree of torch tensors under the same leaf names. The caller
 converts the JAX tree to numpy first (``jax.tree.map(np.asarray, params)``),
 so this module needs no JAX.
+
+Quantized weights cross the same way: ``quantized_parameter_from_numpy``
+takes the fields of a JAX ``inference/quantization/layers.py``
+``QuantizedParameter`` (q, scales, orig_shape, bits, group_size, dtype) and
+``woq_state_from_numpy`` a ``ops/pallas/woq_matmul.py`` ``quantize_woq``
+state dict, each with its arrays as numpy.
 """
 
 import numpy as np
@@ -41,3 +47,36 @@ def params_from_numpy(cfg, tree, device=None, dtype=None):
         return out
 
     return convert(tree, expected, "")
+
+
+def _tensor(arr, device):
+    """A torch copy of a numpy array; bfloat16 (ml_dtypes) arrays, which
+    torch cannot read, go through their 16-bit pattern."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.view(np.uint16).astype(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.tensor(arr).to(device)
+
+
+def quantized_parameter_from_numpy(q, scales, orig_shape, bits, group_size, dtype,
+                                   device=None):
+    """A port ``QuantizedParameter`` from the fields of a JAX one: ``q`` and
+    ``scales`` as numpy arrays (bytes and scales kept as they are), ``dtype``
+    the JAX dtype (or its name) of the original weight. Device as for
+    ``params_from_numpy``."""
+    from ..inference.quantization.layers import QuantizedParameter
+    from ..models.config import torch_dtype
+    device = get_device(device)
+    return QuantizedParameter(_tensor(q, device), _tensor(scales, device),
+                              tuple(int(n) for n in orig_shape), int(bits), int(group_size),
+                              torch_dtype(np.dtype(dtype).name))
+
+
+def woq_state_from_numpy(state, device=None):
+    """A port ``quantize_woq`` state from a JAX one with numpy ``q`` and
+    ``scales``: the same keys, tensors on ``device``."""
+    device = get_device(device)
+    return {"q": _tensor(state["q"], device), "scales": _tensor(state["scales"], device),
+            "bits": int(state["bits"]), "group_size": int(state["group_size"]),
+            "shape": tuple(int(n) for n in state["shape"])}

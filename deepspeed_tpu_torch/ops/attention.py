@@ -1,4 +1,4 @@
-"""Attention op dispatch (training and full-sequence forward).
+"""Attention op dispatch: training, full-sequence forward and KV-cache decode.
 
 Mirrors ``deepspeed_tpu/ops/attention.py``: one call site for the models.
 The flash kernels (``ops/flash_attention.py``) take every eligible shape on
@@ -13,15 +13,27 @@ reference path in their place.
 
 The JAX package's sequence-parallel paths (``impl="ring"``, and Ulysses
 over a seq-sharded mesh) are not ported: the port runs on one card.
-``decode_attention`` (the v1 inference path) is not ported yet either.
+
+``decode_attention`` (the v1 inference path) keeps the JAX routing rule:
+single-token decode over a cache of S_max >= 8192 slots (S_max % 128 == 0,
+D % 64 == 0, no bias, window or softcap) on the card launches the fused
+decode kernel (``ops/decode_attention.py``); every other call runs the
+masked einsum, the JAX function's own non-Pallas branch. As for the flash
+dispatch there is no try/except around the kernel. The 8192 crossover is
+the JAX package's; the H100's own crossover is recorded in PERF.md and not
+acted on here.
 """
 
 from typing import Optional
 
 import torch
 
+from .decode_attention import fused_decode_attention
 from .flash_attention import KERNEL_HEAD_DIMS, flash_attention
 
+# f32 scores of one masked-einsum pass: query rows are taken in chunks so
+# that a prefill over a long cache never holds more than this at once
+DECODE_LOGITS_BYTES = 1 << 30
 NOT_PORTED_SEQUENCE = ("sequence-parallel attention (ring, Ulysses) is not ported "
                        "yet: ROADMAP.md section A, item 16")
 
@@ -129,3 +141,68 @@ def multihead_attention(q, k, v, *, causal=True, bias=None, segment_ids=None, sc
                                scale=scale, alibi_slopes=alibi_slopes, window=window)
     return _reference_with_slopes(q, k, v, causal, bias, alibi_slopes,
                                   segment_ids, scale, window, softcap)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, bias=None, scale=None,
+                     window=None, softcap=0.0):
+    """Decode/prefill attention against a (B, S_max, KVH, D) KV cache.
+
+    q: (B, S_new, H, D); the S_new query tokens occupy cache slots
+    [cache_len - S_new, cache_len), and key slot k is visible to query i iff
+    k < cache_len - S_new + i + 1. ``bias``: optional additive
+    (B, H, S_new, S_max) bias (ALiBi), which routes around the fused kernel.
+    ``window``: sliding-window width (int or tensor; <= 0 is global).
+
+    Single-token decode over a long cache on the card runs the fused decode
+    kernel; everything else the masked einsum (``masked_decode_attention``),
+    in chunks of query rows whose f32 scores stay under
+    ``DECODE_LOGITS_BYTES`` (the same masked softmax per row). A sequence
+    whose query sees no slot (``cache_len`` 0 at decode) takes a uniform
+    softmax over the masked scores there, as in JAX, where the fused kernel
+    gives 0."""
+    s_new, h, d = q.shape[1:]
+    s_max, kvh = k_cache.shape[1], k_cache.shape[2]
+    if isinstance(window, int) and window >= s_max:
+        window = None   # cannot bind within this cache
+    if (s_new == 1 and bias is None and window is None and not softcap
+            and _on_card(q) and s_max >= 8192 and s_max % 128 == 0
+            and d % 64 == 0 and h % kvh == 0):
+        return fused_decode_attention(q[:, 0], k_cache, v_cache, cache_len,
+                                      scale=scale)[:, None]
+    return masked_decode_attention(q, k_cache, v_cache, cache_len, bias=bias, scale=scale,
+                                   window=window, softcap=softcap)
+
+
+def masked_decode_attention(q, k_cache, v_cache, cache_len, *, bias=None, scale=None,
+                            window=None, softcap=0.0):
+    """The masked-einsum branch of ``decode_attention`` (same arguments):
+    f32 scores over every cache slot, masked to the causal (and window)
+    slots, softmax, probabilities cast to q's dtype before P.V."""
+    b, s_new, h, d = q.shape
+    s_max, kvh = k_cache.shape[1], k_cache.shape[2]
+    if kvh != h:
+        k_cache = k_cache.repeat_interleave(h // kvh, dim=2)
+        v_cache = v_cache.repeat_interleave(h // kvh, dim=2)
+    scale = scale if scale is not None else d ** -0.5
+    k_t = k_cache.float().permute(0, 2, 3, 1).contiguous()                  # (B, H, D, S_max)
+    v_h = v_cache.transpose(1, 2).contiguous()                               # (B, H, S_max, D)
+    k_pos = torch.arange(s_max, device=q.device)[None, None, :]              # (1, 1, S_max)
+    q_start = cache_len.to(q.device).long()[:, None] - s_new                 # (B, 1)
+    neg = torch.finfo(torch.float32).min
+    rows = max(1, DECODE_LOGITS_BYTES // (4 * b * h * s_max))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for r0 in range(0, s_new, rows):
+        r1 = min(s_new, r0 + rows)
+        logits = (q[:, r0:r1].float().transpose(1, 2) @ k_t) * scale      # (B, H, R, S_max)
+        if bias is not None:
+            logits = logits + bias[:, :, r0:r1]
+        if softcap:
+            logits = softcap * torch.tanh(logits / softcap)
+        q_pos = q_start + torch.arange(r0, r1, device=q.device)[None, :]     # (B, R)
+        mask = k_pos <= q_pos[:, :, None]                                     # (B, R, S_max)
+        if window is not None:
+            mask = mask & window_mask(q_pos[:, :, None], k_pos, window)
+        logits = torch.where(mask[:, None], logits, neg)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        out[:, r0:r1] = (probs @ v_h).transpose(1, 2)
+    return out

@@ -27,6 +27,9 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert "deepspeed_tpu_torch.inference.v2.engine_v2" in mods
     assert "deepspeed_tpu_torch.runtime.engine" in mods
+    for m in ("inference.engine", "inference.config", "inference.quantization.layers",
+              "ops.decode_attention", "ops.quantizer", "ops.woq_matmul"):
+        assert f"deepspeed_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
