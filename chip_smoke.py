@@ -69,6 +69,34 @@ quantization slice runs:
      (one K7/K8 launch per quantized leaf, every leaf within half a step),
      ``dequantize_model_params``, and ``QuantizedLinear`` at bits 8/4/6 on
      one layer's projections and SwiGLU MLP (K6).
+The v1 engine is then freed, and the public-ops slice runs:
+ 19. ops_kernel_check: block-sparse attention (K11) against its plain
+     version on the Fixed, BSLongformer and BigBird layouts at block 16,
+     bidirectional at the main path's shape and causal, with GQA at
+     D = 128 and a layout with empty rows (output 0 there); Evoformer
+     attention (K12) with no bias, the mask bias, and both, at D = 64, 128,
+     256 (a fully -1e9 MSA row included), at the main path's shape and at
+     S = 512 with bf16 biases; the fp8 quantizer (K9) in e4m3 and e5m2,
+     rounding to nearest and stochastic, from f32, bf16 and f16 (ties and a
+     zero group included), codes and scales byte-identical to the plain
+     version, which draws the same Philox bits; and on llama3-8b's stacked
+     wi_gate leaf, every layer when rounding to nearest, the first and last
+     when stochastic;
+ 20. ops_kernel_time: each kernel at the main path's shapes by CUDA events,
+     beside its plain version, one library call (SDPA with the token mask
+     for K11, SDPA with the summed biases for K12, none for K9) and the
+     card's bound;
+ 21. ops_path: the public entry points with every count set to 0 before and
+     read after. ``SparseSelfAttention`` at bert-large's attention width
+     (16 heads of 64), bf16, B = 4, S = 4096, on the three layouts: forward
+     through K11 and one dense-recompute backward each, the output against
+     the dense masked form; ``DS4Sci_EvoformerAttention`` at AlphaFold 2's
+     MSA row attention (1, 128, 256, 8, 32) with both biases (D = 32 is not
+     eligible: no K12 launch) and at (1, 512, 256, 4, 64) (K12 forward,
+     chunked backward), each against the chunked route, gradients finite;
+     ``quantize_fp8`` on the wi_gate leaf in the four modes, dequantized
+     within half an fp8 step (nearest) or one step (stochastic). Launches
+     must equal the calls that reach each kernel.
 Then the kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
 the last line. Without CUDA, or without the package beside it, it exits 1.
@@ -1013,7 +1041,10 @@ def kernel_counters():
     """Every kernel wrapper of the port, by kernel name: each counts its own
     launches in ``.launches``."""
     from deepspeed_tpu_torch.ops import decode_attention as DA
+    from deepspeed_tpu_torch.ops import evoformer_flash as EF
     from deepspeed_tpu_torch.ops import flash_attention as FA
+    from deepspeed_tpu_torch.ops import fp_quantizer as FQ
+    from deepspeed_tpu_torch.ops import sparse_flash as SF
     from deepspeed_tpu_torch.ops import fused_adam, paged_attention
     from deepspeed_tpu_torch.ops import quantizer as Q
     from deepspeed_tpu_torch.ops import woq_matmul as W
@@ -1024,7 +1055,9 @@ def kernel_counters():
             "fused_adam": fused_adam.fused_adam_flat,
             "fused_decode_attention": DA.fused_decode_attention,
             "woq_matmul": W.woq_matmul,
-            "quantize_int8": Q.quantize_int8, "quantize_int4": Q.quantize_int4}
+            "quantize_int8": Q.quantize_int8, "quantize_int4": Q.quantize_int4,
+            "sparse_flash_fwd": SF.sparse_flash_fwd, "evoformer_flash_fwd": EF.evoformer_flash_fwd,
+            "quantize_fp8": FQ.quantize_fp8}
 
 
 def zero_counts():
@@ -1560,6 +1593,504 @@ def v1_phases(torch, smi):
     return [k2, woq, quant[8], quant[4]]
 
 
+# ------------------------------------------------------------------ ops slice
+# block-sparse attention (K11), Evoformer attention (K12), the fp8 quantizer (K9)
+
+SPARSE_SOURCE = "deepspeed_tpu_torch/ops/csrc/sparse_flash.cu"
+SPARSE_REPLACES = "deepspeed_tpu/ops/pallas/sparse_flash.py:64"
+EVO_SOURCE = "deepspeed_tpu_torch/ops/csrc/evoformer_flash.cu"
+EVO_REPLACES = "deepspeed_tpu/ops/pallas/evoformer_flash.py:34"
+FP8_SOURCE = "deepspeed_tpu_torch/ops/csrc/fp_quantizer.cu"
+FP8_REPLACES = "deepspeed_tpu/ops/pallas/fp_quantizer.py:25"
+SPARSE_MODEL = "bert-large"        # its attention width: 16 heads of 64
+SPARSE_B, SPARSE_S, SPARSE_BLOCK = 4, 4096, 16   # 8x bert-large's 512 positions
+# AlphaFold 2's MSA row attention with pair bias (supplementary Alg. 7,
+# Table 4): 8 heads of 32, N_clust 128, N_res crop 256; (B, N, S, H, D)
+EVO_AF2 = (1, 128, 256, 8, 32)
+# the same 256-wide projection split as 4 heads of 64 at the fine-tuning
+# cluster count 512: chosen to reach the kernel, not a published setting
+EVO_MAIN = (1, 512, 256, 4, 64)
+WI_GATE = (32, 4096, 14336)        # llama3-8b's stacked wi_gate leaf, bf16
+FP8_GROUP = 256
+FP8_MODES = [(fmt, st) for fmt in ("e4m3", "e5m2") for st in (False, True)]
+TILE = 128                         # the sparse layout tables' tile
+
+
+def sparse_configs(h):
+    """The three layouts of the main path at block 16: Fixed (4 local, 1
+    global), BSLongformer and BigBird at their defaults, bidirectional."""
+    from deepspeed_tpu_torch.ops import sparse_attention as SA
+    return {"fixed": SA.FixedSparsityConfig(num_heads=h, block=SPARSE_BLOCK,
+                                            num_local_blocks=4, num_global_blocks=1),
+            "bslongformer": SA.BSLongformerSparsityConfig(num_heads=h, block=SPARSE_BLOCK),
+            "bigbird": SA.BigBirdSparsityConfig(num_heads=h, block=SPARSE_BLOCK)}
+
+
+def randn_bf16(torch, g, *shape):
+    return torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+
+
+def compare(torch, got, ref):
+    """(max |got - ref|, relative Frobenius error, every element within
+    ATOL + RTOL |ref|), in f32."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+    return float(err.max()), rel, bool((err <= ATOL + RTOL * ref.abs()).all())
+
+
+def sparse_inputs(torch, *, b, s, h, kvh, d, layout, causal, seed):
+    """bf16 q (B, S, H, D) and k, v repeated to H heads (as
+    sparse_flash_attention hands them to the kernel), with the layout's
+    tables on the card and its tile masks packed to bits."""
+    from deepspeed_tpu_torch.ops import sparse_flash as SF
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = randn_bf16(torch, g, b, s, h, d), randn_bf16(torch, g, b, s, kvh, d), \
+        randn_bf16(torch, g, b, s, kvh, d)
+    k, v = k.repeat_interleave(h // kvh, dim=2), v.repeat_interleave(h // kvh, dim=2)
+    table, counts, masks = SF.precompile_layout(layout, SPARSE_BLOCK, causal)
+    return dict(q=q, k=k, v=v, table=table, counts=counts, bits=SF.pack_mask_bits(masks),
+                scale=d ** -0.5, causal=causal)
+
+
+def sparse_call(fn, c):
+    return fn(c["q"], c["k"], c["v"], c["table"], c["counts"], c["bits"], c["scale"])
+
+
+def sparse_pairs(c):
+    """The (query, key) pairs the layout lets through: the set bits of the
+    live tiles' masks, padding slots excluded."""
+    import torch
+    from deepspeed_tpu_torch.ops import sparse_flash as SF
+    ma = c["table"].shape[1]
+    valid = torch.arange(ma, device=c["counts"].device)[None, :] < c["counts"][:, None]
+    return int(SF.unpack_mask_bits(c["bits"])[valid].sum())
+
+
+def sparse_work(c):
+    """(bytes, flops): q, k, v read and out written once, table and counts,
+    the bits of each live tile (2 KB) once; 4 D flops per (query, key) pair
+    that the token mask lets through, and no more: the mask's 16-token
+    blocks could be skipped at the tensor cores' 16 x 16 grain."""
+    b, s, h, d = c["q"].shape
+    live = int(c["counts"].sum())
+    nbytes = 4 * b * s * h * d * 2 + 4 * (c["table"].numel() + c["counts"].numel()) \
+        + live * TILE * TILE // 8
+    return nbytes, 4 * d * sparse_pairs(c) * b * h
+
+
+def evo_inputs(torch, shape, *, biases="both", bias_dtype=None, seed=0):
+    """bf16 q, k, v (B, N, S, H, D) as head-major views (as
+    DS4Sci_EvoformerAttention hands them to the kernel), a mask bias with
+    -1e9 at a tenth of the keys and one MSA row fully masked, and a pair
+    bias, both f32 unless ``bias_dtype``."""
+    b, n, s, h, d = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (randn_bf16(torch, g, b, n, s, h, d).movedim(3, 2) for _ in range(3))
+    b1 = b2 = None
+    if biases in ("b1", "both"):
+        b1 = torch.where(torch.rand(b, n, 1, 1, s, generator=g, device="cuda") < 0.1, -1e9, 0.0)
+        b1[:, -1] = -1e9
+    if biases == "both":
+        b2 = torch.randn(b, 1, h, s, s, generator=g, device="cuda")
+    if bias_dtype is not None:
+        b1, b2 = (None if t is None else t.to(bias_dtype) for t in (b1, b2))
+    return dict(q=q, k=k, v=v, b1=b1, b2=b2, scale=d ** -0.5)
+
+
+def evo_call(fn, c):
+    return fn(c["q"], c["k"], c["v"], c["b1"], c["b2"], scale=c["scale"])
+
+
+def evo_work(c):
+    """(bytes, flops): q, k, v read and out written once, each bias read
+    once (as stored); 4 D flops per (query, key) pair."""
+    b, n, h, s, d = c["q"].shape
+    nbytes = 4 * b * n * h * s * d * 2 + sum(t.numel() * t.element_size()
+                                             for t in (c["b1"], c["b2"]) if t is not None)
+    return nbytes, 4 * d * s * s * b * n * h
+
+
+def fp8_probe(torch, dtype, seed=0):
+    """(2048, 4096) in ``dtype``: rows at magnitudes spread over e^+-6, an
+    all-zero group, and groups at scale exactly 1 holding every tie
+    between neighbouring e4m3 / e5m2 values that the dtype represents."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(2048, 4096, generator=g, device="cuda") * torch.exp(
+        torch.rand(2048, 1, generator=g, device="cuda") * 12 - 6)
+    x[5, :FP8_GROUP] = 0
+    for row, (fp8, fmax) in ((7, (torch.float8_e4m3fn, 448.0)), (9, (torch.float8_e5m2, 57344.0))):
+        vals = torch.arange(256, dtype=torch.uint8, device="cuda").view(fp8).float()
+        grid = vals[torch.isfinite(vals) & (vals >= 0)].unique()
+        mids = ((grid[:-1] + grid[1:]) / 2).to(dtype).float()     # < 127 of them
+        x[row, :FP8_GROUP] = 0
+        x[row, :mids.numel()] = mids
+        x[row, FP8_GROUP - 1] = fmax                    # the group's absmax: scale 1
+    return x.to(dtype)
+
+
+def fp8_diff(torch, q, s, pq, ps):
+    return (int((q.reshape(-1).view(torch.uint8) != pq.reshape(-1).view(torch.uint8)).sum()),
+            int((s.reshape(-1).view(torch.int32) != ps.reshape(-1).view(torch.int32)).sum()))
+
+
+def ops_kernel_check(torch):
+    """K11, K12 and K9 against their plain versions on the card. Returns
+    the worst error of each kernel."""
+    import numpy as np
+    from deepspeed_tpu_torch.ops import evoformer_flash as EF
+    from deepspeed_tpu_torch.ops import fp_quantizer as FQ
+    from deepspeed_tpu_torch.ops import sparse_flash as SF
+    worst = {"sparse_flash_fwd": 0.0, "evoformer_flash_fwd": 0.0, "quantize_fp8": 0.0}
+
+    def held(kernel, case, shape, call, fn, plain, c, extra=None):
+        """``call(fn, c)`` through the kernel's wrapper, once, against
+        ``call(plain, c)`` on the same inputs."""
+        before = fn.launches
+        got = call(fn, c)
+        torch.cuda.synchronize()
+        launched = fn.launches - before
+        ref = call(plain, c)
+        err, rel, ok = compare(torch, got, ref)
+        ok = ok and rel <= FRO_TOL and launched == 1 and bool(torch.isfinite(got).all())
+        extra = extra(got, ref) if extra else {}
+        ok = ok and all(extra.values())
+        worst[kernel] = max(worst[kernel], err)
+        emit("ops_kernel_check", kernel=kernel, case=case, shape=shape, max_abs_err=err,
+             rel_fro=rel, atol=ATOL, rtol=RTOL, fro_tol=FRO_TOL, launches=launched,
+             within=ok, **extra)
+        if not ok:
+            fail(f"{kernel} {case}: max_abs_err {err}, rel_fro {rel}, launches {launched}, {extra}")
+
+    h, d = 16, 64
+    for name, cfg in sparse_configs(h).items():
+        for causal, (b, s) in ((False, (SPARSE_B, SPARSE_S)), (True, (2, 2048))):
+            c = sparse_inputs(torch, b=b, s=s, h=h, kvh=h, d=d, layout=cfg.make_layout(s),
+                              causal=causal, seed=1)
+            held("sparse_flash_fwd", f"{name}_{'causal' if causal else 'bidirectional'}",
+                 dict(B=b, S=s, H=h, D=d, live_tiles=int(c["counts"].sum())),
+                 sparse_call, SF.sparse_flash_fwd, SF.sparse_flash_plain, c)
+    # GQA at D = 128, and a random layout with empty block rows: a query tile
+    # with no live key tile and rows that see no key must come out 0
+    rng = np.random.default_rng(0)
+    rand_layout = rng.random((64, 64)) < 0.2
+    rand_layout[:8] = False
+    rand_layout[20] = False
+    for case, kw in (("bigbird_gqa_d128_causal",
+                      dict(b=2, s=1024, h=16, kvh=4, d=128,
+                           layout=sparse_configs(16)["bigbird"].make_layout(1024), causal=True)),
+                     ("random_empty_rows_d128",
+                      dict(b=1, s=1024, h=4, kvh=4, d=128, layout=rand_layout, causal=False))):
+        c = sparse_inputs(torch, seed=2, **kw)
+        empty = torch.from_numpy(np.repeat(~kw["layout"].any(axis=1), SPARSE_BLOCK)).cuda()
+        held("sparse_flash_fwd", case, dict(B=kw["b"], S=kw["s"], H=kw["h"], KVH=kw["kvh"],
+                                            D=kw["d"], live_tiles=int(c["counts"].sum())),
+             sparse_call, SF.sparse_flash_fwd, SF.sparse_flash_plain, c,
+             extra=lambda got, ref: {"empty_rows_zero": bool((got[:, empty] == 0).all())})
+    torch.cuda.empty_cache()
+
+    for d in (64, 128, 256):
+        for biases in ("none", "b1", "both"):
+            c = evo_inputs(torch, (1, 4, 256, 4, d), biases=biases, seed=d)
+            held("evoformer_flash_fwd", f"d{d}_{biases}", dict(B=1, N=4, S=256, H=4, D=d),
+                 evo_call, EF.evoformer_flash_fwd, EF.evoformer_flash_plain, c)
+    for case, shape, kw in (("main_path", EVO_MAIN, {}),
+                            ("s512_bf16_biases", (1, 2, 512, 2, 128), dict(bias_dtype=torch.bfloat16))):
+        c = evo_inputs(torch, shape, seed=3, **kw)
+        held("evoformer_flash_fwd", case, dict(zip("BNSHD", shape)),
+             evo_call, EF.evoformer_flash_fwd, EF.evoformer_flash_plain, c)
+    torch.cuda.empty_cache()
+
+    # K9: codes and scales byte-identical to the plain version, which draws
+    # the same Philox bits in stochastic mode
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x = fp8_probe(torch, dtype)
+        for fmt, st in FP8_MODES:
+            before = FQ.quantize_fp8.launches
+            q, s = FQ.quantize_fp8(x, FP8_GROUP, fmt, st, seed=11)
+            torch.cuda.synchronize()
+            launched = FQ.quantize_fp8.launches - before
+            diff_q, diff_s = fp8_diff(torch, q, s, *FQ.quantize_fp8_plain(x, FP8_GROUP, fmt, st, 11))
+            ok = diff_q == diff_s == 0 and launched == 1
+            emit("ops_kernel_check", kernel="quantize_fp8", case=f"probe_{fmt}_"
+                 f"{'stochastic' if st else 'nearest'}", dtype=str(dtype), shape=list(x.shape),
+                 differing_q_bytes=diff_q, differing_scales=diff_s, launches=launched, within=ok)
+            if not ok:
+                fail(f"quantize_fp8 {dtype} {fmt} stochastic={st}: {diff_q} codes, {diff_s} "
+                     f"scales differ ({launched} launches)")
+        del x
+    # the main path's leaf: every layer compared for both formats when
+    # rounding to nearest; the first and last layers (global Philox
+    # counters) when stochastic
+    g = torch.Generator(device="cuda").manual_seed(3)
+    w = torch.randn(*WI_GATE, generator=g, device="cuda", dtype=torch.bfloat16).mul_(0.02)
+    per_layer = WI_GATE[1] * WI_GATE[2]
+    for fmt, st in FP8_MODES:
+        q, s = FQ.quantize_fp8(w, FP8_GROUP, fmt, st, seed=5)
+        layers = [0, WI_GATE[0] - 1] if st else range(WI_GATE[0])
+        diff_q = diff_s = 0
+        for li in layers:
+            pq, ps = FQ.quantize_fp8_plain(w[li], FP8_GROUP, fmt, st, 5, index0=li * per_layer)
+            g0 = li * per_layer // FP8_GROUP
+            dq, ds = fp8_diff(torch, q[li], s[g0:g0 + per_layer // FP8_GROUP], pq, ps)
+            diff_q, diff_s = diff_q + dq, diff_s + ds
+            del pq, ps
+        ok = diff_q == diff_s == 0
+        emit("ops_kernel_check", kernel="quantize_fp8", case=f"wi_gate_{fmt}_"
+             f"{'stochastic' if st else 'nearest'}", dtype="torch.bfloat16", shape=list(WI_GATE),
+             layers_compared=len(layers), differing_q_bytes=diff_q, differing_scales=diff_s,
+             within=ok)
+        if not ok:
+            fail(f"quantize_fp8 wi_gate {fmt} stochastic={st}: {diff_q} codes, {diff_s} scales differ")
+        del q, s
+        torch.cuda.empty_cache()
+    del w
+    torch.cuda.empty_cache()
+    return worst
+
+
+def ops_kernel_time(torch):
+    """K11 on the three layouts, K12 and K9 at the main path's shapes:
+    kernel, plain version and one library call by CUDA events, beside the
+    card's bound. Returns the rows by kernel and case."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import evoformer_flash as EF
+    from deepspeed_tpu_torch.ops import fp_quantizer as FQ
+    from deepspeed_tpu_torch.ops import sparse_flash as SF
+    rows = {}
+    h, d = 16, 64
+    for name, cfg in sparse_configs(h).items():
+        layout = cfg.make_layout(SPARSE_S)
+        c = sparse_inputs(torch, b=SPARSE_B, s=SPARSE_S, h=h, kvh=h, d=d, layout=layout,
+                          causal=False, seed=4)
+        token = SF.token_mask_from_tiles(c["table"], c["counts"], c["bits"])
+        qh, kh, vh = (c[x].transpose(1, 2) for x in "qkv")
+        nbytes, flops = sparse_work(c)
+        b_ms, b_by = bound(nbytes, flops)
+        row = dict(ms=cuda_ms(torch, lambda i: sparse_call(SF.sparse_flash_fwd, c)),
+                   plain_ms=cuda_ms(torch, lambda i: sparse_call(SF.sparse_flash_plain, c),
+                                    reps=2, iters=1),
+                   library_ms=cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+                       qh, kh, vh, attn_mask=token), reps=3, iters=5),
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+                   live_tiles=int(c["counts"].sum()), tiles=(SPARSE_S // TILE) ** 2,
+                   fine_density=sparse_pairs(c) / SPARSE_S ** 2)
+        emit("ops_kernel_time", kernel="sparse_flash_fwd", case=name,
+             shape=dict(B=SPARSE_B, S=SPARSE_S, H=h, D=d, dtype="bfloat16"),
+             library="F.scaled_dot_product_attention with the (S, S) boolean token mask", **row)
+        rows[("sparse_flash_fwd", name)] = row
+        del c, token, qh, kh, vh
+        torch.cuda.empty_cache()
+
+    c = evo_inputs(torch, EVO_MAIN, seed=5)
+    b, n, s, hh, dd = EVO_MAIN
+    qf, kf, vf = (c[x].reshape(b * n, hh, s, dd) for x in "qkv")
+    bias = (c["b1"].reshape(b * n, 1, 1, s) + c["b2"].reshape(b, hh, s, s).repeat_interleave(n, 0)
+            ).to(torch.bfloat16)
+    nbytes, flops = evo_work(c)
+    b_ms, b_by = bound(nbytes, flops)
+    row = dict(ms=cuda_ms(torch, lambda i: evo_call(EF.evoformer_flash_fwd, c)),
+               plain_ms=cuda_ms(torch, lambda i: evo_call(EF.evoformer_flash_plain, c),
+                                reps=3, iters=3),
+               library_ms=cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+                   qf, kf, vf, attn_mask=bias, scale=dd ** -0.5)),
+               bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+    emit("ops_kernel_time", kernel="evoformer_flash_fwd", case="main_path",
+         shape=dict(zip("BNSHD", EVO_MAIN)), library="F.scaled_dot_product_attention with "
+         "b1 + b2 summed beforehand into a (B*N, H, S, S) bf16 mask", **row)
+    rows[("evoformer_flash_fwd", "main_path")] = row
+    del c, qf, kf, vf, bias
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    w = torch.randn(*WI_GATE, generator=g, device="cuda", dtype=torch.bfloat16).mul_(0.02)
+    n_el, per_layer = w.numel(), WI_GATE[1] * WI_GATE[2]
+    for fmt, st in FP8_MODES:
+        nbytes = 2 * n_el + n_el + 4 * (n_el // FP8_GROUP)
+        # f32-rate operations an element: absmax, divide and convert (4);
+        # stochastic adds a quarter of a Philox-10 (~100 integer operations
+        # for 4 words) and the neighbour choice (~10)
+        flops = (4 + (35 if st else 0)) * n_el
+        b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+
+        def plain_leaf(i):
+            for li in range(WI_GATE[0]):
+                FQ.quantize_fp8_plain(w[li], FP8_GROUP, fmt, st, 5, index0=li * per_layer)
+
+        row = dict(ms=cuda_ms(torch, lambda i: FQ.quantize_fp8(w, FP8_GROUP, fmt, st, seed=5),
+                              reps=5, iters=5),
+                   plain_ms=cuda_ms(torch, plain_leaf, reps=1, iters=1),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+        case = f"{fmt}_{'stochastic' if st else 'nearest'}"
+        emit("ops_kernel_time", kernel="quantize_fp8", case=case, leaf="layers.mlp.wi_gate",
+             shape=list(WI_GATE), library="none: no single PyTorch call computes it",
+             plain="one layer at a time over the leaf", **row)
+        rows[("quantize_fp8", case)] = row
+        torch.cuda.empty_cache()
+    del w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def timed_ms(torch, fn):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def fp8_step(torch, a, fmt):
+    """The spacing of fp8 values at magnitude a (>= the spacing just below)."""
+    mbits, emin = (3, -6) if fmt == "e4m3" else (2, -14)
+    e = torch.floor(torch.log2(torch.clamp(a, min=2.0 ** emin)))
+    return torch.exp2(e - mbits)
+
+
+def ops_path(torch, smi):
+    """ops_path: the three public entry points at their main-path shapes,
+    with every kernel count set to 0 before and read after. Returns the
+    launches by kernel."""
+    from deepspeed_tpu_torch.models.config import PRESETS
+    from deepspeed_tpu_torch.ops import (DS4Sci_EvoformerAttention, SparseSelfAttention,
+                                         dequantize_fp8, quantize_fp8)
+    from deepspeed_tpu_torch.ops.evoformer import _chunked
+    bert = PRESETS[SPARSE_MODEL]
+    h, d = bert.num_heads, bert.hidden_size // bert.num_heads
+    calls = {"sparse_flash_fwd": 0, "evoformer_flash_fwd": 0, "quantize_fp8": 0}
+    g = torch.Generator(device="cuda").manual_seed(7)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+
+    # (a) SparseSelfAttention at bert-large's attention width, S = 4096
+    q, k, v = (randn_bf16(torch, g, SPARSE_B, SPARSE_S, h, d).requires_grad_() for _ in range(3))
+    cot = randn_bf16(torch, g, SPARSE_B, SPARSE_S, h, d)
+    # one untimed forward and backward first: the first dense recompute
+    # pays one-time allocator and library set-up (3.1 s in a first reading)
+    SparseSelfAttention(sparse_configs(h)["bslongformer"])(q, k, v).backward(cot)
+    calls["sparse_flash_fwd"] += 1
+    for t in (q, k, v):
+        t.grad = None
+    for name, cfg in sparse_configs(h).items():
+        attn = SparseSelfAttention(cfg, max_seq_length=SPARSE_S)
+        with torch.no_grad():
+            attn(q, k, v)                                   # warm-up: layout tables built
+            fwd = statistics.median(timed_ms(torch, lambda: attn(q, k, v))[0] for _ in range(3))
+        out = attn(q, k, v)
+        calls["sparse_flash_fwd"] += 5
+        bwd_ms, _ = timed_ms(torch, lambda: out.backward(cot))
+        grads_finite = all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+        with torch.no_grad():
+            dense = attn(q, k, v, use_kernel=False)         # the dense masked form
+        err, rel, ok = compare(torch, out.detach(), dense)
+        live = int(attn.config.make_layout(SPARSE_S).reshape(
+            SPARSE_S // TILE, TILE // SPARSE_BLOCK, SPARSE_S // TILE, TILE // SPARSE_BLOCK)
+            .any(axis=(1, 3)).sum())
+        ok = ok and rel <= FRO_TOL and grads_finite and out.shape == q.shape
+        emit("ops_path", api="SparseSelfAttention", model=SPARSE_MODEL, layout=name,
+             shape=dict(B=SPARSE_B, S=SPARSE_S, H=h, D=d, dtype="bfloat16", block=SPARSE_BLOCK),
+             live_tiles=live, tiles=(SPARSE_S // TILE) ** 2, forward_ms=fwd, backward_ms=bwd_ms,
+             grads_finite=grads_finite, vs_dense_max_abs_err=err, vs_dense_rel_fro=rel,
+             within=ok)
+        if not ok:
+            fail(f"SparseSelfAttention {name}: vs dense {err} / {rel}, grads finite {grads_finite}")
+        for t in (q, k, v):
+            t.grad = None
+        del out, dense
+        torch.cuda.empty_cache()
+    del q, k, v, cot
+
+    # (b) DS4Sci_EvoformerAttention: AF2's MSA row attention (D = 32: the
+    # chunked route, no K12), then the kernel's 4 x 64 split
+    for name, shape, launches in (("af2_msa_row_d32", EVO_AF2, 0), ("heads4x64_n512", EVO_MAIN, 5)):
+        b, n, s, hh, _ = shape
+        q, k, v = (randn_bf16(torch, g, *shape).requires_grad_() for _ in range(3))
+        b1 = torch.where(torch.rand(b, n, 1, 1, s, generator=g, device="cuda") < 0.1, -1e9, 0.0)
+        b2 = torch.randn(b, 1, hh, s, s, generator=g, device="cuda")
+        b1.requires_grad_()
+        b2.requires_grad_()
+        with torch.no_grad():
+            DS4Sci_EvoformerAttention(q, k, v, [b1, b2])
+            fwd = statistics.median(timed_ms(torch, lambda: DS4Sci_EvoformerAttention(
+                q, k, v, [b1, b2]))[0] for _ in range(3))
+        out = DS4Sci_EvoformerAttention(q, k, v, [b1, b2])
+        calls["evoformer_flash_fwd"] += launches
+        bwd_ms, _ = timed_ms(torch, lambda: out.backward(torch.ones_like(out)))
+        grads_finite = all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v, b1, b2))
+        with torch.no_grad():
+            ref = _chunked(q, k, v, b1, b2, 256)            # the chunked torch route
+        err, rel, ok = compare(torch, out.detach(), ref)
+        ok = ok and rel <= FRO_TOL and grads_finite
+        emit("ops_path", api="DS4Sci_EvoformerAttention", case=name, shape=dict(zip("BNSHD", shape)),
+             dtype="bfloat16", biases=["mask (B, N, 1, 1, S)", "pair (B, 1, H, S, S)"],
+             route="K12 forward, chunked backward" if launches else "chunked (D not eligible)",
+             forward_ms=fwd, backward_ms=bwd_ms, grads_finite=grads_finite,
+             vs_chunked_max_abs_err=err, vs_chunked_rel_fro=rel, within=ok)
+        if not ok:
+            fail(f"DS4Sci_EvoformerAttention {name}: vs chunked {err} / {rel}, "
+                 f"grads finite {grads_finite}")
+        del q, k, v, b1, b2, out, ref
+        torch.cuda.empty_cache()
+
+    # (c) quantize_fp8 on llama3-8b's wi_gate leaf, four modes; dequantized
+    # within half an fp8 step of x (nearest) or one step (stochastic), in
+    # units of the scale
+    w = torch.randn(*WI_GATE, generator=g, device="cuda", dtype=torch.bfloat16).mul_(0.02)
+    per_layer = WI_GATE[1] * WI_GATE[2]
+    for fmt, st in FP8_MODES:
+        ms, (qc, sc) = timed_ms(torch, lambda: quantize_fp8(w, FP8_GROUP, fmt, st, seed=9))
+        calls["quantize_fp8"] += 1
+        worst = 0.0
+        for li in range(WI_GATE[0]):
+            s_l = sc[li * per_layer // FP8_GROUP:(li + 1) * per_layer // FP8_GROUP]
+            x = w[li].float().reshape(-1, FP8_GROUP)
+            deq = dequantize_fp8(qc[li], s_l, torch.float32, FP8_GROUP).reshape(-1, FP8_GROUP)
+            # the step's share, plus the f32 roundings of x / scale and of
+            # code * scale (2^-24 of each magnitude, doubled)
+            lim = ((0.5 if not st else 1.0) * fp8_step(torch, x.abs() / s_l, fmt) * s_l
+                   + 2.0 ** -23 * (x.abs() + deq.abs()))
+            worst = max(worst, float(((deq - x).abs() / (lim + 1e-30)).max()))
+        ok = worst <= 1.0 and qc.shape == w.shape
+        emit("ops_path", api="quantize_fp8", leaf="layers.mlp.wi_gate", shape=list(WI_GATE),
+             fmt=fmt, stochastic=st, group_size=FP8_GROUP, ms=ms,
+             worst_err_over_limit=worst, limit="half a step" if not st else "one step",
+             within=ok)
+        if not ok:
+            fail(f"quantize_fp8 {fmt} stochastic={st}: round trip {worst} of its limit")
+        del qc, sc
+        torch.cuda.empty_cache()
+    del w
+    counts = {name: read_counts()[name] for name in calls}
+    ok = counts == calls and all(v == 0 for n_, v in read_counts().items() if n_ not in calls)
+    emit("ops_path_launches", launches_by_kernel=counts, calls=calls, within=ok,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi)
+    if not ok:
+        fail(f"ops path launches {counts}, calls {calls}")
+    return counts
+
+
+def ops_phases(torch, smi):
+    """The block-sparse, Evoformer and fp8 slice; returns its kernel
+    entries."""
+    worst = ops_kernel_check(torch)
+    rows = ops_kernel_time(torch)
+    launches = ops_path(torch, smi)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    entries = []
+    for name, source, replaces, case in (
+            ("sparse_flash_fwd", SPARSE_SOURCE, SPARSE_REPLACES, "bslongformer"),
+            ("evoformer_flash_fwd", EVO_SOURCE, EVO_REPLACES, "main_path"),
+            ("quantize_fp8", FP8_SOURCE, FP8_REPLACES, "e4m3_stochastic")):
+        row = rows[(name, case)]
+        entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches[name], "max_abs_err": worst[name],
+                        **{k: row[k] for k in keys}, "case": case,
+                        "shapes": {c: {k: r[k] for k in keys} for (n_, c), r in rows.items()
+                                   if n_ == name}})
+    return entries
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1584,6 +2115,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     entries += v1_phases(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    entries += ops_phases(torch, smi)
     print(json.dumps({"kernels": [entry] + entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,21 +35,13 @@
 // (key tile, kv head, batch) that walks the G = H / KVH query heads of its
 // group, so the group sum happens in the block's f32 accumulators.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-#include <cmath>
 #include <cstdint>
 
-using namespace nvcuda;
+#include "attention_tiles.cuh"
+
+using namespace attn_tiles;
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int NTHREADS = 256;  // eight warps (1.2-1.4x faster than four at gpt2-xl shapes)
-constexpr int NWARPS = NTHREADS / 32;
 
 struct Params {
   const bf16* q;
@@ -68,27 +60,9 @@ struct Params {
   int S, H, KVH, causal, window;
 };
 
-// Shared-memory row strides (elements): padded so wmma fragment pointers stay
-// 32-byte aligned and consecutive rows do not start on the same bank.
-template <int D, int BK>
-struct Ld {
-  static constexpr int T = D + 8;   // bf16 rows of Q, K, V, dO
-  static constexpr int S = BK + 4;  // f32 score rows
-  static constexpr int P = BK + 8;  // bf16 probability rows
-  static constexpr int O = D + 4;   // f32 accumulator rows
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // rows [row0, row0 + n) of a strided (row r at src + r * stride) bf16 matrix
-// into shared memory, 16 bytes a thread; rows at or past S are zero
+// into shared memory, 16 bytes a thread; rows at or past S are zero (the
+// shared load_rows takes whole tiles)
 template <int D>
 __device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src, size_t stride,
                                           int row0, int n, int S) {
@@ -110,48 +84,6 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src, int row0,
 __device__ __forceinline__ void load_seg(int* dst, const int* seg, int row0, int n, int S) {
   for (int i = threadIdx.x; i < n; i += NTHREADS)
     dst[i] = (seg != nullptr && row0 + i < S) ? seg[row0 + i] : 0;
-}
-
-// C[M x N] (f32) = A[M x K] B[N x K]^T; A and B row-major bf16
-template <int M, int N, int K>
-__device__ __forceinline__ void gemm_nt(float* C, int ldc, const bf16* A, int lda,
-                                        const bf16* B, int ldb) {
-  const int warp = threadIdx.x / 32;
-  for (int t = warp; t < (M / 16) * (N / 16); t += NWARPS) {
-    const int mi = t / (N / 16), ni = t % (N / 16);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, A + mi * 16 * lda + k0, lda);
-      wmma::load_matrix_sync(b, B + ni * 16 * ldb + k0, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(C + mi * 16 * ldc + ni * 16, acc, ldc, wmma::mem_row_major);
-  }
-}
-
-// C[M x N] (f32) += A[M x K] B[K x N]; A and B row-major bf16
-template <int M, int N, int K>
-__device__ __forceinline__ void gemm_nn_acc(float* C, int ldc, const bf16* A, int lda,
-                                            const bf16* B, int ldb) {
-  const int warp = threadIdx.x / 32;
-  for (int t = warp; t < (M / 16) * (N / 16); t += NWARPS) {
-    const int mi = t / (N / 16), ni = t % (N / 16);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, C + mi * 16 * ldc + ni * 16, ldc, wmma::mem_row_major);
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, A + mi * 16 * lda + k0, lda);
-      wmma::load_matrix_sync(b, B + k0 * ldb + ni * 16, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(C + mi * 16 * ldc + ni * 16, acc, ldc, wmma::mem_row_major);
-  }
 }
 
 // C[M x N] (f32) += A^T B with A stored [K x M] row-major and B [K x N]
@@ -189,21 +121,12 @@ __device__ __forceinline__ void key_range(const Params& p, int r0, int& lo, int&
   lo = p.window > 0 ? max(0, r0 - p.window + 1) / BK : 0;
 }
 
-constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
-
 // ------------------------------------------------------------------ forward
 
+// the shared forward layout, then the segment ids of the tile's rows and keys
 template <int D, int BQ, int BK>
-struct FwdSmem {
-  using L = Ld<D, BK>;
-  static constexpr size_t q = 0;
-  static constexpr size_t k = align128(q + sizeof(bf16) * BQ * L::T);
-  static constexpr size_t v = align128(k + sizeof(bf16) * BK * L::T);
-  static constexpr size_t s = align128(v + sizeof(bf16) * BK * L::T);
-  static constexpr size_t p = align128(s + sizeof(float) * BQ * L::S);
-  static constexpr size_t o = align128(p + sizeof(bf16) * BQ * L::P);
-  static constexpr size_t rows = align128(o + sizeof(float) * BQ * L::O);  // m, l, alpha
-  static constexpr size_t qseg = rows + sizeof(float) * 3 * BQ;
+struct FlashFwdSmem : FwdSmem<D, BQ, BK> {
+  static constexpr size_t qseg = FwdSmem<D, BQ, BK>::bytes;
   static constexpr size_t kseg = qseg + sizeof(int) * BQ;
   static constexpr size_t bytes = kseg + sizeof(int) * BK;
 };
@@ -211,7 +134,7 @@ struct FwdSmem {
 template <int D, int BQ, int BK>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  using SM = FwdSmem<D, BQ, BK>;
+  using SM = FlashFwdSmem<D, BQ, BK>;
   using L = Ld<D, BK>;
   bf16* Qs = reinterpret_cast<bf16*>(smem + SM::q);
   bf16* Ks = reinterpret_cast<bf16*>(smem + SM::k);
@@ -503,23 +426,12 @@ template <> struct Tiles<256> { static constexpr int BQ = 32, BK = 32; };
 
 enum Kind { FWD, DQ, DKV };
 
-template <typename Kernel>
-cudaError_t launch_kernel(Kernel kernel, size_t smem, dim3 grid, const Params& p,
-                          cudaStream_t stream) {
-  // the attribute belongs to the current device: set it on every launch
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <int D>
 cudaError_t launch(Kind kind, const Params& p, int B, cudaStream_t stream) {
   constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
   switch (kind) {
     case FWD:
-      return launch_kernel(flash_fwd_kernel<D, BQ, BK>, FwdSmem<D, BQ, BK>::bytes,
+      return launch_kernel(flash_fwd_kernel<D, BQ, BK>, FlashFwdSmem<D, BQ, BK>::bytes,
                            dim3((p.S + BQ - 1) / BQ, p.H, B), p, stream);
     case DQ:
       return launch_kernel(flash_dq_kernel<D, BQ, BK>, DqSmem<D, BQ, BK>::bytes,

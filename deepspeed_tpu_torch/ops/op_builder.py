@@ -3,13 +3,15 @@
 Counterpart of ``deepspeed_tpu/ops/op_builder`` (which wraps the JAX
 package's host-side native ops): each ``csrc/<name>.cu`` is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library with a plain C
-interface, ``build/lib<name>.so``, and loaded with ``ctypes``. Building
-happens at first use, never at import, so the CPU tests import every module
-without a CUDA toolkit. A library newer than its source is reused.
+interface, ``build/lib<name>.so``, and loaded with ``ctypes``; a source may
+include shared headers ``csrc/*.cuh``. Building happens at first use,
+never at import, so the CPU tests import every module without a CUDA
+toolkit. A library newer than its source and every header is reused.
 """
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -47,8 +49,13 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a header the
+    source includes."""
     lib = _lib_path(name)
-    return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+    src = CSRC / f"{name}.cu"
+    headers = re.findall(r'^#include "(\w+\.cuh)"', src.read_text(), re.MULTILINE)
+    sources = [src, *(CSRC / h for h in headers)]
+    return not lib.exists() or lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def build(names: List[str] = None) -> Dict[str, float]:

@@ -28,7 +28,9 @@ def test_every_module_imports_without_jax():
     assert "deepspeed_tpu_torch.inference.v2.engine_v2" in mods
     assert "deepspeed_tpu_torch.runtime.engine" in mods
     for m in ("inference.engine", "inference.config", "inference.quantization.layers",
-              "ops.decode_attention", "ops.quantizer", "ops.woq_matmul"):
+              "ops.decode_attention", "ops.quantizer", "ops.woq_matmul",
+              "ops.sparse_attention", "ops.sparse_flash", "ops.fp_quantizer",
+              "ops.evoformer_flash", "ops.evoformer"):
         assert f"deepspeed_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
