@@ -97,9 +97,35 @@ The v1 engine is then freed, and the public-ops slice runs:
      ``quantize_fp8`` on the wi_gate leaf in the four modes, dequantized
      within half an fp8 step (nearest) or one step (stochastic). Launches
      must equal the calls that reach each kernel.
+The public ops are then freed, and the ring (sequence-parallel) slice runs:
+ 22. ring_kernel_check: one ring step of K13 (forward, into the carry), K14
+     (dq) and K15 (dk/dv, the GQA group summed in the kernel) against their
+     plain versions at the shard shapes of qwen2-7b over 4 shards (S = 8192
+     a shard, H = 28, KVH = 4, D = 128, bf16) on the diagonal step (empty
+     carry), a step below it and one above it (carry and accumulators back
+     bit for bit), then window, ALiBi, segments and all three, GQA groups
+     1, 4 and 7, D = 64 and 256, a shard of 1000 (masked tail tiles);
+ 23. ring_kernel_time: each kernel per step kind by CUDA events, beside its
+     plain version, its bound and SDPA (forward beside K13, its autograd
+     backward beside K14 + K15, with the kernels SDPA ran named);
+ 24. ring_train_path: ``initialize()`` on qwen2-7b at full width, 4 of 28
+     layers, one 32768-token sequence a step over ``mesh {"seq": 4}`` with
+     ``attn_impl="ring"``, bf16, AdamW, ZeRO-1, full recompute; every count
+     set to 0 before and read after 1 warm-up and 3 timed ``train_batch``
+     steps: finite falling loss, launches = 128 / 64 / 64 a step for
+     K13 / K14 / K15 and one K10 a leaf; then ring_step_profile, the device
+     time of one step by kernel class and the idle share;
+ 25. ring_reference_check: the sequence through the ring and through
+     ``attn_impl="flash"`` on one shard (K3-K5): loss, gradient norm and
+     per-leaf cosines.
 Then the kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
 the last line. Without CUDA, or without the package beside it, it exits 1.
+
+``python3 chip_smoke.py ring-nccl`` on a machine with four cards runs the
+ring across them instead: one process per card over NCCL, each holding one
+8192-token shard, against the one-process ring of the four shards on its
+card; it needs four cards and is not part of the one-card run.
 """
 
 import gc
@@ -970,6 +996,10 @@ def train_reference_check(torch, engine, batch):
 
 def _train_kernel_class(name):
     low = name.lower()
+    if "ring_fwd" in low:
+        return "ring_fwd"
+    if "ring_dq" in low or "ring_dkv" in low:
+        return "ring_bwd"
     if "flash_fwd" in low:
         return "flash_fwd"
     if "flash_dq" in low or "flash_dkv" in low:
@@ -981,11 +1011,12 @@ def _train_kernel_class(name):
     return "other"
 
 
-def train_step_profile(torch, engine, batch, ms_step, smi):
-    """Device time of two train_batch steps by kernel class (torch.profiler)
-    against the timed steps' wall time: the device's idle share."""
+def train_step_profile(torch, engine, batch, ms_step, smi, model=TRAIN_MODEL,
+                       phase="train_step_profile", steps=2):
+    """Device time of ``steps`` train_batch steps by kernel class
+    (torch.profiler) against the timed steps' wall time: the device's idle
+    share."""
     from torch.profiler import ProfilerActivity, profile
-    steps = 2
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             engine.train_batch(batch)
@@ -1000,7 +1031,7 @@ def train_step_profile(torch, engine, batch, ms_step, smi):
         by_name[ev.name] = by_name.get(ev.name, 0.0) + us
     busy_ms = sum(by_class.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:8]
-    emit("train_step_profile", model=TRAIN_MODEL, wall_ms=ms_step, device_busy_ms=busy_ms,
+    emit(phase, model=model, wall_ms=ms_step, device_busy_ms=busy_ms,
          idle_share=max(0.0, 1 - busy_ms / ms_step),
          device_ms_by_class={k: v / 1e3 for k, v in by_class.items()},
          top_kernels_ms=[(k[:80], v / 1e3) for k, v in top], card=smi)
@@ -1048,6 +1079,7 @@ def kernel_counters():
     from deepspeed_tpu_torch.ops import fused_adam, paged_attention
     from deepspeed_tpu_torch.ops import quantizer as Q
     from deepspeed_tpu_torch.ops import woq_matmul as W
+    from deepspeed_tpu_torch.sequence import ring_flash as RF
     return {"paged_attention": paged_attention.paged_ragged_attention,
             "flash_attention_fwd": FA.flash_attention_fwd,
             "flash_attention_dq": FA.flash_attention_dq,
@@ -1057,7 +1089,8 @@ def kernel_counters():
             "woq_matmul": W.woq_matmul,
             "quantize_int8": Q.quantize_int8, "quantize_int4": Q.quantize_int4,
             "sparse_flash_fwd": SF.sparse_flash_fwd, "evoformer_flash_fwd": EF.evoformer_flash_fwd,
-            "quantize_fp8": FQ.quantize_fp8}
+            "quantize_fp8": FQ.quantize_fp8, "ring_fwd_step": RF.ring_fwd_step,
+            "ring_dq_step": RF.ring_dq_step, "ring_dkv_step": RF.ring_dkv_step}
 
 
 def zero_counts():
@@ -2091,6 +2124,530 @@ def ops_phases(torch, smi):
     return entries
 
 
+# ------------------------------------------------ ring (sequence-parallel) slice
+
+RING_SOURCE = "deepspeed_tpu_torch/ops/csrc/ring_flash.cu"
+RING_REPLACES = {"ring_fwd_step": "deepspeed_tpu/sequence/ring_flash.py:70",
+                 "ring_dq_step": "deepspeed_tpu/sequence/ring_flash.py:180",
+                 "ring_dkv_step": "deepspeed_tpu/sequence/ring_flash.py:237"}
+RING_MODEL, RING_LAYERS = "qwen2-7b", 4     # 28 layers with Adam state do not fit one card
+RING_SEQ, RING_SHARDS = 32768, 4             # the preset's max_seq_len over 4 shards
+RING_SHARD = RING_SEQ // RING_SHARDS
+RING_H, RING_KVH, RING_D = 28, 4, 128        # qwen2-7b attention (group of 7)
+RING_WARM, RING_TIMED = 1, 3
+# step kinds at the shard shapes: (q_off, k_off) of one rank of the ring
+RING_STEPS = {"diagonal": (RING_SHARD, RING_SHARD), "below": (2 * RING_SHARD, RING_SHARD),
+              "above": (RING_SHARD, 2 * RING_SHARD)}
+
+
+def ring_kernels():
+    from deepspeed_tpu_torch.sequence import ring_flash as RF
+    return RF, (RF.ring_fwd_step, RF.ring_dq_step, RF.ring_dkv_step)
+
+
+def ring_case(torch, name, *, b, s, h, kvh, d, q_off, k_off, window=0, alibi=False, seg=False,
+              carry=True, seed=0):
+    """One ring step's inputs on the card: q (already scaled), k, v, do in
+    bf16; the carry (m, l, acc) entering the step, non-empty unless
+    ``carry`` is False (the first step of a ring); lse and delta for the
+    backward, and non-zero f32 dq, dk, dv accumulators. The lse counts the
+    step's own scores (from the plain forward) and a share from other
+    shards, so every p = exp(s - lse) is at most 1."""
+    RF, _ = ring_kernels()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
+
+    f32 = torch.float32
+    segs = (None, None)
+    if seg:
+        qs = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+        ks = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+        qs[:, s // 3:] = 1                 # the query shard's document changes at s/3
+        ks[:, : s // 2] = 1                # keys: the end of document 1, then document 2
+        ks[:, s // 2:] = 2
+        qs[-1, (3 * s) // 4:] = 2
+        segs = (qs, ks)
+    c = dict(name=name, q=rnd(b, s, h, d, scale=d ** -0.5), k=rnd(b, s, kvh, d),
+             v=rnd(b, s, kvh, d), do=rnd(b, s, h, d),
+             kw=dict(q_off=q_off, k_off=k_off, window=window, qseg=segs[0], kseg=segs[1],
+                     slopes=torch.linspace(0.5, 0.01, h, device="cuda") if alibi else None))
+    if carry:
+        c["m"] = rnd(b, h, s, scale=0.5, dtype=f32) + 2.0
+        c["l"] = torch.rand(b, h, s, generator=g, device="cuda") * 3 + 1
+        c["acc"] = rnd(b, s, h, d, dtype=f32)
+    else:
+        c["m"] = torch.full((b, h, s), RF.NEG_INF, device="cuda")
+        c["l"] = torch.zeros(b, h, s, device="cuda")
+        c["acc"] = torch.zeros(b, s, h, d, device="cuda")
+    m, l, acc = c["m"].clone(), c["l"].clone(), c["acc"].clone()
+    RF.ring_fwd_step_plain(c["q"].float(), c["k"].float(), c["v"].float(), m, l, acc, **c["kw"])
+    step = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)), float("-inf"))
+    c["lse"] = torch.logaddexp(step, rnd(b, h, s, scale=0.5, dtype=f32) + 1.0)
+    c["delta"] = rnd(b, h, s, scale=0.3, dtype=f32)
+    c["dq"] = rnd(b, s, h, d, scale=0.1, dtype=f32)
+    c["dk"] = rnd(b, s, kvh, d, scale=0.1, dtype=f32)
+    c["dv"] = rnd(b, s, kvh, d, scale=0.1, dtype=f32)
+    return c
+
+
+def ring_visible_pairs(torch, c):
+    """Visible (q, k) pairs of the step summed over heads: what the
+    function's work depends on (0 above the diagonal)."""
+    q, k, kw = c["q"], c["k"], c["kw"]
+    b, s, h, _ = q.shape
+    rows = kw["q_off"] + torch.arange(s, device="cuda")[:, None]
+    cols = kw["k_off"] + torch.arange(k.shape[1], device="cuda")[None, :]
+    vis = rows >= cols
+    if kw["window"]:
+        vis &= rows - cols < kw["window"]
+    if kw["qseg"] is not None:
+        return int((vis[None] & (kw["qseg"][:, :, None] == kw["kseg"][:, None, :])).sum()) * h
+    return int(vis.sum()) * b * h
+
+
+def ring_work(torch, c):
+    """(bytes, flops) per kernel on this step's data: 4 D flops per visible
+    pair forward, 6 D for dq, 8 D for dk/dv (flash_work's convention); each
+    input read once and each output written once, the f32 carry and
+    accumulators read and written. A step that sees nothing needs neither."""
+    q, k = c["q"], c["k"]
+    b, s, h, d = q.shape
+    pairs = ring_visible_pairs(torch, c)
+    if pairs == 0:
+        return {n: (0, 0) for n in RING_REPLACES}
+    q_b, kv_b = q.numel() * 2, k.numel() * 2
+    row_b = b * h * s * 4
+    return {"ring_fwd_step": (q_b + 2 * kv_b + 4 * row_b + 2 * q.numel() * 4, 4 * d * pairs),
+            "ring_dq_step": (2 * q_b + 2 * kv_b + 2 * row_b + 2 * q.numel() * 4, 6 * d * pairs),
+            "ring_dkv_step": (2 * q_b + 2 * kv_b + 2 * row_b + 4 * k.numel() * 4, 8 * d * pairs)}
+
+
+def ring_run(torch, c, plain=False):
+    """One step of K13, K14 and K15 (or their plain versions on f32 copies)
+    on fresh copies of the carry and accumulators. Returns the outputs."""
+    RF, (fwd, dq_fn, dkv_fn) = ring_kernels()
+    cv = (lambda t: t.float()) if plain else (lambda t: t)   # noqa: E731
+    q, k, v, do = (cv(c[n]) for n in ("q", "k", "v", "do"))
+    m, l, acc, dq, dk, dv = (c[n].clone() for n in ("m", "l", "acc", "dq", "dk", "dv"))
+    if plain:
+        RF.ring_fwd_step_plain(q, k, v, m, l, acc, **c["kw"])
+        RF.ring_bwd_step_plain(q, k, v, do, c["lse"], c["delta"], dq, dk, dv, **c["kw"])
+    else:
+        fwd(q, k, v, m, l, acc, **c["kw"])
+        dq_fn(q, k, v, do, c["lse"], c["delta"], dq, **c["kw"])
+        dkv_fn(q, k, v, do, c["lse"], c["delta"], dk, dv, **c["kw"])
+    return dict(m=m, l=l, acc=acc, dq=dq, dk=dk, dv=dv)
+
+
+def check_ring(torch, c):
+    """K13, K14, K15 once each against the plain versions on f32 copies of
+    the same inputs, as check_flash holds K3-K5: m, l and the output the
+    carry stands for (acc / l, K3's "out") within ATOL + RTOL |plain|
+    everywhere; acc (an unnormalised sum of up to Sk terms) and each
+    gradient's increment within RTOL max |plain| + ATOL; acc and every
+    increment within a relative Frobenius error of FRO_TOL. A step that
+    sees nothing must hand back the carry and the accumulators bit for
+    bit."""
+    _, kernels = ring_kernels()
+    before = [f.launches for f in kernels]
+    got = ring_run(torch, c)
+    torch.cuda.synchronize()
+    row = {"kernel_launches": [f.launches - b_ for f, b_ in zip(kernels, before)]}
+    ok = row["kernel_launches"] == [1, 1, 1]
+    if ring_visible_pairs(torch, c) == 0:
+        same = {n: bool(torch.equal(got[n], c[n])) for n in got}
+        row["unchanged"] = same
+        ok &= all(same.values())
+    else:
+        ref = ring_run(torch, c, plain=True)
+        for g_ in (got, ref):     # the output the carry stands for, as K3 writes it
+            g_["out"] = g_["acc"] / torch.where(g_["l"] > 0, g_["l"], 1.0).transpose(1, 2)[..., None]
+        for nm in ("m", "l", "out"):
+            err = (got[nm] - ref[nm]).abs()
+            row[nm] = float(err.max())
+            ok &= bool((err <= ATOL + RTOL * ref[nm].abs()).all())
+        for nm in ("acc", "dq", "dk", "dv"):
+            start = 0.0 if nm == "acc" else c[nm]
+            g_inc, r_inc = got[nm] - start, ref[nm] - start
+            err, scale = float((g_inc - r_inc).abs().max()), float(r_inc.abs().max())
+            rel = float(torch.linalg.vector_norm(g_inc - r_inc) / torch.linalg.vector_norm(r_inc))
+            row[nm] = err
+            row[nm + "_limit"] = RTOL * scale + ATOL
+            row[nm + "_rel_fro"] = rel
+            ok &= err <= row[nm + "_limit"] and rel <= FRO_TOL
+        del ref
+    q, k, kw = c["q"], c["k"], c["kw"]
+    emit("ring_kernel_check", case=c["name"],
+         shape=dict(B=q.shape[0], S=q.shape[1], H=q.shape[2], KVH=k.shape[2], D=q.shape[3],
+                    q_off=kw["q_off"], k_off=kw["k_off"], window=kw["window"],
+                    alibi=kw["slopes"] is not None, segments=kw["qseg"] is not None),
+         visible_pairs=ring_visible_pairs(torch, c), max_abs_err=row, atol=ATOL, rtol=RTOL,
+         fro_tol=FRO_TOL, within=ok)
+    if not ok:
+        fail(f"ring flash {c['name']}: {row}")
+    return row
+
+
+def ring_kernel_check(torch):
+    """Phase 22: every step kind at the shard shapes, then the mask, group
+    and head-dim cases at small shapes. Returns the worst error by kernel."""
+    main = dict(b=1, s=RING_SHARD, h=RING_H, kvh=RING_KVH, d=RING_D)
+    cases = [ring_case(torch, f"shard_{kind}", **main, q_off=qo, k_off=ko,
+                       carry=kind != "diagonal", seed=i)
+             for i, (kind, (qo, ko)) in enumerate(RING_STEPS.items())]
+    small = dict(b=2, s=512)
+    for i, (name, kw) in enumerate([
+            # the window straddles shards: the first rows see the previous shard's tail
+            ("window_below", dict(h=8, kvh=8, d=64, window=300, q_off=1024, k_off=512)),
+            ("window_far_below", dict(h=8, kvh=8, d=64, window=300, q_off=1536, k_off=512)),
+            ("alibi_below", dict(h=8, kvh=2, d=64, alibi=True, q_off=1024, k_off=512)),
+            ("segments_diagonal", dict(h=4, kvh=1, d=128, seg=True, q_off=512, k_off=512)),
+            ("all_three_below", dict(h=8, kvh=2, d=128, window=700, alibi=True, seg=True,
+                                     q_off=1024, k_off=512)),
+            ("all_three_diagonal", dict(h=8, kvh=2, d=128, window=200, alibi=True, seg=True,
+                                        q_off=512, k_off=512, carry=False)),
+            ("group7_d128_tail", dict(s=1000, h=14, kvh=2, d=128, q_off=1000, k_off=0)),
+            ("group4_d64", dict(h=16, kvh=4, d=64, q_off=512, k_off=512, carry=False)),
+            ("group1_d256_below", dict(h=4, kvh=4, d=256, q_off=512, k_off=0)),
+            ("d256_diagonal_window", dict(h=4, kvh=2, d=256, window=100, q_off=512,
+                                          k_off=512)),
+            ("above", dict(h=8, kvh=2, d=64, window=100, alibi=True, q_off=0, k_off=512))]):
+        cases.append(ring_case(torch, name, **{**small, **kw}, seed=10 + i))
+    worst = {n: 0.0 for n in RING_REPLACES}
+    for c in cases:
+        row = check_ring(torch, c)
+        worst["ring_fwd_step"] = max(worst["ring_fwd_step"], row.get("out", 0.0))
+        worst["ring_dq_step"] = max(worst["ring_dq_step"], row.get("dq", 0.0))
+        worst["ring_dkv_step"] = max(worst["ring_dkv_step"], row.get("dk", 0.0), row.get("dv", 0.0))
+    del cases
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _sdpa_backend(torch, fn):
+    """The names of the CUDA kernels one call of ``fn`` runs (the SDPA
+    backend it took), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({ev.name for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA})
+    return [n[:80] for n in names if any(w in n.lower() for w in
+                                         ("flash", "fmha", "attention", "cudnn", "sdpa"))] or names
+
+
+def ring_kernel_time(torch):
+    """Phase 23: each kernel at the shard shapes per step kind, by CUDA
+    events, beside its plain version, its bound and SDPA (forward beside
+    K13, the autograd backward beside K14 + K15). Returns the rows by
+    (kernel, step kind)."""
+    import torch.nn.functional as F
+    rows = {}
+    for i, (kind, (qo, ko)) in enumerate(RING_STEPS.items()):
+        c = ring_case(torch, f"shard_{kind}", b=1, s=RING_SHARD, h=RING_H, kvh=RING_KVH,
+                      d=RING_D, q_off=qo, k_off=ko, seed=20 + i)
+        RF, (fwd, dq_fn, dkv_fn) = ring_kernels()
+        q, k, v, do, kw = c["q"], c["k"], c["v"], c["do"], c["kw"]
+        f32 = [t.float() for t in (q, k, v, do)]
+        m, l, acc, dq, dk, dv = (c[n].clone() for n in ("m", "l", "acc", "dq", "dk", "dv"))
+        lse, delta = c["lse"], c["delta"]
+        library, backend = {"fwd": None, "bwd": None}, None
+        if kind != "above":     # above the diagonal nothing is visible: no library call
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            causal = kind == "diagonal"
+            sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+            lib_out = sdpa()
+            lib_do = do.transpose(1, 2)
+            backend = _sdpa_backend(torch, lambda: torch.autograd.grad(
+                sdpa(), (qt, kt, vt), lib_do))
+            library = {"fwd": cuda_ms(torch, lambda i_: sdpa(), reps=3, iters=5),
+                       "bwd": cuda_ms(torch, lambda i_: torch.autograd.grad(
+                           lib_out, (qt, kt, vt), lib_do, retain_graph=True), reps=3, iters=5)}
+            del qt, kt, vt, lib_out
+        timed = {
+            "ring_fwd_step": (lambda i_: fwd(q, k, v, m, l, acc, **kw),
+                              lambda i_: RF.ring_fwd_step_plain(*f32[:3], m, l, acc, **kw),
+                              "fwd"),
+            "ring_dq_step": (lambda i_: dq_fn(q, k, v, do, lse, delta, dq, **kw),
+                             lambda i_: RF.ring_bwd_step_plain(*f32, lse, delta, dq, None, None,
+                                                               **kw), "bwd"),
+            "ring_dkv_step": (lambda i_: dkv_fn(q, k, v, do, lse, delta, dk, dv, **kw),
+                              lambda i_: RF.ring_bwd_step_plain(*f32, lse, delta, None, dk, dv,
+                                                                **kw), "bwd"),
+        }
+        work = ring_work(torch, c)
+        for name, (kern, plain, lib) in timed.items():
+            nbytes, flops = work[name]
+            b_ms, b_by = bound(nbytes, flops)
+            row = dict(ms=cuda_ms(torch, kern, reps=3, iters=5),
+                       plain_ms=cuda_ms(torch, plain, reps=3, iters=2),
+                       library_ms=library[lib], bound_ms=b_ms,
+                       bound_by=b_by if flops else "nothing visible",
+                       bytes=nbytes, flops=flops)
+            emit("ring_kernel_time", kernel=name, case=kind,
+                 shape=dict(B=1, S=RING_SHARD, H=RING_H, KVH=RING_KVH, D=RING_D, q_off=qo,
+                            k_off=ko, dtype="bfloat16"),
+                 library=(None if library[lib] is None else
+                          "F.scaled_dot_product_attention forward (GQA, causal on the diagonal)"
+                          if lib == "fwd" else
+                          "autograd backward of F.scaled_dot_product_attention (dq, dk, dv)"),
+                 sdpa_kernels=backend, **row)
+            rows[(name, kind)] = row
+        del c, f32, m, l, acc, dq, dk, dv, timed
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ring_config():
+    return {
+        "train_batch_size": 1,
+        "train_micro_batch_size_per_gpu": 1,
+        "bf16": {"enabled": True},
+        "optimizer": {"type": "AdamW", "params": {"lr": 3e-5, "weight_decay": 0.1}},
+        "gradient_clipping": 1.0,
+        "zero_optimization": {"stage": 1},
+        "activation_checkpointing": {"policy": "full"},
+        "mesh": {"seq": RING_SHARDS},
+        "steps_per_print": 10 ** 9,
+        "seed": 0,
+    }
+
+
+def ring_train_path(torch, smi):
+    """Phase 24: initialize() on qwen2-7b at full width, 4 layers, one
+    32768-token sequence a step over 4 sequence shards with
+    attn_impl="ring", every count set to 0 before and read after; 1 warm-up
+    and 3 timed train_batch steps on one fixed random sequence, then one
+    profiled step. Returns (engine, batch, launches, ms per step)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.utils import groups
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, _, _, _ = dst.initialize(
+        model=build_model(RING_MODEL, num_layers=RING_LAYERS, attn_impl="ring"),
+        config=ring_config())
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = engine.model.cfg
+    leaves = tree_leaves(engine.module_params)
+    n_params = sum(p.numel() for p in leaves)
+    g = torch.Generator().manual_seed(2)
+    ids = torch.randint(0, cfg.vocab_size, (1, RING_SEQ + 1), generator=g)
+    batch = {"input_ids": ids[:, :-1].cuda(), "labels": ids[:, 1:].cuda()}
+
+    zero_counts()
+    losses = [engine.train_batch(batch) for _ in range(RING_WARM)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [engine.train_batch(batch) for _ in range(RING_TIMED)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    losses = [float(x) for x in losses]
+    steps = RING_WARM + RING_TIMED
+    per_step = {"ring_fwd_step": RING_LAYERS * RING_SHARDS * RING_SHARDS * 2,   # + remat
+                "ring_dq_step": RING_LAYERS * RING_SHARDS * RING_SHARDS,
+                "ring_dkv_step": RING_LAYERS * RING_SHARDS * RING_SHARDS,
+                "fused_adam": len(leaves)}
+    want = {n: v * steps for n, v in per_step.items()}
+    launched = {n: v for n, v in counts.items() if v}
+    ms_step = wall * 1e3 / RING_TIMED
+    tokens_s = RING_SEQ * RING_TIMED / wall
+    flops_token = 6 * n_params + 12 * cfg.num_layers * cfg.hidden_size * RING_SEQ
+    ok = (all(map(math.isfinite, losses)) and losses[-1] < losses[0] and launched == want
+          and groups.get_sequence_parallel_world_size() == RING_SHARDS)
+    emit("ring_train_path", model=RING_MODEL, layers=cfg.num_layers, hidden=cfg.hidden_size,
+         heads=cfg.num_heads, kv_heads=cfg.kv_heads, head_dim=cfg.dims_per_head,
+         ffn=cfg.ffn_size, vocab=cfg.vocab_size, params=n_params, seq=RING_SEQ,
+         seq_shards=RING_SHARDS, shard_tokens=RING_SHARD, micro_batch=1, attn_impl="ring",
+         remat=cfg.remat, zero_stage=engine.zero_optimization_stage(),
+         dtype="bfloat16 activations, f32 params",
+         cuts={"layers": f"{RING_LAYERS} of 28 (28 layers with Adam state do not fit one card)",
+               "seq": f"{RING_SEQ}, the preset's max_seq_len", "batch": 1,
+               "seq_shards": f"{RING_SHARDS}, held by one process on one card"},
+         steps=steps, warmup_steps=RING_WARM, timed_steps=RING_TIMED, losses=losses,
+         launches=launched, launches_expected=want, launches_per_step=per_step,
+         ms_per_step=ms_step, tokens_per_s=tokens_s, mfu=flops_token * tokens_s / BF16_FLOPS,
+         mfu_formula="(6 * params + 12 * layers * hidden * seq) * tokens/s / 989e12",
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, init_s=init_s, card=smi,
+         within=ok)
+    if not ok:
+        fail(f"ring train path: losses {losses}, launches {launched} (expected {want})")
+    train_step_profile(torch, engine, batch, ms_step, smi, model=RING_MODEL,
+                       phase="ring_step_profile", steps=1)
+    return engine, batch, launched, ms_step
+
+
+def ring_reference_check(torch, engine, batch):
+    """Phase 25: the sequence through the ring (K13-K15 over 4 shards) and
+    through the same engine's weights with attn_impl="flash" and one shard
+    (K3-K5), as train_reference_check holds flash to the reference: loss
+    within 1 %, global gradient norm within 2 %, per-leaf cosine >= 0.99."""
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.utils import groups
+    from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_paths
+    leaves = tree_leaves(engine.module_params)
+    paths = [path for path, _ in tree_paths(engine.module_params)]
+    results = {}
+    for impl, shards in (("ring", RING_SHARDS), ("flash", 1)):
+        groups.set_sequence_parallel(shards)
+        model = build_model(engine.model.cfg.replace(attn_impl=impl))
+        loss = model.loss(engine.module_params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        results[impl] = (float(loss), grads)
+        del loss, grads
+    groups.set_sequence_parallel(RING_SHARDS)
+    (lr_, gr), (lf, gf) = results["ring"], results["flash"]
+    nr = float(torch.stack([g.float().norm() for g in gr]).norm())
+    nf = float(torch.stack([g.float().norm() for g in gf]).norm())
+    # the key bias has an exactly-zero gradient (see train_reference_check)
+    zero = {p: (float(a.norm()), float(b.norm()))
+            for p, a, b in zip(paths, gr, gf) if p.endswith("attn.bk")}
+    cos = {p: float(torch.nn.functional.cosine_similarity(a.flatten().float(),
+                                                         b.flatten().float(), dim=0))
+           for p, a, b in zip(paths, gr, gf) if p not in zero}
+    worst = min(cos, key=cos.get)
+    ok = (abs(lr_ - lf) <= 0.01 * abs(lf) and abs(nr - nf) <= 0.02 * nf
+          and cos[worst] >= 0.99 and math.isfinite(lr_))
+    emit("ring_reference_check", seq=RING_SEQ, loss_ring=lr_, loss_flash=lf,
+         grad_norm_ring=nr, grad_norm_flash=nf, min_leaf_cosine=cos[worst],
+         min_cosine_leaf=worst, leaf_cosines=cos, zero_gradient_leaf_norms=zero, within=ok)
+    if not ok:
+        fail(f"ring reference check: loss {lr_} vs {lf}, norm {nr} vs {nf}, "
+             f"cosine {cos[worst]} at {worst}")
+
+
+def ring_phases(torch, smi):
+    """The ring slice's phases 22-25; returns its kernel entries."""
+    worst = ring_kernel_check(torch)
+    rows = ring_kernel_time(torch)
+    engine, batch, launches, _ = ring_train_path(torch, smi)
+    ring_reference_check(torch, engine, batch)
+    del engine, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return [{"name": name, "route": "cuda", "source": RING_SOURCE, "replaces": replaces,
+             "launches": launches[name], "max_abs_err": worst[name],
+             **{k: rows[(name, "below")][k] for k in keys}, "case": "below",
+             "shapes": {kind: {k: r[k] for k in keys} for (n_, kind), r in rows.items()
+                        if n_ == name}}
+            for name, replaces in RING_REPLACES.items()]
+
+
+# ------------------------------------------- the ring across four cards (NCCL)
+
+NCCL_RANKS = 4
+NCCL_TIMEOUT_S = 600
+
+
+def ring_nccl_rank(torch):
+    """One rank of ``python3 chip_smoke.py ring-nccl``: the ring attention
+    of qwen2-7b's attention shapes at S = 32768 (bf16) over NCCL, this
+    card holding shard RANK, against the one-process ring of all four
+    shards on the same card: the same kernel launches with the same
+    offsets. Whether outputs and gradients agree bit for bit is printed;
+    they must agree within RTOL max |one-process| + ATOL. Prints one JSON
+    line."""
+    import os
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.sequence import ring_flash as RF
+    from deepspeed_tpu_torch.sequence.ring_attention import ring_attention
+    from deepspeed_tpu_torch.utils import groups
+    rank = int(os.environ["RANK"])
+    torch.cuda.set_device(rank)
+    comm.init_distributed(dist_backend="nccl")
+    g = torch.Generator().manual_seed(5)
+    q, k, v, cot = ((torch.randn(1, RING_SEQ, n, RING_D, generator=g) * sc).to(torch.bfloat16)
+                    .cuda() for n, sc in ((RING_H, 1.0), (RING_KVH, 1.0), (RING_KVH, 1.0),
+                                          (RING_H, 1.0)))
+    part = slice(rank * RING_SHARD, (rank + 1) * RING_SHARD)
+
+    def run(q_, k_, v_, cot_):
+        q_, k_, v_ = (t.detach().clone().requires_grad_(True) for t in (q_, k_, v_))
+        out = ring_attention(q_, k_, v_)
+        out.backward(cot_)
+        return [out.detach(), q_.grad, k_.grad, v_.grad]
+
+    def timed(fn, reps=3):
+        fn()
+        times = []
+        for _ in range(reps):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    groups.set_sequence_parallel(NCCL_RANKS, dist.group.WORLD)
+    before = RF.ring_fwd_step.launches
+    got = run(q[:, part], k[:, part], v[:, part], cot[:, part])
+    launches = RF.ring_fwd_step.launches - before
+    ms_nccl = timed(lambda: run(q[:, part], k[:, part], v[:, part], cot[:, part]))
+    groups.set_sequence_parallel(NCCL_RANKS)          # every shard in this process
+    want = run(q, k, v, cot)
+    ms_one = timed(lambda: run(q, k, v, cot))
+    same = {n: bool(torch.equal(a, b[:, part])) for n, a, b in zip(("out", "dq", "dk", "dv"),
+                                                                    got, want)}
+    diff = {n: float((a.float() - b[:, part].float()).abs().max())
+            for n, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+    limit = {n: RTOL * float(b[:, part].float().abs().max()) + ATOL
+             for n, b in zip(("out", "dq", "dk", "dv"), want)}
+    ok = all(diff[n] <= limit[n] for n in diff) and launches == NCCL_RANKS
+    print(json.dumps({"phase": "ring_nccl", "rank": rank, "card": torch.cuda.get_device_name(rank),
+                      "shape": dict(B=1, S=RING_SEQ, H=RING_H, KVH=RING_KVH, D=RING_D,
+                                    shard=RING_SHARD, dtype="bfloat16"),
+                      "k13_launches_fwd": launches, "bit_identical": same, "max_abs_diff": diff,
+                      "limit": limit,
+                      "fwd_bwd_ms_4_cards": ms_nccl, "fwd_bwd_ms_one_card_4_shards": ms_one,
+                      "within": ok}), flush=True)
+    dist.destroy_process_group()
+    if not ok:
+        sys.exit(1)
+
+
+def ring_nccl(torch, smi):
+    """``python3 chip_smoke.py ring-nccl`` on a machine with four cards:
+    builds the ring kernels, starts one process per card (RANK 0-3,
+    NCCL over tcp://localhost), waits for them with a time limit and stops
+    any that is left; every rank must report its ring bit-identical to the
+    one-process ring."""
+    import os
+    import socket
+    from deepspeed_tpu_torch.ops import op_builder
+    if torch.cuda.device_count() < NCCL_RANKS:
+        fail(f"ring-nccl needs {NCCL_RANKS} cards, found {torch.cuda.device_count()}")
+    op_builder.build(["ring_flash"])
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "WORLD_SIZE": str(NCCL_RANKS), "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port)}
+    procs = [subprocess.Popen([sys.executable, __file__, "ring-nccl-rank"],
+                              env={**env, "RANK": str(r)}) for r in range(NCCL_RANKS)]
+    deadline = time.monotonic() + NCCL_TIMEOUT_S
+    try:
+        codes = [p_.wait(timeout=max(1.0, deadline - time.monotonic())) for p_ in procs]
+    finally:
+        for p_ in procs:
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+    if any(codes):
+        fail(f"ring-nccl ranks exited {codes}")
+    print(smi, flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2099,7 +2656,18 @@ def main():
         import deepspeed_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"deepspeed_tpu_torch not importable beside chip_smoke.py ({e})")
+    mode = sys.argv[1] if len(sys.argv) > 1 else None
+    if mode == "ring-nccl-rank":
+        return ring_nccl_rank(torch)
     smi = nvidia_smi()
+    if mode == "ring-nccl":
+        ring_nccl(torch, smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
+    if mode is not None:
+        fail(f"unknown mode {mode!r}: run with no argument, or ring-nccl on four cards")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
@@ -2118,6 +2686,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     entries += ops_phases(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    entries += ring_phases(torch, smi)
     print(json.dumps({"kernels": [entry] + entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

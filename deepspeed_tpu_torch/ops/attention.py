@@ -11,8 +11,12 @@ sends to the kernel launches it or raises. The kernels are bf16, so an
 eligible f16 or f32 shape on the card raises there; it never takes the
 reference path in their place.
 
-The JAX package's sequence-parallel paths (``impl="ring"``, and Ulysses
-over a seq-sharded mesh) are not ported: the port runs on one card.
+Sequence parallelism, when ``utils.groups`` has more than one ``seq``
+shard: ``impl="ring"`` runs ring attention (``sequence/ring_attention.py``,
+the flash ring K13-K15 on the card where eligible), causal only, without an
+additive bias or softcap (the JAX refusals); with one shard it is the
+reference path. The auto dispatch runs inside the Ulysses exchange
+(``_ulysses_exchange``), the identity in one process holding every shard.
 
 ``decode_attention`` (the v1 inference path) keeps the JAX routing rule:
 single-token decode over a cache of S_max >= 8192 slots (S_max % 128 == 0,
@@ -28,14 +32,14 @@ from typing import Optional
 
 import torch
 
+from ..comm import comm
+from ..utils import groups
 from .decode_attention import fused_decode_attention
 from .flash_attention import KERNEL_HEAD_DIMS, flash_attention
 
 # f32 scores of one masked-einsum pass: query rows are taken in chunks so
 # that a prefill over a long cache never holds more than this at once
 DECODE_LOGITS_BYTES = 1 << 30
-NOT_PORTED_SEQUENCE = ("sequence-parallel attention (ring, Ulysses) is not ported "
-                       "yet: ROADMAP.md section A, item 16")
 
 
 def _on_card(t) -> bool:
@@ -113,7 +117,8 @@ def multihead_attention(q, k, v, *, causal=True, bias=None, segment_ids=None, sc
     """Dispatching attention entry point.
 
     q: (B, S, H, D); k/v: (B, S, KVH, D). Returns (B, S, H, D).
-    impl: None (auto) | "reference" | "flash". ``window``: an int >= S or
+    impl: None (auto) | "reference" | "flash" | "ring" | "ulysses" (the
+    reference path inside the Ulysses exchange). ``window``: an int >= S or
     <= 0 cannot bind and is dropped; a tensor window (per-layer patterns)
     takes the reference path. ``alibi_slopes``: (H,) slopes, built
     in-kernel by the flash path and expanded to a bias for the reference
@@ -122,25 +127,77 @@ def multihead_attention(q, k, v, *, causal=True, bias=None, segment_ids=None, sc
         raise ValueError(
             "pass either an explicit additive bias or alibi_slopes, not "
             "both (the slopes would be silently dropped)")
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(NOT_PORTED_SEQUENCE)
-    if isinstance(window, int) and (window >= q.shape[1] or window <= 0):
+    group = groups.get_sequence_parallel_group()
+    procs = comm.get_world_size(group) if group is not None else 1
+    if isinstance(window, int) and (window >= q.shape[1] * procs or window <= 0):
         window = None   # cannot bind (or the <= 0 "global" sentinel)
+    seq_sharded = groups.get_sequence_parallel_world_size() > 1
+
+    if impl == "ring":
+        if not causal:
+            raise NotImplementedError("ring attention is causal-only")
+        if seq_sharded:
+            if bias is not None or softcap:
+                raise NotImplementedError(
+                    "ring attention takes ALiBi as slopes (not an explicit "
+                    "bias tensor) and has no logit softcapping; use Ulysses "
+                    "SP or attn_impl='reference'")
+            from ..sequence.ring_attention import ring_attention
+            return ring_attention(q, k, v, scale=scale, window=window,
+                                  alibi_slopes=alibi_slopes, segment_ids=segment_ids)
+        # no seq shards: plain local attention
+        return _reference_with_slopes(q, k, v, causal, bias, alibi_slopes,
+                                      segment_ids, scale, window, softcap)
+
     flash_window_ok = window is None or (isinstance(window, int) and causal)
     if impl == "flash" and (bias is not None or not flash_window_ok or softcap):
         raise NotImplementedError(
             "the flash kernels do not take an additive attention bias, a "
             "tensor or non-causal sliding window, or logit softcapping; use "
             "attn_impl='reference' (auto dispatch already routes these there)")
-    if impl == "flash" or (
-            impl is None and _on_card(q)
-            and q.shape[1] >= 128 and k.shape[1] == q.shape[1]
-            and q.shape[3] in KERNEL_HEAD_DIMS and bias is None and not softcap
-            and flash_window_ok):
-        return flash_attention(q, k, v, causal=causal, segment_ids=segment_ids,
-                               scale=scale, alibi_slopes=alibi_slopes, window=window)
-    return _reference_with_slopes(q, k, v, causal, bias, alibi_slopes,
-                                  segment_ids, scale, window, softcap)
+
+    def dispatch(q, k, v, alibi_slopes):
+        if impl == "flash" or (
+                impl is None and _on_card(q)
+                and q.shape[1] >= 128 and k.shape[1] == q.shape[1]
+                and q.shape[3] in KERNEL_HEAD_DIMS and bias is None and not softcap
+                and flash_window_ok):
+            return flash_attention(q, k, v, causal=causal, segment_ids=segment_ids,
+                                   scale=scale, alibi_slopes=alibi_slopes, window=window)
+        return _reference_with_slopes(q, k, v, causal, bias, alibi_slopes,
+                                      segment_ids, scale, window, softcap)
+
+    if seq_sharded:
+        # Ulysses: swap sequence shards for head shards around the local
+        # attention
+        return _ulysses_exchange(q, k, v, alibi_slopes, dispatch,
+                                 needs_full_sequence=bias is not None or segment_ids is not None)
+    return dispatch(q, k, v, alibi_slopes)
+
+
+def _ulysses_exchange(q, k, v, alibi_slopes, local_attn, needs_full_sequence=False):
+    """The Ulysses head/sequence exchange around ``local_attn(q, k, v,
+    alibi_slopes)`` over the sequence-parallel process group: one all-to-all
+    to full-sequence, head-split tensors (each process keeps its share of
+    the ALiBi slopes), and the inverse after. The identity in one process
+    holding every shard. A bias tensor or segment ids cover this process's
+    part of the sequence only, so across processes they raise."""
+    from ..sequence.layer import seq_all_to_all
+    group = groups.get_sequence_parallel_group()
+    procs = comm.get_world_size(group) if group is not None else 1
+    if procs == 1:
+        return local_attn(q, k, v, alibi_slopes)
+    if needs_full_sequence:
+        raise NotImplementedError(
+            "Ulysses across processes with an attention bias or segment ids is not ported "
+            "(ROADMAP.md section A, item 16)")
+    if q.shape[2] % procs or k.shape[2] % procs:
+        raise ValueError(f"{q.shape[2]} heads / {k.shape[2]} kv heads do not split over "
+                         f"{procs} processes")
+    if alibi_slopes is not None:
+        alibi_slopes = alibi_slopes.chunk(procs)[comm.get_rank(group)]
+    q, k, v = (seq_all_to_all(t, group, 2, 1) for t in (q, k, v))
+    return seq_all_to_all(local_attn(q, k, v, alibi_slopes), group, 1, 2)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, bias=None, scale=None,

@@ -60,54 +60,6 @@ struct Params {
   int S, H, KVH, causal, window;
 };
 
-// rows [row0, row0 + n) of a strided (row r at src + r * stride) bf16 matrix
-// into shared memory, 16 bytes a thread; rows at or past S are zero (the
-// shared load_rows takes whole tiles)
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src, size_t stride,
-                                          int row0, int n, int S) {
-  constexpr int VEC = 8;
-  constexpr int DV = D / VEC;
-  for (int e = threadIdx.x; e < n * DV; e += NTHREADS) {
-    const int i = e / DV, d = (e % DV) * VEC, r = row0 + i;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < S) val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * stride + d);
-    *reinterpret_cast<uint4*>(dst + i * ld + d) = val;
-  }
-}
-
-// per-row f32 values [row0, row0 + n) of a (B, H, S) array row; 0 past S
-__device__ __forceinline__ void load_vec(float* dst, const float* src, int row0, int n, int S) {
-  for (int i = threadIdx.x; i < n; i += NTHREADS) dst[i] = row0 + i < S ? src[row0 + i] : 0.f;
-}
-
-__device__ __forceinline__ void load_seg(int* dst, const int* seg, int row0, int n, int S) {
-  for (int i = threadIdx.x; i < n; i += NTHREADS)
-    dst[i] = (seg != nullptr && row0 + i < S) ? seg[row0 + i] : 0;
-}
-
-// C[M x N] (f32) += A^T B with A stored [K x M] row-major and B [K x N]
-// row-major, bf16
-template <int M, int N, int K>
-__device__ __forceinline__ void gemm_tn_acc(float* C, int ldc, const bf16* A, int lda,
-                                            const bf16* B, int ldb) {
-  const int warp = threadIdx.x / 32;
-  for (int t = warp; t < (M / 16) * (N / 16); t += NWARPS) {
-    const int mi = t / (N / 16), ni = t % (N / 16);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, C + mi * 16 * ldc + ni * 16, ldc, wmma::mem_row_major);
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, A + k0 * lda + mi * 16, lda);
-      wmma::load_matrix_sync(b, B + k0 * ldb + ni * 16, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(C + mi * 16 * ldc + ni * 16, acc, ldc, wmma::mem_row_major);
-  }
-}
-
 __device__ __forceinline__ bool visible(const Params& p, int row, int col, int qseg, int kseg) {
   return row < p.S && col < p.S && (!p.causal || row >= col) &&
          (p.window <= 0 || row - col < p.window) && (p.seg == nullptr || qseg == kseg);

@@ -21,10 +21,13 @@ overflow flag when the overflow check is on (fp16, or
 ``steps_per_print`` steps.
 
 ZeRO stages 0, 1 and 2 are accepted: on one process they hold the same full
-state as stage 0 (there is no data-parallel group to shard over). Stage 3,
-parameter or optimizer offload (CPU or NVMe), ZeRO++ and MiCS, the 1-bit
-optimizers, sparse gradients, pipeline and data parallelism over more than
-one card raise ``NotImplementedError`` (ROADMAP.md section A, item 16).
+state as stage 0 (there is no data-parallel group to shard over). A
+``mesh.seq`` above 1 is sequence parallelism within this one process: the
+``seq`` shards of ``utils.groups``, which ``attn_impl="ring"`` models run
+ring attention over. Stage 3, parameter or optimizer offload (CPU or NVMe),
+ZeRO++ and MiCS, the 1-bit optimizers, sparse gradients, and pipeline,
+tensor, data or sequence parallelism over more than one process or card
+raise ``NotImplementedError`` (ROADMAP.md section A, item 16).
 """
 
 import logging
@@ -35,6 +38,7 @@ import torch
 from ..accelerator import get_device
 from ..models.transformer import CausalLM
 from ..ops.optimizers import Optimizer, build_optimizer, is_slot
+from ..utils import groups
 from ..utils.timer import NoopTimer, ThroughputTimer
 from ..utils.tree import tree_leaves, tree_map, tree_paths
 from .config import DeepSpeedConfig
@@ -127,12 +131,16 @@ class DeepSpeedEngine:
             raise NotImplementedError(f"wall_clock_breakdown timers {NOT_PORTED}")
         wide = {a: cfg.mesh[a] for a in MESH_AXES
                 if isinstance(cfg.mesh.get(a), int) and cfg.mesh[a] > 1}
+        seq = wide.pop("seq", 1)
         dist = torch.distributed
         world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
         if wide or world > 1:
             raise NotImplementedError(
-                f"training over more than one device (mesh {wide}, world size {world}): "
-                f"data, tensor, pipeline and sequence parallelism {NOT_PORTED}")
+                f"training over more than one device or process (mesh {wide}, world size "
+                f"{world}): data, tensor and pipeline parallelism, and sequence parallelism "
+                f"across processes, {NOT_PORTED}")
+        # sequence shards held by this one process (utils/groups.py)
+        groups.set_sequence_parallel(seq)
 
     def _maybe_override_model_dtype(self):
         target = self.model

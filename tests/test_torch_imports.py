@@ -30,7 +30,9 @@ def test_every_module_imports_without_jax():
     for m in ("inference.engine", "inference.config", "inference.quantization.layers",
               "ops.decode_attention", "ops.quantizer", "ops.woq_matmul",
               "ops.sparse_attention", "ops.sparse_flash", "ops.fp_quantizer",
-              "ops.evoformer_flash", "ops.evoformer"):
+              "ops.evoformer_flash", "ops.evoformer", "comm.comm", "utils.groups",
+              "sequence.ring_flash", "sequence.ring_attention", "sequence.layer",
+              "sequence.cross_entropy"):
         assert f"deepspeed_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
