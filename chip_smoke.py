@@ -8,7 +8,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases, each printing one JSON line:
   1. device: the card's name and power limit, TF32 switched off;
   2. build: every kernel under ``deepspeed_tpu_torch/ops/csrc`` compiled by
-     nvcc for sm_90a (one process per source, all started together);
+     nvcc for sm_90a (one process per source, all started together), with
+     ptxas's register, shared-memory and spill lines; for each ring kernel
+     its registers, spills, shared memory a block and HGMMA (wgmma)
+     instructions from ``cuobjdump --dump-sass`` (the wgmma K14/K15 must
+     issue HGMMA and spill nothing);
   3. kernel_check: each kernel against its plain PyTorch version on the
      card, at the main path's shapes (llama3-8b: H=32, KVH=8, D=128,
      bs=128, bf16), plus window / ALiBi / softcap cases and the other
@@ -104,7 +108,11 @@ The public ops are then freed, and the ring (sequence-parallel) slice runs:
      a shard, H = 28, KVH = 4, D = 128, bf16) on the diagonal step (empty
      carry), a step below it and one above it (carry and accumulators back
      bit for bit), then window, ALiBi, segments and all three, GQA groups
-     1, 4 and 7, D = 64 and 256, a shard of 1000 (masked tail tiles);
+     1, 4 and 7, D = 64 and 256, a shard of 1000 (masked tail tiles), and
+     shards that are views of a (2, 4 S, H, D) sequence (strided batch);
+     every case runs twice and must give every buffer bit for bit, and
+     names the variant each kernel ran (K14/K15: wgmma at D 64 and 128,
+     wmma at 256);
  23. ring_kernel_time: each kernel per step kind by CUDA events, beside its
      plain version, its bound and SDPA (forward beside K13, its autograd
      backward beside K14 + K15, with the kernels SDPA ran named);
@@ -277,8 +285,10 @@ def kernel_phases(torch):
     t0 = time.perf_counter()
     secs = op_builder.build()
     emit("build", kernels=secs, wall_s=time.perf_counter() - t0,
-         ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "smem" in ln]
-                for k, v in op_builder.BUILD_LOGS.items()})
+         ptxas={k: [ln for ln in v.splitlines()
+                    if any(w in ln for w in ("registers", "smem", "spill"))]
+                for k, v in op_builder.BUILD_LOGS.items()},
+         ring_kernels=ring_build_report(op_builder))
 
     # the two step shapes of the main path: 16 slots, 8 of them live (the
     # other 8 frozen, positions -1), decode at ragged contexts and a
@@ -2130,6 +2140,7 @@ RING_SOURCE = "deepspeed_tpu_torch/ops/csrc/ring_flash.cu"
 RING_REPLACES = {"ring_fwd_step": "deepspeed_tpu/sequence/ring_flash.py:70",
                  "ring_dq_step": "deepspeed_tpu/sequence/ring_flash.py:180",
                  "ring_dkv_step": "deepspeed_tpu/sequence/ring_flash.py:237"}
+RING_KINDS = {"ring_fwd_step": "fwd", "ring_dq_step": "dq", "ring_dkv_step": "dkv"}  # kernel_info
 RING_MODEL, RING_LAYERS = "qwen2-7b", 4     # 28 layers with Adam state do not fit one card
 RING_SEQ, RING_SHARDS = 32768, 4             # the preset's max_seq_len over 4 shards
 RING_SHARD = RING_SEQ // RING_SHARDS
@@ -2140,19 +2151,85 @@ RING_STEPS = {"diagonal": (RING_SHARD, RING_SHARD), "below": (2 * RING_SHARD, RI
               "above": (RING_SHARD, 2 * RING_SHARD)}
 
 
+def ring_build_report(op_builder):
+    """Registers, spills and stack of each ring kernel from the build's
+    ptxas report, its dynamic shared memory and threads a block from the
+    library, and its HGMMA (wgmma) instructions from ``cuobjdump
+    --dump-sass``. Fails unless the wgmma kernels (K14/K15 at D 64 and 128)
+    issue HGMMA, spill nothing and keep their setmaxnreg."""
+    import re
+    from pathlib import Path
+    from deepspeed_tpu_torch.sequence import ring_flash as RF
+    if "ring_flash" not in op_builder.BUILD_LOGS:   # reused from an earlier run: rebuild
+        (op_builder.BUILD_DIR / "libring_flash.so").unlink()
+        op_builder.build(["ring_flash"])
+    log = op_builder.BUILD_LOGS["ring_flash"]
+    if "setmaxnreg ignored" in log:
+        fail("ptxas ignored setmaxnreg in ring_flash.cu")
+
+    def short(mangled):
+        m = re.search(r"(ring_(?:fwd|dq|dkv)_(?:kernel|wgmma))ILi(\d+)E", mangled)
+        return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+
+    rows, name, props = {}, None, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = short(m.group(1))
+            rows[name] = {}
+        elif "Function properties for" in ln:
+            props = short(ln.split("Function properties for")[1].strip())
+        elif name and props == name and "spill stores" in ln:
+            st, ss, sl = map(int, re.findall(r"(\d+) bytes", ln)[:3])
+            rows[name].update(stack=st, spill_stores=ss, spill_loads=sl)
+        elif name and "Used" in ln and "registers" in ln:
+            rows[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    sass = subprocess.run(
+        [str(Path(op_builder.nvcc()).parent / "cuobjdump"), "--dump-sass",
+         str(op_builder.BUILD_DIR / "libring_flash.so")],
+        capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump exit {sass.returncode}: {sass.stderr.strip()[-500:]}")
+    name = None
+    for ln in sass.stdout.splitlines():
+        if "Function :" in ln:
+            name = short(ln.split("Function :")[1].strip())
+            rows.setdefault(name, {})["hgmma"] = 0
+        elif name and "HGMMA" in ln:
+            rows[name]["hgmma"] += 1
+    kinds = {"ring_fwd_kernel": "fwd", "ring_dq_kernel": "dq", "ring_dkv_kernel": "dkv",
+             "ring_dq_wgmma": "dq", "ring_dkv_wgmma": "dkv"}
+    bad = {}
+    for name, row in rows.items():
+        base, d = name.split("<")
+        row.update(RF.kernel_info(kinds[base], int(d.rstrip(">"))))
+        if base.endswith("_wgmma") and (row.get("hgmma", 0) == 0 or row.get("spill_stores")
+                                        or row.get("spill_loads")):
+            bad[name] = row
+    if bad:
+        fail(f"{bad} (the wgmma kernels must issue HGMMA and spill nothing)")
+    for base in ("ring_dq_wgmma", "ring_dkv_wgmma"):
+        for d in (64, 128):
+            if f"{base}<{d}>" not in rows:
+                fail(f"{base}<{d}> missing from the ptxas report")
+    return rows
+
+
 def ring_kernels():
     from deepspeed_tpu_torch.sequence import ring_flash as RF
     return RF, (RF.ring_fwd_step, RF.ring_dq_step, RF.ring_dkv_step)
 
 
 def ring_case(torch, name, *, b, s, h, kvh, d, q_off, k_off, window=0, alibi=False, seg=False,
-              carry=True, seed=0):
+              carry=True, seed=0, view=(1, 0)):
     """One ring step's inputs on the card: q (already scaled), k, v, do in
     bf16; the carry (m, l, acc) entering the step, non-empty unless
     ``carry`` is False (the first step of a ring); lse and delta for the
     backward, and non-zero f32 dq, dk, dv accumulators. The lse counts the
     step's own scores (from the plain forward) and a share from other
-    shards, so every p = exp(s - lse) is at most 1."""
+    shards, so every p = exp(s - lse) is at most 1. ``view`` (n, i): q, k,
+    v and do are shard i of n, views of (b, n * s, heads, d) tensors (batch
+    stride n * s * heads * d), as the train path passes them."""
     RF, _ = ring_kernels()
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -2169,8 +2246,10 @@ def ring_case(torch, name, *, b, s, h, kvh, d, q_off, k_off, window=0, alibi=Fal
         ks[:, s // 2:] = 2
         qs[-1, (3 * s) // 4:] = 2
         segs = (qs, ks)
-    c = dict(name=name, q=rnd(b, s, h, d, scale=d ** -0.5), k=rnd(b, s, kvh, d),
-             v=rnd(b, s, kvh, d), do=rnd(b, s, h, d),
+    n, part = view[0], slice(view[1] * s, (view[1] + 1) * s)
+    c = dict(name=name, q=rnd(b, n * s, h, d, scale=d ** -0.5)[:, part],
+             k=rnd(b, n * s, kvh, d)[:, part], v=rnd(b, n * s, kvh, d)[:, part],
+             do=rnd(b, n * s, h, d)[:, part],
              kw=dict(q_off=q_off, k_off=k_off, window=window, qseg=segs[0], kseg=segs[1],
                      slopes=torch.linspace(0.5, 0.01, h, device="cuda") if alibi else None))
     if carry:
@@ -2250,12 +2329,16 @@ def check_ring(torch, c):
     increment within a relative Frobenius error of FRO_TOL. A step that
     sees nothing must hand back the carry and the accumulators bit for
     bit."""
-    _, kernels = ring_kernels()
+    RF, kernels = ring_kernels()
     before = [f.launches for f in kernels]
     got = ring_run(torch, c)
     torch.cuda.synchronize()
     row = {"kernel_launches": [f.launches - b_ for f, b_ in zip(kernels, before)]}
     ok = row["kernel_launches"] == [1, 1, 1]
+    again = ring_run(torch, c)      # the same inputs again: every buffer bit for bit
+    row["deterministic"] = {n: bool(torch.equal(got[n], again[n])) for n in got}
+    ok &= all(row["deterministic"].values())
+    del again
     if ring_visible_pairs(torch, c) == 0:
         same = {n: bool(torch.equal(got[n], c[n])) for n in got}
         row["unchanged"] = same
@@ -2282,7 +2365,9 @@ def check_ring(torch, c):
     emit("ring_kernel_check", case=c["name"],
          shape=dict(B=q.shape[0], S=q.shape[1], H=q.shape[2], KVH=k.shape[2], D=q.shape[3],
                     q_off=kw["q_off"], k_off=kw["k_off"], window=kw["window"],
-                    alibi=kw["slopes"] is not None, segments=kw["qseg"] is not None),
+                    alibi=kw["slopes"] is not None, segments=kw["qseg"] is not None,
+                    batch_stride=q.stride(0), contiguous=q.is_contiguous()),
+         variant={n: RF.kernel_info(kind, q.shape[3])["variant"] for n, kind in RING_KINDS.items()},
          visible_pairs=ring_visible_pairs(torch, c), max_abs_err=row, atol=ATOL, rtol=RTOL,
          fro_tol=FRO_TOL, within=ok)
     if not ok:
@@ -2313,7 +2398,11 @@ def ring_kernel_check(torch):
             ("group1_d256_below", dict(h=4, kvh=4, d=256, q_off=512, k_off=0)),
             ("d256_diagonal_window", dict(h=4, kvh=2, d=256, window=100, q_off=512,
                                           k_off=512)),
-            ("above", dict(h=8, kvh=2, d=64, window=100, alibi=True, q_off=0, k_off=512))]):
+            ("above", dict(h=8, kvh=2, d=64, window=100, alibi=True, q_off=0, k_off=512)),
+            # shard views of a (2, 4 S, H, D) sequence: the batch stride is 4 S H D
+            ("strided_view_below", dict(h=8, kvh=2, d=128, q_off=1024, k_off=512, view=(4, 2))),
+            ("strided_view_diagonal_d64", dict(h=8, kvh=4, d=64, q_off=512, k_off=512,
+                                               carry=False, view=(4, 1)))]):
         cases.append(ring_case(torch, name, **{**small, **kw}, seed=10 + i))
     worst = {n: 0.0 for n in RING_REPLACES}
     for c in cases:
@@ -2388,7 +2477,9 @@ def ring_kernel_time(torch):
                        library_ms=library[lib], bound_ms=b_ms,
                        bound_by=b_by if flops else "nothing visible",
                        bytes=nbytes, flops=flops)
+            row["tflops"] = flops / row["ms"] / 1e9
             emit("ring_kernel_time", kernel=name, case=kind,
+                 variant=RF.kernel_info(RING_KINDS[name], RING_D)["variant"],
                  shape=dict(B=1, S=RING_SHARD, H=RING_H, KVH=RING_KVH, D=RING_D, q_off=qo,
                             k_off=ko, dtype="bfloat16"),
                  library=(None if library[lib] is None else

@@ -3,9 +3,11 @@
 //
 // Replaces the TPU kernels of deepspeed_tpu/sequence/ring_flash.py:
 //   K13 _ring_fwd_kernel -> ring_fwd_kernel (fold one K/V shard into the carry)
-//   K14 _ring_dq_kernel  -> ring_dq_kernel  (dq of one step, added into the f32 accumulator)
-//   K15 _ring_dkv_kernel -> ring_dkv_kernel (dk, dv of one step, GQA group summed,
-//                                            added into the rotating f32 accumulators)
+//   K14 _ring_dq_kernel  -> ring_dq_wgmma   (dq of one step, added into the f32
+//                           accumulator; ring_dq_kernel at D = 256)
+//   K15 _ring_dkv_kernel -> ring_dkv_wgmma  (dk, dv of one step, GQA group summed,
+//                           added into the rotating f32 accumulators;
+//                           ring_dkv_kernel at D = 256)
 // A ring step pairs the local query shard (global rows q_off + r) with the
 // K/V shard that visits it (global columns k_off + c). Semantics per row r
 // and column c of one (batch, head); q comes in already scaled:
@@ -16,10 +18,11 @@
 //   visible keys and exactly 0 for the rest, l' = l alpha + sum p,
 //   acc' = acc alpha + p v. The carry starts at m = -1e30 (as the TPU
 //   carry does), so a tile no row can see leaves it unchanged (alpha = 1).
-//   backward: p = exp(s - lse), dp = do . v, ds = p (dp - delta) with the
-//   wrapper's delta = sum(do * out) per row; dq += ds k, dk += ds^T q,
-//   dv += p^T do, each added in f32 into the accumulator it is given (the
-//   TPU kernels return one step's values and XLA adds them outside).
+//   backward: p = exp(s - lse), dp = do . v, ds = p (dp - delta) rounded to
+//   bf16, with the wrapper's delta = sum(do * out) per row; dq += ds k,
+//   dk += ds^T q, dv += bf16(p)^T do, each added in f32 into the
+//   accumulator it is given (the TPU kernels return one step's values and
+//   XLA adds them outside).
 //
 // Tiles: the key tiles of a query tile fall into a masked head (the window's
 // edge), a mask-free middle, and a masked tail (the causal edge), as
@@ -30,22 +33,59 @@
 // What bounds it on this card: at qwen2-7b's shard shapes (Sq = Sk = 8192,
 // H = 28, KVH = 4, D = 128) each step does 4 D (forward), 6 D (dq) and 8 D
 // (dk, dv) flops per visible (q, k) pair against ~0.3 GB of bytes, so all
-// three are operation-bound. The products run on the tensor cores (wmma,
-// bf16 in, f32 accumulate) from shared memory, as in flash_attention.cu;
-// wgmma, register accumulators and TMA pipelining are later work.
+// three are operation-bound: 1.46 ms (dq) and 1.95 ms (dk, dv) at the
+// card's 989 TFLOP/s for a full step.
+//
+// K14 and K15 at D = 64 and 128 are built for that (hopper_tiles.cuh):
+// three warpgroups a block, two consumers of 64 rows each and a producer
+// whose one warp streams tiles by TMA through a ring of two stages guarded
+// by mbarriers; setmaxnreg gives the consumers 240 registers a thread and
+// the producer 24. Every product is a wgmma with its f32 accumulator in
+// registers, and p and ds go from the score accumulators into the next
+// product's A operand without leaving registers.
+//   K14 (ring_dq_wgmma): one block per (128 query rows, head, batch), last
+//   query tiles first (they see the most keys of a diagonal step). Q and dO
+//   are loaded once; K/V tiles of 128 keys stream. Per tile a consumer runs
+//   S = Q K^T (m64n128k16, both operands K-major in shared memory), turns S
+//   into p in place, then by halves of 64 keys dP = dO V^T (m64n64k16), ds =
+//   p (dP - delta) and dq += ds K (A from registers, K read MN-major).
+//   Registers at D = 128: dq 64, S 64 and half a dP 32 f32 a thread.
+//   K15 (ring_dkv_wgmma): one block per (128 keys, kv head, batch), first
+//   key tiles first. K and V are loaded once; Q/dO tiles of 64 rows stream
+//   with their lse, delta and segment ids, over the G query heads of the
+//   group and each head's visible query tiles. Transposed, so that keys are
+//   the rows: S^T = K Q^T (m64n64k16) becomes P^T in place; then dP^T = V
+//   dO^T runs beside dv += bf16(P^T) dO, and dk += dS^T Q follows (m64nDk16,
+//   A from registers, dO and Q read MN-major). Registers at D = 128: dk 64,
+//   dv 64, S^T 32, dP^T 32 f32 a thread (dP^T is formed after P^T so that
+//   the two element passes and the lse/delta loads fit in 240); dk and dv
+//   stay in registers over the whole group, which is the GQA sum.
+// The element passes are branch-free: ALiBi is a multiply by a slope of 0
+// when absent, and only tiles at a mask's edge (tile_masked) test
+// visibility, through a separate instantiation of the pass.
+// Each block adds its accumulators into the global f32 ones once at the
+// end: it owns those rows, so there are no atomics and the summation order
+// is fixed (the same bits on every run and across the four-card ring).
+// D = 256: the f32 accumulators of K15 do not fit in registers; that head
+// dim keeps the wmma kernels (ring_dq_kernel, ring_dkv_kernel), chosen by
+// head dim in launch(). K13 is the wmma design at every head dim, from
+// shared memory as in flash_attention.cu.
 //
 // Layout: q, do (B, Sq, H, D) and k, v (B, Sk, KVH, D) bf16, read in place
-// through batch and row strides (D contiguous, heads D apart); m, l, lse,
-// delta (B, H, Sq) f32; acc, dq (B, Sq, H, D) f32; dk, dv (B, Sk, KVH, D)
-// f32; qseg (B, Sq) and kseg (B, Sk) int32 or null; slopes (H,) f32 or null.
-// Forward and dq: one block per (q tile, head, batch). dk/dv: one block per
-// (key tile, kv head, batch) that walks the G = H / KVH query heads of its
-// group (any G, 7 for qwen2), so the group sum happens in the block's f32
-// accumulators.
+// through batch and row strides (D contiguous, heads D apart; the wgmma
+// kernels through one TMA tensor map each, built on the host from those
+// strides); m, l, lse, delta (B, H, Sq) f32; acc, dq (B, Sq, H, D) f32;
+// dk, dv (B, Sk, KVH, D) f32; qseg (B, Sq) and kseg (B, Sk) int32 or null;
+// slopes (H,) f32 or null. The wmma kernels: forward and dq one block per
+// (q tile, head, batch); dk/dv one block per (key tile, kv head, batch)
+// that walks the G = H / KVH query heads of its group (any G, 7 for
+// qwen2), so the group sum happens in the block's f32 accumulators.
 
 #include <cstdint>
+#include <type_traits>
 
 #include "attention_tiles.cuh"
+#include "hopper_tiles.cuh"
 
 using namespace attn_tiles;
 
@@ -202,7 +242,7 @@ __global__ void __launch_bounds__(NTHREADS) ring_fwd_kernel(const Params p) {
   }
 }
 
-// ----------------------------------------------------------------------- dq
+// ------------------------------------------------------------ dq (wmma, D = 256)
 
 template <int D, int BQ, int BK>
 struct RingDqSmem {
@@ -293,7 +333,7 @@ __global__ void __launch_bounds__(NTHREADS) ring_dq_kernel(const Params p) {
   }
 }
 
-// ------------------------------------------------------------------- dk, dv
+// -------------------------------------------------------- dk, dv (wmma, D = 256)
 
 template <int D, int BQ, int BK>
 struct RingDkvSmem {
@@ -398,6 +438,497 @@ __global__ void __launch_bounds__(NTHREADS) ring_dkv_kernel(const Params p) {
   }
 }
 
+// ------------------------------------------- dq and dk/dv with wgmma (D 64, 128)
+//
+// Three warpgroups a block: two consumers of 64 rows each and a producer, of
+// which one warp issues the TMA loads and fills the per-tile vectors; the
+// producer gives its registers to the consumers (setmaxnreg 24 / 240).
+// Stages are guarded by a full barrier (32 producer arrivals plus the TMA
+// bytes) and an empty one (every consumer thread arrives once it is done
+// with the stage). Products are wgmma m64nNk16 with f32 accumulators in
+// registers; P and dS become the A operand of the second product without
+// leaving registers (hopper::a_fragment).
+
+constexpr int WG = 128;                         // threads of a warpgroup
+constexpr int CONSUMERS = 2;                    // consumer warpgroups
+constexpr int WG_THREADS = (CONSUMERS + 1) * WG;
+constexpr int WG_ROWS = 64;                     // a consumer's rows (wgmma M)
+constexpr int STAGES = 2;
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// the first 1024-byte aligned byte of dynamic shared memory, as an offset
+// from the array so that the compiler keeps it a shared-memory pointer
+__device__ __forceinline__ unsigned char* align1024(unsigned char* smem) {
+  return smem + ((1024 - (hopper::smem_addr(smem) & 1023)) & 1023);
+}
+
+// K14: the block's Q and dO (BQ rows), then a ring of K/V stages with the
+// key tile's segment ids. Every tile offset is a multiple of 1024 bytes.
+template <int D>
+struct DqLayout {
+  static constexpr int BQ = CONSUMERS * WG_ROWS, BK = 128;  // BK keys a stage
+  static constexpr size_t q = 0;
+  static constexpr size_t dout = q + 2 * BQ * D;
+  static constexpr size_t kv_tile = 2 * BK * D;
+  static constexpr size_t stages = dout + 2 * BQ * D;  // stage s: K, then V
+  static constexpr size_t seg = stages + STAGES * 2 * kv_tile;
+  static constexpr size_t bars = seg + STAGES * BK * sizeof(int);
+  static constexpr size_t bytes = bars + (2 * STAGES + 1) * sizeof(uint64_t) + 1024;
+};
+
+// K15: the block's K and V (BK rows), then a ring of Q/dO stages with the
+// query tile's lse, delta (both f32) and segment ids.
+template <int D>
+struct DkvLayout {
+  static constexpr int BK = CONSUMERS * WG_ROWS, BQ = 64;  // BQ query rows a stage
+  static constexpr size_t k = 0;
+  static constexpr size_t v = k + 2 * BK * D;
+  static constexpr size_t q_tile = 2 * BQ * D;
+  static constexpr size_t stages = v + 2 * BK * D;     // stage s: Q, then dO
+  static constexpr size_t rows = stages + STAGES * 2 * q_tile;
+  static constexpr size_t bars = rows + STAGES * 3 * BQ * sizeof(float);
+  static constexpr size_t bytes = bars + (2 * STAGES + 1) * sizeof(uint64_t) + 1024;
+};
+
+// the stage ring's position: stage s in its phase of parity `phase`
+struct Ring {
+  int s = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++s == STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// D / 64 column blocks of `rows` rows of one head into a swizzled tile
+template <int D>
+__device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int rows, int head, int row0, int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    hopper::tma_load_4d(dst + c * rows * 64, map, bar, c * 64, head, row0, b);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    ring_dq_wgmma(const Params p, const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo) {
+  using SM = DqLayout<D>;
+  constexpr int BQ = SM::BQ, BK = SM::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + SM::q);
+  bf16* dOs = reinterpret_cast<bf16*>(smem + SM::dout);
+  int* ksegs = reinterpret_cast<int*>(smem + SM::seg);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SM::bars);
+  uint64_t* empty = full + STAGES;
+  uint64_t* once = empty + STAGES;
+
+  // the last query tiles see the most keys of a diagonal step: start them first
+  const int nq = (p.Sq + BQ - 1) / BQ, hb = gridDim.x / nq;
+  const int r0 = (nq - 1 - static_cast<int>(blockIdx.x) / hb) * BQ;
+  const int h = blockIdx.x % hb % p.H, b = blockIdx.x % hb / p.H;
+  int lo, hi;
+  key_range<BQ, BK>(p, r0, lo, hi);
+  if (lo >= hi) return;  // nothing visible: dq gains 0
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&empty[s], CONSUMERS * WG);
+    }
+    hopper::mbar_init(once, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == CONSUMERS) {  // ------------------------------------- producer
+    hopper::regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x % WG >= 32) return;
+    const int lane = threadIdx.x % 32, kh = h / (p.H / p.KVH);
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(once, 2 * 2 * BQ * D);
+      tma_rows<D>(Qs, &tq, once, BQ, h, r0, b);
+      tma_rows<D>(dOs, &tdo, once, BQ, h, r0, b);
+    }
+    const int* ksegb = p.kseg != nullptr ? p.kseg + static_cast<size_t>(b) * p.Sk : nullptr;
+    Ring ring;
+    for (int j = lo; j < hi; ++j, ring.next()) {
+      hopper::mbar_wait(&empty[ring.s], ring.phase ^ 1);
+      const int c0 = j * BK;
+      int* kseg = ksegs + ring.s * BK;
+      for (int i = lane; i < BK; i += 32)
+        kseg[i] = ksegb != nullptr && c0 + i < p.Sk ? ksegb[c0 + i] : 0;
+      if (lane == 0) {
+        bf16* Ks = reinterpret_cast<bf16*>(smem + SM::stages + ring.s * 2 * SM::kv_tile);
+        hopper::mbar_arrive_expect_tx(&full[ring.s], 2 * SM::kv_tile);
+        tma_rows<D>(Ks, &tk, &full[ring.s], BK, kh, c0, b);
+        tma_rows<D>(Ks + BK * D, &tv, &full[ring.s], BK, kh, c0, b);
+      } else {
+        hopper::mbar_arrive(&full[ring.s]);
+      }
+    }
+  } else {  // ---------------------------------------------------- consumers
+    hopper::regs_inc<CONSUMER_REGS>();
+    const int t = threadIdx.x % WG, lane = t % 32;
+    const int rw = r0 + wg * WG_ROWS;               // the warpgroup's first row
+    const int ra = rw + (t / 32) * 16 + lane / 4;   // this thread's rows: ra, ra + 8
+    int wlo = 0, whi = 0;
+    if (rw < p.Sq) key_range<WG_ROWS, BK>(p, rw, wlo, whi);
+    const size_t roff = (static_cast<size_t>(b) * p.H + h) * p.Sq;
+    float lse[2], delta[2];
+    int qseg[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = ra + 8 * u;
+      const bool in = r < p.Sq;
+      lse[u] = in ? p.lse[roff + r] * LOG2E : 0.f;
+      delta[u] = in ? p.delta[roff + r] : 0.f;
+      qseg[u] = in && p.qseg != nullptr ? p.qseg[static_cast<size_t>(b) * p.Sq + r] : 0;
+    }
+    const float slope = p.slopes != nullptr ? p.slopes[h] : 0.f;
+    const uint32_t q_tile = hopper::smem_addr(Qs) + wg * WG_ROWS * 128;
+    const uint32_t do_tile = hopper::smem_addr(dOs) + wg * WG_ROWS * 128;
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    hopper::mbar_wait(once, 0);
+
+    Ring ring;
+    for (int j = lo; j < hi; ++j, ring.next()) {
+      hopper::mbar_wait(&full[ring.s], ring.phase);
+      if (j >= wlo && j < whi) {
+        const int c0 = j * BK;
+        const uint32_t k_tile = hopper::smem_addr(smem + SM::stages + ring.s * 2 * SM::kv_tile);
+        const uint32_t v_tile = k_tile + SM::kv_tile;
+        const int* kseg = ksegs + ring.s * BK;
+        // S = Q K^T over the whole key tile (m64n128k16)
+        float s[BK / 2];  // written whole by the first product (scale-d 0)
+        hopper::fence_regs(s);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < D / 16; ++k)
+          hopper::Wgmma<BK>::template ss<0>(s, hopper::desc_k_major(q_tile, BQ, k),
+                                            hopper::desc_k_major(k_tile, BK, k), k > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+
+        // p = exp(s - lse) on visible keys, in place of s; branch-free, with the
+        // visibility test only on tiles that need it
+        const int pos0 = p.k_off + c0 + 2 * (lane % 4) - (p.q_off + ra);  // col - row of s[0]
+        auto form_p = [&](auto masked) {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) {
+            const int u = (i / 2) % 2, cl = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+            const float alibi = slope * static_cast<float>(pos0 + 8 * (i / 4) + i % 2 - 8 * u);
+            s[i] = hopper::exp2_approx((s[i] + alibi) * LOG2E - lse[u]);
+            if constexpr (decltype(masked)::value)
+              s[i] = visible(p, ra + 8 * u, c0 + cl, qseg[u], kseg[cl]) ? s[i] : 0.f;
+          }
+        };
+        if (tile_masked<WG_ROWS, BK>(p, rw, c0))
+          form_p(std::true_type{});
+        else
+          form_p(std::false_type{});
+
+        // by halves of 64 keys, so that dP's registers stay half a tile: dP =
+        // dO V^T (m64n64k16), ds = p (dP - delta) rounded to bf16, and dq += ds K
+        // (A from registers, K read MN-major); a half's dq product runs while
+        // the next half's dP is formed
+        uint32_t ds[BK / 4];
+#pragma unroll
+        for (int hf = 0; hf < BK / 64; ++hf) {
+          float dp[32];  // written whole by the first product (scale-d 0)
+          hopper::fence_regs(dp);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < D / 16; ++k)
+            hopper::Wgmma<64>::template ss<0>(dp, hopper::desc_k_major(do_tile, BQ, k),
+                                              hopper::desc_k_major(v_tile + hf * 64 * 128, BK, k),
+                                              k > 0);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dp);
+#pragma unroll
+          for (int m = 0; m < 16; ++m) {
+            const int i = 32 * hf + 2 * m;
+            ds[16 * hf + m] = hopper::pack_bf16(s[i] * (dp[2 * m] - delta[m % 2]),
+                                                s[i + 1] * (dp[2 * m + 1] - delta[m % 2]));
+          }
+          hopper::fence_regs(ds);
+          hopper::fence_regs(dq);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            uint32_t a[4];
+            hopper::a_fragment(a, ds, 4 * hf + k);
+            hopper::Wgmma<D>::template rs<1>(
+                dq, a, hopper::desc_mn_major(k_tile + hf * 64 * 128, BK, k));
+          }
+          hopper::wgmma_commit();
+        }
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(ds);  // the A operand stays put until the product is done
+        hopper::fence_regs(dq);
+      }
+      hopper::mbar_arrive(&empty[ring.s]);
+    }
+
+    if (wlo < whi) {  // the block owns its rows: add into dq once, no atomics
+#pragma unroll
+      for (int i = 0; i < D / 2; i += 2) {
+        const int r = ra + 8 * ((i / 2) % 2), d = 8 * (i / 4) + 2 * (lane % 4);
+        if (r >= p.Sq) continue;
+        float2* out = reinterpret_cast<float2*>(p.dq + acc_index(b, r, h, p.Sq, p.H, D) + d);
+        float2 cur = *out;
+        cur.x += dq[i];
+        cur.y += dq[i + 1];
+        *out = cur;
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    ring_dkv_wgmma(const Params p, const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo) {
+  using SM = DkvLayout<D>;
+  constexpr int BQ = SM::BQ, BK = SM::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + SM::k);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + SM::v);
+  float* rowv = reinterpret_cast<float*>(smem + SM::rows);  // stage s: lse, delta, qseg
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SM::bars);
+  uint64_t* empty = full + STAGES;
+  uint64_t* once = empty + STAGES;
+
+  // the first key tiles are seen by the most query tiles of a diagonal step
+  const int nk = (p.Sk + BK - 1) / BK, hb = gridDim.x / nk;
+  const int c0 = static_cast<int>(blockIdx.x) / hb * BK;
+  const int kh = blockIdx.x % hb % p.KVH, b = blockIdx.x % hb / p.KVH;
+  int q_lo, q_hi;
+  query_range<BQ, BK>(p, c0, q_lo, q_hi);
+  if (q_lo >= q_hi) return;  // no row sees this key tile: dk, dv gain 0
+  const int G = p.H / p.KVH;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&empty[s], CONSUMERS * WG);
+    }
+    hopper::mbar_init(once, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == CONSUMERS) {  // ------------------------------------- producer
+    hopper::regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x % WG >= 32) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(once, 2 * 2 * BK * D);
+      tma_rows<D>(Ks, &tk, once, BK, kh, c0, b);
+      tma_rows<D>(Vs, &tv, once, BK, kh, c0, b);
+    }
+    const int* qsegb = p.qseg != nullptr ? p.qseg + static_cast<size_t>(b) * p.Sq : nullptr;
+    Ring ring;
+    for (int g = 0; g < G; ++g) {
+      const int h = kh * G + g;
+      const size_t roff = (static_cast<size_t>(b) * p.H + h) * p.Sq;
+      for (int i0 = q_lo; i0 < q_hi; ++i0, ring.next()) {
+        hopper::mbar_wait(&empty[ring.s], ring.phase ^ 1);
+        const int r0 = i0 * BQ;
+        float* lse = rowv + ring.s * 3 * BQ;
+        float* delta = lse + BQ;
+        int* qseg = reinterpret_cast<int*>(delta + BQ);
+        for (int i = lane; i < BQ; i += 32) {
+          const bool in = r0 + i < p.Sq;
+          lse[i] = in ? p.lse[roff + r0 + i] * LOG2E : 0.f;
+          delta[i] = in ? p.delta[roff + r0 + i] : 0.f;
+          qseg[i] = in && qsegb != nullptr ? qsegb[r0 + i] : 0;
+        }
+        if (lane == 0) {
+          bf16* Qst = reinterpret_cast<bf16*>(smem + SM::stages + ring.s * 2 * SM::q_tile);
+          hopper::mbar_arrive_expect_tx(&full[ring.s], 2 * SM::q_tile);
+          tma_rows<D>(Qst, &tq, &full[ring.s], BQ, h, r0, b);
+          tma_rows<D>(Qst + BQ * D, &tdo, &full[ring.s], BQ, h, r0, b);
+        } else {
+          hopper::mbar_arrive(&full[ring.s]);
+        }
+      }
+    }
+  } else {  // ---------------------------------------------------- consumers
+    hopper::regs_inc<CONSUMER_REGS>();
+    const int t = threadIdx.x % WG, lane = t % 32;
+    const int cw = c0 + wg * WG_ROWS;               // the warpgroup's first key
+    const int ka = cw + (t / 32) * 16 + lane / 4;   // this thread's keys: ka, ka + 8
+    int wlo = 0, whi = 0;
+    if (cw < p.Sk) query_range<BQ, WG_ROWS>(p, cw, wlo, whi);
+    int kseg[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = ka + 8 * u;
+      kseg[u] = c < p.Sk && p.kseg != nullptr ? p.kseg[static_cast<size_t>(b) * p.Sk + c] : 0;
+    }
+    const uint32_t k_tile = hopper::smem_addr(Ks) + wg * WG_ROWS * 128;
+    const uint32_t v_tile = hopper::smem_addr(Vs) + wg * WG_ROWS * 128;
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    hopper::mbar_wait(once, 0);
+
+    Ring ring;
+    for (int g = 0; g < G; ++g) {
+      const int h = kh * G + g;
+      const float slope = p.slopes != nullptr ? p.slopes[h] : 0.f;
+      for (int i0 = q_lo; i0 < q_hi; ++i0, ring.next()) {
+        hopper::mbar_wait(&full[ring.s], ring.phase);
+        if (i0 >= wlo && i0 < whi) {
+          const int r0 = i0 * BQ;
+          const uint32_t q_st = hopper::smem_addr(smem + SM::stages + ring.s * 2 * SM::q_tile);
+          const uint32_t do_st = q_st + SM::q_tile;
+          const float* lse = rowv + ring.s * 3 * BQ;
+          const float* delta = lse + BQ;
+          const int* qseg = reinterpret_cast<const int*>(delta + BQ);
+          float s[BQ / 2], dp[BQ / 2];  // written whole by the first product (scale-d 0)
+
+          // S^T = K Q^T: keys are the rows
+          hopper::fence_regs(s);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < D / 16; ++k)
+            hopper::Wgmma<BQ>::template ss<0>(s, hopper::desc_k_major(k_tile, BK, k),
+                                              hopper::desc_k_major(q_st, BQ, k), k > 0);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(s);
+
+          // P^T = exp(S^T - lse) on visible pairs, in place of S^T, and rounded to
+          // bf16 for dv; branch-free, with the visibility test only on tiles that
+          // need it; the lse (delta) of a column pair is one 8-byte load
+          uint32_t pt[BQ / 4], dst[BQ / 4];
+          const int pos0 = p.k_off + ka - (p.q_off + r0 + 2 * (lane % 4));  // col - row of s[0]
+          auto form_p = [&](auto masked) {
+#pragma unroll
+            for (int m = 0; m < BQ / 4; ++m) {
+              const int u = m % 2, q2 = 8 * (m / 2) + 2 * (lane % 4);  // columns q2, q2 + 1
+              const float2 l2 = *reinterpret_cast<const float2*>(lse + q2);
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 2 * m + e;
+                const float alibi = slope * static_cast<float>(pos0 + 8 * u - 8 * (m / 2) - e);
+                s[i] = hopper::exp2_approx((s[i] + alibi) * LOG2E - (e ? l2.y : l2.x));
+                if constexpr (decltype(masked)::value)
+                  s[i] = visible(p, r0 + q2 + e, ka + 8 * u, qseg[q2 + e], kseg[u]) ? s[i] : 0.f;
+              }
+              pt[m] = hopper::pack_bf16(s[2 * m], s[2 * m + 1]);
+            }
+          };
+          if (tile_masked<BQ, WG_ROWS>(p, r0, cw))
+            form_p(std::true_type{});
+          else
+            form_p(std::false_type{});
+
+          // dP^T = V dO^T, and dv += P^T dO (A from registers, dO read MN-major).
+          // dP^T is formed only now, so that its registers and S^T's are not both
+          // live beside dk and dv while P^T is formed.
+          hopper::fence_regs(s);
+          hopper::fence_regs(dp);
+          hopper::fence_regs(pt);
+          hopper::fence_regs(dv);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < D / 16; ++k)
+            hopper::Wgmma<BQ>::template ss<0>(dp, hopper::desc_k_major(v_tile, BK, k),
+                                              hopper::desc_k_major(do_st, BQ, k), k > 0);
+#pragma unroll
+          for (int k = 0; k < BQ / 16; ++k) {
+            uint32_t a[4];
+            hopper::a_fragment(a, pt, k);
+            hopper::Wgmma<D>::template rs<1>(dv, a, hopper::desc_mn_major(do_st, BQ, k));
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dp);
+          hopper::fence_regs(pt);
+          hopper::fence_regs(dv);
+
+          // dS^T = P^T (dP^T - delta), rounded to bf16, and dk += dS^T Q
+#pragma unroll
+          for (int m = 0; m < BQ / 4; ++m) {
+            const float2 d2 =
+                *reinterpret_cast<const float2*>(delta + 8 * (m / 2) + 2 * (lane % 4));
+            dst[m] = hopper::pack_bf16(s[2 * m] * (dp[2 * m] - d2.x),
+                                       s[2 * m + 1] * (dp[2 * m + 1] - d2.y));
+          }
+          hopper::fence_regs(dst);
+          hopper::fence_regs(dk);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < BQ / 16; ++k) {
+            uint32_t a[4];
+            hopper::a_fragment(a, dst, k);
+            hopper::Wgmma<D>::template rs<1>(dk, a, hopper::desc_mn_major(q_st, BQ, k));
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dst);  // the A operand stays put until the product is done
+          hopper::fence_regs(dk);
+        }
+        hopper::mbar_arrive(&empty[ring.s]);
+      }
+    }
+
+    if (wlo < whi) {  // the block owns its keys: add into dk, dv once, no atomics
+#pragma unroll
+      for (int i = 0; i < D / 2; i += 2) {
+        const int c = ka + 8 * ((i / 2) % 2), d = 8 * (i / 4) + 2 * (lane % 4);
+        if (c >= p.Sk) continue;
+        const size_t off = acc_index(b, c, kh, p.Sk, p.KVH, D) + d;
+        float2* ok = reinterpret_cast<float2*>(p.dk + off);
+        float2* ov = reinterpret_cast<float2*>(p.dv + off);
+        float2 ck = *ok, cv = *ov;
+        ck.x += dk[i];
+        ck.y += dk[i + 1];
+        cv.x += dv[i];
+        cv.y += dv[i + 1];
+        *ok = ck;
+        *ov = cv;
+      }
+    }
+  }
+}
+
+// the four tensor maps of q, k, v, do for blocks of q_rows query rows and
+// k_rows keys, then the launch
+template <typename Kernel>
+cudaError_t launch_wgmma(Kernel kernel, size_t smem, int blocks, const Params& p, int B, int D,
+                         int q_rows, int k_rows, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t e;
+  if ((e = hopper::rows_map(&tq, p.q, D, p.H, p.Sq, B, p.qsr, p.qsb, q_rows)) != cudaSuccess ||
+      (e = hopper::rows_map(&tk, p.k, D, p.KVH, p.Sk, B, p.ksr, p.ksb, k_rows)) != cudaSuccess ||
+      (e = hopper::rows_map(&tv, p.v, D, p.KVH, p.Sk, B, p.vsr, p.vsb, k_rows)) != cudaSuccess ||
+      (e = hopper::rows_map(&tdo, p.dout, D, p.H, p.Sq, B, p.dsr, p.dsb, q_rows)) !=
+          cudaSuccess)
+    return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<blocks, WG_THREADS, smem, stream>>>(p, tq, tk, tv, tdo);
+  return cudaGetLastError();
+}
+
 // ------------------------------------------------------------------ launch
 
 // tile sizes per head dim: 64-row tiles, 32 for D = 256 (shared memory)
@@ -414,11 +945,24 @@ cudaError_t launch(Kind kind, const Params& p, int B, cudaStream_t stream) {
       return launch_kernel(ring_fwd_kernel<D, BQ, BK>, RingFwdSmem<D, BQ, BK>::bytes,
                            dim3((p.Sq + BQ - 1) / BQ, p.H, B), p, stream);
     case DQ:
-      return launch_kernel(ring_dq_kernel<D, BQ, BK>, RingDqSmem<D, BQ, BK>::bytes,
-                           dim3((p.Sq + BQ - 1) / BQ, p.H, B), p, stream);
+      if constexpr (D <= 128) {
+        using SM = DqLayout<D>;
+        return launch_wgmma(ring_dq_wgmma<D>, SM::bytes, (p.Sq + SM::BQ - 1) / SM::BQ * p.H * B,
+                            p, B, D, SM::BQ, SM::BK, stream);
+      } else {
+        return launch_kernel(ring_dq_kernel<D, BQ, BK>, RingDqSmem<D, BQ, BK>::bytes,
+                             dim3((p.Sq + BQ - 1) / BQ, p.H, B), p, stream);
+      }
     case DKV:
-      return launch_kernel(ring_dkv_kernel<D, BQ, BK>, RingDkvSmem<D, BQ, BK>::bytes,
-                           dim3((p.Sk + BK - 1) / BK, p.KVH, B), p, stream);
+      if constexpr (D <= 128) {
+        using SM = DkvLayout<D>;
+        return launch_wgmma(ring_dkv_wgmma<D>, SM::bytes,
+                            (p.Sk + SM::BK - 1) / SM::BK * p.KVH * B, p, B, D, SM::BQ, SM::BK,
+                            stream);
+      } else {
+        return launch_kernel(ring_dkv_kernel<D, BQ, BK>, RingDkvSmem<D, BQ, BK>::bytes,
+                             dim3((p.Sk + BK - 1) / BK, p.KVH, B), p, stream);
+      }
   }
   return cudaErrorInvalidValue;
 }
@@ -432,6 +976,39 @@ cudaError_t dispatch(Kind kind, const Params& p, int B, int D, void* stream) {
     case 128: return launch<128>(kind, p, B, st);
     case 256: return launch<256>(kind, p, B, st);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// what launch<D> runs for `kind`: info[0] 1 for the wgmma kernels, 0 for the
+// wmma ones; info[1] the dynamic shared memory of a block, bytes; info[2]
+// the threads of a block
+template <int D>
+void kernel_info(Kind kind, int* info) {
+  constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
+  info[0] = 0;
+  info[2] = NTHREADS;
+  switch (kind) {
+    case FWD:
+      info[1] = static_cast<int>(RingFwdSmem<D, BQ, BK>::bytes);
+      return;
+    case DQ:
+      if constexpr (D <= 128) {
+        info[0] = 1;
+        info[1] = static_cast<int>(DqLayout<D>::bytes);
+        info[2] = WG_THREADS;
+      } else {
+        info[1] = static_cast<int>(RingDqSmem<D, BQ, BK>::bytes);
+      }
+      return;
+    case DKV:
+      if constexpr (D <= 128) {
+        info[0] = 1;
+        info[1] = static_cast<int>(DkvLayout<D>::bytes);
+        info[2] = WG_THREADS;
+      } else {
+        info[1] = static_cast<int>(RingDkvSmem<D, BQ, BK>::bytes);
+      }
+      return;
   }
 }
 
@@ -507,4 +1084,17 @@ extern "C" int ds_ring_dkv(const void* q, const void* k, const void* v, const vo
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
   return dispatch(DKV, p, B, D, stream);
+}
+
+// The kernel ds_ring_fwd (kind 0), ds_ring_dq (1) or ds_ring_dkv (2) launches
+// at head dim D, as kernel_info describes it; cudaErrorInvalidValue for a
+// kind or head dim without one.
+extern "C" int ds_ring_kernel_info(int kind, int D, int* info) {
+  if (kind < FWD || kind > DKV) return cudaErrorInvalidValue;
+  switch (D) {
+    case 64: kernel_info<64>(static_cast<Kind>(kind), info); return cudaSuccess;
+    case 128: kernel_info<128>(static_cast<Kind>(kind), info); return cudaSuccess;
+    case 256: kernel_info<256>(static_cast<Kind>(kind), info); return cudaSuccess;
+    default: return cudaErrorInvalidValue;
+  }
 }

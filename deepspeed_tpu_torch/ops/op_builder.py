@@ -48,13 +48,23 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def _headers(path: Path, found: set) -> set:
+    """The ``csrc/*.cuh`` headers ``path`` includes, directly or through
+    other headers."""
+    for h in re.findall(r'^#include "(\w+\.cuh)"', path.read_text(), re.MULTILINE):
+        header = CSRC / h
+        if header not in found and header.exists():
+            found.add(header)
+            _headers(header, found)
+    return found
+
+
 def _stale(name: str) -> bool:
     """The library is missing or older than its source or a header the
-    source includes."""
+    source includes, directly or not."""
     lib = _lib_path(name)
     src = CSRC / f"{name}.cu"
-    headers = re.findall(r'^#include "(\w+\.cuh)"', src.read_text(), re.MULTILINE)
-    sources = [src, *(CSRC / h for h in headers)]
+    sources = [src, *_headers(src, set())]
     return not lib.exists() or lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 

@@ -24,7 +24,8 @@ one rank of a ring over ``seq`` cards would launch.
 
 Three wrappers, one per kernel, take the tensors' device as the choice of
 implementation: on CUDA tensors they launch the hand-written Hopper kernels
-(``ops/csrc/ring_flash.cu``) or raise; on CPU tensors they run the plain
+(``ops/csrc/ring_flash.cu``; K14 and K15 are wgmma kernels at head dims 64
+and 128 and wmma ones at 256, ``kernel_info`` says which) or raise; on CPU tensors they run the plain
 versions ``ring_fwd_step_plain`` / ``ring_bwd_step_plain`` (dense f32 math
 of one ring step with the same masks). Every kernel and plain version
 updates its f32 outputs in place: the forward carry, and the dq, dk and dv
@@ -327,6 +328,24 @@ def ring_dkv_step(q, k, v, do, lse, delta, dk, dv, *, q_off, k_off, slopes=None,
 
 for _f in (ring_fwd_step, ring_dq_step, ring_dkv_step):
     _f.launches = 0
+
+_KINDS = {"fwd": 0, "dq": 1, "dkv": 2}
+
+
+def kernel_info(kind, d):
+    """The CUDA kernel that the ``kind`` ("fwd", "dq" or "dkv") wrapper
+    launches at head dim ``d``, as the built library reports it: its
+    ``variant`` ("wgmma" for the Hopper dq and dk/dv kernels at D 64 and 128,
+    "wmma" otherwise), ``smem_bytes`` (dynamic shared memory a block) and
+    ``threads`` a block. Builds the library if needed."""
+    info = (ctypes.c_int * 3)()
+    fn = op_builder.load("ring_flash").ds_ring_kernel_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if fn(_KINDS[kind], int(d), info) != 0:
+        raise ValueError(f"ring flash: no {kind} kernel at head dim {d}")
+    return {"variant": "wgmma" if info[0] else "wmma", "smem_bytes": info[1],
+            "threads": info[2]}
 
 
 def _bwd_step(q, k, v, do, lse, delta, dq, dk, dv, **kw):
