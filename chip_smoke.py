@@ -9,10 +9,12 @@ Phases, each printing one JSON line:
   1. device: the card's name and power limit, TF32 switched off;
   2. build: every kernel under ``deepspeed_tpu_torch/ops/csrc`` compiled by
      nvcc for sm_90a (one process per source, all started together), with
-     ptxas's register, shared-memory and spill lines; for each ring kernel
-     its registers, spills, shared memory a block and HGMMA (wgmma)
-     instructions from ``cuobjdump --dump-sass`` (the wgmma K14/K15 must
-     issue HGMMA and spill nothing);
+     ptxas's register, shared-memory and spill lines; for each kernel of
+     the two attention libraries with wgmma kernels (ring_flash,
+     flash_attention) its registers, spills, shared memory a block and
+     HGMMA (wgmma) instructions from ``cuobjdump --dump-sass`` (the wgmma
+     forward K13 and K3 and the wgmma K14/K15 must be there at D 64 and
+     128, issue HGMMA and spill nothing);
   3. kernel_check: each kernel against its plain PyTorch version on the
      card, at the main path's shapes (llama3-8b: H=32, KVH=8, D=128,
      bs=128, bf16), plus window / ALiBi / softcap cases and the other
@@ -34,7 +36,9 @@ The serving engine is then freed, and the training slice runs:
   8. train_kernel_check: flash attention forward, dq and dk/dv (K3, K4, K5)
      against their plain versions at gpt2-xl and llama3-8b shapes and on
      every mask (window, ALiBi, segments, non-causal, an S that is no tile
-     multiple, D = 256); the fused Adam step (K10) at gpt2-xl's largest leaf;
+     multiple, D = 256), the forward run twice and bit-identical, each case
+     naming the variant each kernel ran; the fused Adam step (K10) at
+     gpt2-xl's largest leaf;
   9. train_kernel_time: each kernel, its plain version and one PyTorch
      library call by CUDA events, beside the card's bound;
  10. train_path: ``deepspeed_tpu_torch.initialize()`` on gpt2-xl at full
@@ -110,9 +114,10 @@ The public ops are then freed, and the ring (sequence-parallel) slice runs:
      bit for bit), then window, ALiBi, segments and all three, GQA groups
      1, 4 and 7, D = 64 and 256, a shard of 1000 (masked tail tiles), and
      shards that are views of a (2, 4 S, H, D) sequence (strided batch);
-     every case runs twice and must give every buffer bit for bit, and
-     names the variant each kernel ran (K14/K15: wgmma at D 64 and 128,
-     wmma at 256);
+     every case runs twice and must give every buffer bit for bit (the
+     carry m, l, acc of K13 among them), and names the variant each kernel
+     ran (K13: wgmma at every D; K14/K15: wgmma at D 64 and 128, wmma at
+     256);
  23. ring_kernel_time: each kernel per step kind by CUDA events, beside its
      plain version, its bound and SDPA (forward beside K13, its autograd
      backward beside K14 + K15, with the kernels SDPA ran named);
@@ -288,7 +293,7 @@ def kernel_phases(torch):
          ptxas={k: [ln for ln in v.splitlines()
                     if any(w in ln for w in ("registers", "smem", "spill"))]
                 for k, v in op_builder.BUILD_LOGS.items()},
-         ring_kernels=ring_build_report(op_builder))
+         wgmma_kernels={lib: wgmma_build_report(op_builder, lib) for lib in WGMMA_LIBS})
 
     # the two step shapes of the main path: 16 slots, 8 of them live (the
     # other 8 frozen, positions -1), decode at ragged contexts and a
@@ -690,7 +695,8 @@ def check_flash(torch, case):
     values sit in the first causal rows, so that limit alone would pass a
     kernel wrong on most rows: out, dq, dk and dv are also held to a
     relative Frobenius error ||got - plain|| / ||plain|| <= 1e-2, and the
-    median |plain| is printed beside each limit."""
+    median |plain| is printed beside each limit. The forward runs a second
+    time on the same inputs and must give out and lse bit for bit."""
     from deepspeed_tpu_torch.ops import flash_attention as FA
     q, k, v, do, kw = case["q"], case["k"], case["v"], case["do"], case["kw"]
     before = [f.launches for f in (FA.flash_attention_fwd, FA.flash_attention_dq,
@@ -702,11 +708,15 @@ def check_flash(torch, case):
     torch.cuda.synchronize()
     after = [f.launches for f in (FA.flash_attention_fwd, FA.flash_attention_dq,
                                   FA.flash_attention_dkv)]
+    out2, lse2 = FA.flash_attention_fwd(q, k, v, **kw)   # the same inputs: bit for bit
+    deterministic = {"out": bool(torch.equal(out, out2)), "lse": bool(torch.equal(lse, lse2))}
+    del out2, lse2
     f32 = [t.float() for t in (q, k, v, do)]
     p_out, p_lse = FA.flash_attention_fwd_plain(*f32[:3], **kw)
     p_dq, p_dk, p_dv = FA.flash_attention_bwd_plain(*f32, lse, delta, **kw)
-    row = {"kernel_launches": [a - b for a, b in zip(after, before)]}
-    ok = row["kernel_launches"] == [1, 1, 1]
+    row = {"kernel_launches": [a - b for a, b in zip(after, before)],
+           "fwd_deterministic": deterministic}
+    ok = row["kernel_launches"] == [1, 1, 1] and all(deterministic.values())
     for nm, got, ref in (("out", out, p_out), ("lse", lse, p_lse)):
         err = (got.float() - ref).abs()
         row[nm] = float(err.max())
@@ -729,6 +739,8 @@ def check_flash(torch, case):
                     D=q_.shape[3], causal=kw["causal"], window=kw["window"],
                     alibi=kw["alibi_slopes"] is not None,
                     segments=kw["segment_ids"] is not None),
+         variant={kind: FA.kernel_info(kind, q_.shape[3])["variant"]
+                  for kind in ("fwd", "dq", "dkv")},
          max_abs_err=row, within=ok)
     if not ok:
         fail(f"flash attention {case['name']}: {row}")
@@ -844,7 +856,9 @@ def train_kernel_phases(torch, largest_leaf):
                    plain_ms=cuda_ms(torch, plain, reps=3, iters=3),
                    library_ms=library_ms[lib],
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+        row["tflops"] = flops / row["ms"] / 1e9
         emit("train_kernel_time", kernel=name, case="gpt2xl_causal",
+             variant=FA.kernel_info(name.split("_")[-1], 64)["variant"],
              shape=dict(B=TRAIN_MICRO, S=TRAIN_SEQ, H=25, KVH=25, D=64, dtype="bfloat16"),
              library=("F.scaled_dot_product_attention forward" if name.endswith("fwd") else
                       "autograd backward of F.scaled_dot_product_attention (dq, dk and dv "
@@ -2151,24 +2165,37 @@ RING_STEPS = {"diagonal": (RING_SHARD, RING_SHARD), "below": (2 * RING_SHARD, RI
               "above": (RING_SHARD, 2 * RING_SHARD)}
 
 
-def ring_build_report(op_builder):
-    """Registers, spills and stack of each ring kernel from the build's
-    ptxas report, its dynamic shared memory and threads a block from the
-    library, and its HGMMA (wgmma) instructions from ``cuobjdump
-    --dump-sass``. Fails unless the wgmma kernels (K14/K15 at D 64 and 128)
-    issue HGMMA, spill nothing and keep their setmaxnreg."""
+# the libraries with wgmma kernels: the module whose kernel_info describes
+# them, and the wgmma kernels each must have at D 64 and 128
+WGMMA_LIBS = {
+    "ring_flash": ("deepspeed_tpu_torch.sequence.ring_flash",
+                   ("ring_fwd_wgmma", "ring_dq_wgmma", "ring_dkv_wgmma")),
+    "flash_attention": ("deepspeed_tpu_torch.ops.flash_attention", ("flash_fwd_wgmma",)),
+}
+
+
+def wgmma_build_report(op_builder, lib):
+    """Registers, spills and stack of each attention kernel of ``lib`` (a
+    key of WGMMA_LIBS) from the build's ptxas report, its dynamic shared
+    memory and threads a block from the library's kernel_info, and its HGMMA
+    (wgmma) instructions from ``cuobjdump --dump-sass``. Fails unless ptxas
+    kept setmaxnreg, every wgmma kernel issues HGMMA and spills nothing, and
+    the library's wgmma kernels at D 64 and 128 (the forward K13 / K3, and
+    K14 / K15) are all there."""
+    import importlib
     import re
     from pathlib import Path
-    from deepspeed_tpu_torch.sequence import ring_flash as RF
-    if "ring_flash" not in op_builder.BUILD_LOGS:   # reused from an earlier run: rebuild
-        (op_builder.BUILD_DIR / "libring_flash.so").unlink()
-        op_builder.build(["ring_flash"])
-    log = op_builder.BUILD_LOGS["ring_flash"]
+    module, required = WGMMA_LIBS[lib]
+    info = importlib.import_module(module).kernel_info
+    if lib not in op_builder.BUILD_LOGS:   # reused from an earlier run: rebuild
+        (op_builder.BUILD_DIR / f"lib{lib}.so").unlink()
+        op_builder.build([lib])
+    log = op_builder.BUILD_LOGS[lib]
     if "setmaxnreg ignored" in log:
-        fail("ptxas ignored setmaxnreg in ring_flash.cu")
+        fail(f"ptxas ignored setmaxnreg in {lib}.cu")
 
     def short(mangled):
-        m = re.search(r"(ring_(?:fwd|dq|dkv)_(?:kernel|wgmma))ILi(\d+)E", mangled)
+        m = re.search(r"((?:ring|flash)_(?:fwd|dq|dkv)_(?:kernel|wgmma))ILi(\d+)E", mangled)
         return f"{m.group(1)}<{m.group(2)}>" if m else mangled
 
     rows, name, props = {}, None, None
@@ -2186,7 +2213,7 @@ def ring_build_report(op_builder):
             rows[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
     sass = subprocess.run(
         [str(Path(op_builder.nvcc()).parent / "cuobjdump"), "--dump-sass",
-         str(op_builder.BUILD_DIR / "libring_flash.so")],
+         str(op_builder.BUILD_DIR / f"lib{lib}.so")],
         capture_output=True, text=True, timeout=300)
     if sass.returncode != 0:
         fail(f"cuobjdump exit {sass.returncode}: {sass.stderr.strip()[-500:]}")
@@ -2197,21 +2224,19 @@ def ring_build_report(op_builder):
             rows.setdefault(name, {})["hgmma"] = 0
         elif name and "HGMMA" in ln:
             rows[name]["hgmma"] += 1
-    kinds = {"ring_fwd_kernel": "fwd", "ring_dq_kernel": "dq", "ring_dkv_kernel": "dkv",
-             "ring_dq_wgmma": "dq", "ring_dkv_wgmma": "dkv"}
     bad = {}
     for name, row in rows.items():
         base, d = name.split("<")
-        row.update(RF.kernel_info(kinds[base], int(d.rstrip(">"))))
+        row.update(info(base.split("_")[1], int(d.rstrip(">"))))
         if base.endswith("_wgmma") and (row.get("hgmma", 0) == 0 or row.get("spill_stores")
                                         or row.get("spill_loads")):
             bad[name] = row
     if bad:
         fail(f"{bad} (the wgmma kernels must issue HGMMA and spill nothing)")
-    for base in ("ring_dq_wgmma", "ring_dkv_wgmma"):
+    for base in required:
         for d in (64, 128):
             if f"{base}<{d}>" not in rows:
-                fail(f"{base}<{d}> missing from the ptxas report")
+                fail(f"{base}<{d}> missing from the ptxas report of {lib}")
     return rows
 
 

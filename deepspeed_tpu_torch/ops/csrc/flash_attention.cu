@@ -2,7 +2,8 @@
 // attention of the port.
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/pallas/flash_attention.py:
-//   K3 _fwd_kernel  -> flash_fwd_kernel  (out, and lse = m + log l per row)
+//   K3 _fwd_kernel  -> flash_fwd_wgmma   (out, and lse = m + log l per row;
+//                      the forward of flash_fwd_wgmma.cuh in mode FLASH)
 //   K4 _dq_kernel   -> flash_dq_kernel   (dq from q, k, v, do, lse, delta)
 //   K5 _dkv_kernel  -> flash_dkv_kernel  (dk, dv; GQA groups summed in f32)
 // Semantics, per query row r and key column c of one (batch, head); q comes
@@ -20,24 +21,37 @@
 // What bounds it on this card: at gpt2-xl's training shape (S = 1024,
 // D = 64, causal) the forward's 4 * D flops per visible (q, k) pair and the
 // bytes of q, k, v and out read or written once take about the same least
-// time (~254 flops per byte against the H100's ~295); the backward's 6 * D
-// (dq) and 8 * D (dk, dv) flops per pair make it operation-bound. Inside a
-// block every K/V tile is reused by 64 query rows, so both products of every
-// tile run on the tensor cores (wmma, bf16 in, f32 accumulate), and causal
+// time (~254 flops per byte against the H100's ~295: bytes-bound by a
+// hair, 0.032 ms); the backward's 6 * D (dq) and 8 * D (dk, dv) flops per
+// pair make it operation-bound.
+// The forward is the Hopper design of flash_fwd_wgmma.cuh at every head dim
+// (D 64, 128 and 256): a persistent grid, one block an SM (the 240-register
+// consumers fill the register file), over items of 128 query rows of one
+// (batch, head), longest first; two consumer warpgroups of 64 rows with O in
+// registers and a producer warp that TMA-loads an item's Q and streams K/V
+// tiles of 128 keys (64 at D = 256) through two mbarrier-guarded stages;
+// S = Q K^T and O += bf16(P) V are wgmma products, the softmax one pass in
+// registers that the two warpgroups take in turns. At gpt2-xl's shape an
+// item walks 1-8 key tiles (1,600 items, about 12 a block), so the next
+// item's Q and K/V loads overlap the current item's last products and its
+// epilogue (bf16 out, lse).
+// The backward (K4, K5) is still the first design: wmma products from
+// shared memory, tiles, scores and accumulators in shared memory, K/V by
+// plain 16-byte vector loads; it is the next to take the Hopper design.
+// Inside a block every K/V tile is reused by 64 query rows, and causal
 // and sliding-window tiles that no row of the block can see are skipped,
-// never loaded. This first version keeps tiles, scores and accumulators in
-// shared memory and loads K/V with plain 16-byte vector loads: later work is
-// wgmma with register accumulators and TMA double buffering.
+// never loaded.
 //
 // Layout: q, out, do, dq (B, S, H, D); k, v, dk, dv (B, S, KVH, D), all bf16;
 // lse, delta (B, H, S) f32; seg (B, S) int32 or null; slopes (H,) f32 or null.
-// Forward and dq: one block per (q tile, head, batch). dk/dv: one block per
-// (key tile, kv head, batch) that walks the G = H / KVH query heads of its
-// group, so the group sum happens in the block's f32 accumulators.
+// dq: one block per (q tile, head, batch). dk/dv: one block per (key tile,
+// kv head, batch) that walks the G = H / KVH query heads of its group, so
+// the group sum happens in the block's f32 accumulators.
 
 #include <cstdint>
 
 #include "attention_tiles.cuh"
+#include "flash_fwd_wgmma.cuh"
 
 using namespace attn_tiles;
 
@@ -71,118 +85,6 @@ __device__ __forceinline__ void key_range(const Params& p, int r0, int& lo, int&
   const int nk = (p.S + BK - 1) / BK;
   hi = p.causal ? min(nk, (r0 + BQ - 1) / BK + 1) : nk;
   lo = p.window > 0 ? max(0, r0 - p.window + 1) / BK : 0;
-}
-
-// ------------------------------------------------------------------ forward
-
-// the shared forward layout, then the segment ids of the tile's rows and keys
-template <int D, int BQ, int BK>
-struct FlashFwdSmem : FwdSmem<D, BQ, BK> {
-  static constexpr size_t qseg = FwdSmem<D, BQ, BK>::bytes;
-  static constexpr size_t kseg = qseg + sizeof(int) * BQ;
-  static constexpr size_t bytes = kseg + sizeof(int) * BK;
-};
-
-template <int D, int BQ, int BK>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  using SM = FlashFwdSmem<D, BQ, BK>;
-  using L = Ld<D, BK>;
-  bf16* Qs = reinterpret_cast<bf16*>(smem + SM::q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + SM::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + SM::v);
-  float* Ss = reinterpret_cast<float*>(smem + SM::s);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + SM::p);
-  float* Os = reinterpret_cast<float*>(smem + SM::o);
-  float* row_m = reinterpret_cast<float*>(smem + SM::rows);
-  float* row_l = row_m + BQ;
-  float* row_alpha = row_l + BQ;
-  int* qseg = reinterpret_cast<int*>(smem + SM::qseg);
-  int* kseg = reinterpret_cast<int*>(smem + SM::kseg);
-
-  const int r0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (p.H / p.KVH);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const float slope = p.slopes != nullptr ? p.slopes[h] : 0.f;
-  const size_t qstride = static_cast<size_t>(p.H) * D, kstride = static_cast<size_t>(p.KVH) * D;
-  const bf16* qb = p.q + (static_cast<size_t>(b) * p.S * p.H + h) * D;
-  const bf16* kb = p.k + (static_cast<size_t>(b) * p.S * p.KVH + kh) * D;
-  const bf16* vb = p.v + (static_cast<size_t>(b) * p.S * p.KVH + kh) * D;
-  const int* segb = p.seg != nullptr ? p.seg + static_cast<size_t>(b) * p.S : nullptr;
-
-  load_rows<D>(Qs, L::T, qb, qstride, r0, BQ, p.S);
-  load_seg(qseg, segb, r0, BQ, p.S);
-  for (int i = tid; i < BQ; i += NTHREADS) {
-    row_m[i] = -INFINITY;
-    row_l[i] = 0.f;
-  }
-  for (int e = tid; e < BQ * D; e += NTHREADS) Os[(e / D) * L::O + e % D] = 0.f;
-  int lo, hi;
-  key_range<BQ, BK>(p, r0, lo, hi);
-
-  for (int j = lo; j < hi; ++j) {
-    const int c0 = j * BK;
-    __syncthreads();  // the previous tile's readers are done with K, V, P
-    load_rows<D>(Ks, L::T, kb, kstride, c0, BK, p.S);
-    load_rows<D>(Vs, L::T, vb, kstride, c0, BK, p.S);
-    load_seg(kseg, segb, c0, BK, p.S);
-    __syncthreads();
-    gemm_nt<BQ, BK, D>(Ss, L::S, Qs, L::T, Ks, L::T);
-    __syncthreads();
-    // one warp per row: bias, mask, online-softmax update
-    for (int i = warp; i < BQ; i += NWARPS) {
-      const int row = r0 + i;
-      float mx = -INFINITY;
-      for (int c = lane; c < BK; c += 32) {
-        const int col = c0 + c;
-        float x = Ss[i * L::S + c];
-        if (p.slopes != nullptr) x += slope * static_cast<float>(col - row);
-        x = visible(p, row, col, qseg[i], kseg[c]) ? x : -INFINITY;
-        Ss[i * L::S + c] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = warp_max(mx);
-      const float m_old = row_m[i];
-      const float m_new = fmaxf(m_old, mx);
-      // nothing visible yet: keep the (zero) state as it is
-      const float alpha = m_new == -INFINITY ? 1.f : expf(m_old - m_new);
-      float sum = 0.f;
-      for (int c = lane; c < BK; c += 32) {
-        const float x = Ss[i * L::S + c];
-        const float pj = x == -INFINITY ? 0.f : expf(x - m_new);
-        Ps[i * L::P + c] = __float2bfloat16(pj);
-        sum += pj;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        row_m[i] = m_new;
-        row_l[i] = row_l[i] * alpha + sum;
-        row_alpha[i] = alpha;
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < BQ * D; e += NTHREADS) Os[(e / D) * L::O + e % D] *= row_alpha[e / D];
-    __syncthreads();
-    gemm_nn_acc<BQ, D, BK>(Os, L::O, Ps, L::P, Vs, L::T);
-  }
-  __syncthreads();
-
-  for (int e = tid; e < BQ * D; e += NTHREADS) {
-    const int i = e / D, d = e % D, r = r0 + i;
-    if (r >= p.S) continue;
-    const float l = row_l[i];
-    const float o = l > 0.f ? Os[i * L::O + d] / l : 0.f;
-    p.out[(static_cast<size_t>(b) * p.S + r) * qstride + static_cast<size_t>(h) * D + d] =
-        __float2bfloat16(o);
-  }
-  for (int i = tid; i < BQ; i += NTHREADS) {
-    const int r = r0 + i;
-    if (r >= p.S) continue;
-    // a row with no visible key (none in practice: every row sees itself)
-    // gets +inf, so the backward's exp(s - lse) is 0 there
-    p.lse_out[(static_cast<size_t>(b) * p.H + h) * p.S + r] =
-        row_l[i] > 0.f ? row_m[i] + logf(row_l[i]) : INFINITY;
-  }
 }
 
 // ----------------------------------------------------------------------- dq
@@ -370,6 +272,36 @@ __global__ void __launch_bounds__(NTHREADS) flash_dkv_kernel(const Params p) {
   }
 }
 
+// K3 at D 64, 128 and 256: the forward of flash_fwd_wgmma.cuh from an empty state
+template <int D>
+__global__ void __launch_bounds__(hopper::WG_THREADS, 1)
+    flash_fwd_wgmma(const flash_fwd::Params p, const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv) {
+  flash_fwd::forward<D, flash_fwd::FLASH>(p, &tq, &tk, &tv);
+}
+
+// the forward's view of contiguous (B, S, heads, D) tensors at offset 0
+flash_fwd::Params fwd_params(const Params& p, int D) {
+  flash_fwd::Params f = {};
+  f.q = p.q;
+  f.k = p.k;
+  f.v = p.v;
+  f.slopes = p.slopes;
+  f.qseg = f.kseg = p.seg;
+  f.out = p.out;
+  f.lse_out = p.lse_out;
+  f.qsr = static_cast<long long>(p.H) * D;
+  f.ksr = f.vsr = static_cast<long long>(p.KVH) * D;
+  f.qsb = f.qsr * p.S;
+  f.ksb = f.vsb = f.ksr * p.S;
+  f.Sq = f.Sk = p.S;
+  f.H = p.H;
+  f.KVH = p.KVH;
+  f.window = p.window;
+  f.causal = p.causal;
+  return f;
+}
+
 // ------------------------------------------------------------------ launch
 
 // tile sizes per head dim: 64-row tiles, 32 for D = 256 (shared memory)
@@ -383,8 +315,7 @@ cudaError_t launch(Kind kind, const Params& p, int B, cudaStream_t stream) {
   constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
   switch (kind) {
     case FWD:
-      return launch_kernel(flash_fwd_kernel<D, BQ, BK>, FlashFwdSmem<D, BQ, BK>::bytes,
-                           dim3((p.S + BQ - 1) / BQ, p.H, B), p, stream);
+      return flash_fwd::launch<D>(flash_fwd_wgmma<D>, fwd_params(p, D), B, stream);
     case DQ:
       return launch_kernel(flash_dq_kernel<D, BQ, BK>, DqSmem<D, BQ, BK>::bytes,
                            dim3((p.S + BQ - 1) / BQ, p.H, B), p, stream);
@@ -393,6 +324,25 @@ cudaError_t launch(Kind kind, const Params& p, int B, cudaStream_t stream) {
                            dim3((p.S + BK - 1) / BK, p.KVH, B), p, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+// what launch<D> runs for `kind`: info[0] 1 for the wgmma kernel, 0 for the
+// wmma ones; info[1] the dynamic shared memory of a block, bytes; info[2]
+// the threads of a block
+template <int D>
+void kernel_info(Kind kind, int* info) {
+  constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
+  info[0] = 0;
+  info[2] = NTHREADS;
+  switch (kind) {
+    case FWD:
+      info[0] = 1;
+      info[1] = static_cast<int>(flash_fwd::Layout<D>::bytes);
+      info[2] = hopper::WG_THREADS;
+      return;
+    case DQ: info[1] = static_cast<int>(DqSmem<D, BQ, BK>::bytes); return;
+    case DKV: info[1] = static_cast<int>(DkvSmem<D, BQ, BK>::bytes); return;
+  }
 }
 
 cudaError_t dispatch(Kind kind, const Params& p, int B, int D, void* stream) {
@@ -457,4 +407,17 @@ extern "C" int ds_flash_dkv(const void* q, const void* k, const void* v, const v
   p.dk = static_cast<bf16*>(dk);
   p.dv = static_cast<bf16*>(dv);
   return dispatch(DKV, p, B, D, stream);
+}
+
+// The kernel ds_flash_fwd (kind 0), ds_flash_dq (1) or ds_flash_dkv (2)
+// launches at head dim D, as kernel_info describes it; cudaErrorInvalidValue
+// for a kind or head dim without one.
+extern "C" int ds_flash_kernel_info(int kind, int D, int* info) {
+  if (kind < FWD || kind > DKV) return cudaErrorInvalidValue;
+  switch (D) {
+    case 64: kernel_info<64>(static_cast<Kind>(kind), info); return cudaSuccess;
+    case 128: kernel_info<128>(static_cast<Kind>(kind), info); return cudaSuccess;
+    case 256: kernel_info<256>(static_cast<Kind>(kind), info); return cudaSuccess;
+    default: return cudaErrorInvalidValue;
+  }
 }

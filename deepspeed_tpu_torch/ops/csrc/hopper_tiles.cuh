@@ -3,10 +3,10 @@
 // accumulators in registers, and register reallocation between warpgroups.
 // Raw PTX, no CUTLASS. Used by ring_flash.cu's ring_dq_wgmma (K14, for
 // deepspeed_tpu/sequence/ring_flash.py _ring_dq_kernel) and ring_dkv_wgmma
-// (K15, for _ring_dkv_kernel), which are operation-bound at the ring's shard
-// shapes; the other attention kernels (K13 in ring_flash.cu, K3-K5 in
-// flash_attention.cu, sparse_flash.cu, evoformer_flash.cu) can take the
-// same design. The kernel layout they serve: consumer warpgroups of 64 rows
+// (K15, for _ring_dkv_kernel), and by the forward of flash_fwd_wgmma.cuh
+// (K13 in ring_flash.cu, K3 in flash_attention.cu); the other attention
+// kernels (K4, K5 in flash_attention.cu, sparse_flash.cu, evoformer_flash.cu)
+// can take the same design. The kernel layout they serve: consumer warpgroups of 64 rows
 // whose f32 accumulators live in registers (setmaxnreg raises a consumer to
 // 240 registers a thread, enough for three or four 64 x 128 f32 tiles, and
 // drops the producer to 24), and one producer warp feeding a ring of
@@ -212,6 +212,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// named barrier `id` (1-15; 0 is __syncthreads) of THREADS threads: wait
+// until they have all arrived, or arrive without waiting
+template <int THREADS>
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(THREADS) : "memory");
+}
+template <int THREADS>
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(THREADS) : "memory");
+}
+
 // -------------------------------------------------------------------- TMA
 
 // one box of a 4-D tensor map into shared memory, completing on `bar`
@@ -234,6 +245,48 @@ __device__ __forceinline__ void regs_inc() {
 template <int N>
 __device__ __forceinline__ void regs_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ------------------------------------------------------- the block layout
+//
+// Three warpgroups a block: two consumers of 64 rows each and a producer, of
+// which one warp issues the TMA loads; the producer gives its registers to
+// the consumers. Stages are guarded by a full barrier (32 producer arrivals
+// plus the TMA bytes) and an empty one (every consumer thread arrives once
+// it is done with the stage).
+
+constexpr int WG = 128;                         // threads of a warpgroup
+constexpr int CONSUMERS = 2;                    // consumer warpgroups
+constexpr int WG_THREADS = (CONSUMERS + 1) * WG;
+constexpr int WG_ROWS = 64;                     // a consumer's rows (wgmma M)
+constexpr int STAGES = 2;
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// the first 1024-byte aligned byte of dynamic shared memory, as an offset
+// from the array so that the compiler keeps it a shared-memory pointer
+__device__ __forceinline__ unsigned char* align1024(unsigned char* smem) {
+  return smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+}
+
+// the stage ring's position: stage s in its phase of parity `phase`
+struct Ring {
+  int s = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++s == STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// D / 64 column blocks of `rows` rows of one head into a swizzled tile
+template <int D>
+__device__ __forceinline__ void tma_rows(__nv_bfloat16* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int rows, int head, int row0, int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) tma_load_4d(dst + c * rows * 64, map, bar, c * 64, head, row0, b);
 }
 
 // ------------------------------------------------------------------- host

@@ -2,7 +2,8 @@
 // the training attention of the port's sequence-parallel path.
 //
 // Replaces the TPU kernels of deepspeed_tpu/sequence/ring_flash.py:
-//   K13 _ring_fwd_kernel -> ring_fwd_kernel (fold one K/V shard into the carry)
+//   K13 _ring_fwd_kernel -> ring_fwd_wgmma  (fold one K/V shard into the carry;
+//                           the forward of flash_fwd_wgmma.cuh in mode RING)
 //   K14 _ring_dq_kernel  -> ring_dq_wgmma   (dq of one step, added into the f32
 //                           accumulator; ring_dq_kernel at D = 256)
 //   K15 _ring_dkv_kernel -> ring_dkv_wgmma  (dk, dv of one step, GQA group summed,
@@ -33,16 +34,25 @@
 // What bounds it on this card: at qwen2-7b's shard shapes (Sq = Sk = 8192,
 // H = 28, KVH = 4, D = 128) each step does 4 D (forward), 6 D (dq) and 8 D
 // (dk, dv) flops per visible (q, k) pair against ~0.3 GB of bytes, so all
-// three are operation-bound: 1.46 ms (dq) and 1.95 ms (dk, dv) at the
-// card's 989 TFLOP/s for a full step.
+// three are operation-bound: 0.97 ms (forward), 1.46 ms (dq) and 1.95 ms
+// (dk, dv) at the card's 989 TFLOP/s for a full step.
 //
-// K14 and K15 at D = 64 and 128 are built for that (hopper_tiles.cuh):
-// three warpgroups a block, two consumers of 64 rows each and a producer
-// whose one warp streams tiles by TMA through a ring of two stages guarded
-// by mbarriers; setmaxnreg gives the consumers 240 registers a thread and
-// the producer 24. Every product is a wgmma with its f32 accumulator in
-// registers, and p and ds go from the score accumulators into the next
-// product's A operand without leaving registers.
+// All three are built for that on hopper_tiles.cuh: three warpgroups a
+// block, two consumers of 64 rows each and a producer whose one warp streams
+// tiles by TMA through a ring of two stages guarded by mbarriers;
+// setmaxnreg gives the consumers 240 registers a thread and the producer 24.
+// Every product is a wgmma with its f32 accumulator in registers, and p and
+// ds go from the score accumulators into the next product's A operand
+// without leaving registers.
+//   K13 (ring_fwd_wgmma, flash_fwd_wgmma.cuh): a persistent grid, one
+//   block an SM, over items of 128 query rows of one head, longest first;
+//   Q loaded once an item, K/V tiles of 128 keys (64 at D = 256) stream; per
+//   tile S = Q K^T, one element pass (online max and sum, alpha; the two
+//   warpgroups take turns in it) and O += bf16(P) V, O in registers for the
+//   whole loop. The carry m (natural log), l and acc is read into registers
+//   at an item's start and written back at its end; items that see no key
+//   are skipped. Registers at D = 128: O 64, S 64, P 32 a thread; at D =
+//   256 O 128, S 32, P 16.
 //   K14 (ring_dq_wgmma): one block per (128 query rows, head, batch), last
 //   query tiles first (they see the most keys of a diagonal step). Q and dO
 //   are loaded once; K/V tiles of 128 keys stream. Per tile a consumer runs
@@ -67,52 +77,57 @@
 // end: it owns those rows, so there are no atomics and the summation order
 // is fixed (the same bits on every run and across the four-card ring).
 // D = 256: the f32 accumulators of K15 do not fit in registers; that head
-// dim keeps the wmma kernels (ring_dq_kernel, ring_dkv_kernel), chosen by
-// head dim in launch(). K13 is the wmma design at every head dim, from
-// shared memory as in flash_attention.cu.
+// dim keeps the wmma backward kernels (ring_dq_kernel, ring_dkv_kernel),
+// chosen by head dim in launch(). The forward's O (128 registers) and S at
+// 64-key tiles fit, so K13 is the wgmma kernel at every head dim.
 //
 // Layout: q, do (B, Sq, H, D) and k, v (B, Sk, KVH, D) bf16, read in place
 // through batch and row strides (D contiguous, heads D apart; the wgmma
 // kernels through one TMA tensor map each, built on the host from those
 // strides); m, l, lse, delta (B, H, Sq) f32; acc, dq (B, Sq, H, D) f32;
 // dk, dv (B, Sk, KVH, D) f32; qseg (B, Sq) and kseg (B, Sk) int32 or null;
-// slopes (H,) f32 or null. The wmma kernels: forward and dq one block per
-// (q tile, head, batch); dk/dv one block per (key tile, kv head, batch)
-// that walks the G = H / KVH query heads of its group (any G, 7 for
-// qwen2), so the group sum happens in the block's f32 accumulators.
+// slopes (H,) f32 or null. The wmma kernels: dq one block per (q tile,
+// head, batch); dk/dv one block per (key tile, kv head, batch) that walks
+// the G = H / KVH query heads of its group (any G, 7 for qwen2), so the
+// group sum happens in the block's f32 accumulators.
 
 #include <cstdint>
 #include <type_traits>
 
 #include "attention_tiles.cuh"
-#include "hopper_tiles.cuh"
+#include "flash_fwd_wgmma.cuh"
 
 using namespace attn_tiles;
+using flash_fwd::row_index;
+using hopper::CONSUMER_REGS;
+using hopper::CONSUMERS;
+using hopper::LOG2E;
+using hopper::PRODUCER_REGS;
+using hopper::Ring;
+using hopper::STAGES;
+using hopper::WG;
+using hopper::WG_ROWS;
+using hopper::WG_THREADS;
+using hopper::align1024;
+using hopper::tma_rows;
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;  // the TPU carry's "no key yet" max
-
-struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;    // backward
-  const float* lse;    // backward
-  const float* delta;  // backward
-  const float* slopes;
-  const int* qseg;
-  const int* kseg;
-  float* m;            // forward carry
-  float* l;
-  float* acc;
+// the forward's fields (q, k, v, masks, the carry m, l, acc, strides, shapes;
+// causal always 1), then the backward's
+struct Params : flash_fwd::Params {
+  const bf16* dout;
+  const float* lse;
+  const float* delta;
   float* dq;           // backward accumulators
   float* dk;
   float* dv;
-  long long qsb, qsr, ksb, ksr, vsb, vsr, dsb, dsr;  // batch and row strides, elements
-  int Sq, Sk, H, KVH, q_off, k_off, window;
+  long long dsb, dsr;  // batch and row strides of dout, elements
 };
 
+// The backward's masks: the forward's (flash_fwd_wgmma.cuh) with the ring's
+// causal mask fixed. The forward's take a causal flag, whose tests made K14
+// and K15 about 4 % slower on the card, so the backward keeps its own.
 __device__ __forceinline__ bool visible(const Params& p, int r, int c, int qs, int ks) {
   const int row = p.q_off + r, col = p.k_off + c;
   return r < p.Sq && c < p.Sk && row >= col && (p.window <= 0 || row - col < p.window) &&
@@ -152,93 +167,6 @@ __device__ __forceinline__ void query_range(const Params& p, int c0, int& lo, in
   if (p.window > 0) {                                             // row < col + window
     const int r_last = p.k_off + min(c0 + BK, p.Sk) - 1 + p.window - 1 - p.q_off;
     hi = r_last < 0 ? 0 : min(nq, r_last / BQ + 1);
-  }
-}
-
-__device__ __forceinline__ size_t acc_index(int b, int r, int h, int S, int H, int D) {
-  return ((static_cast<size_t>(b) * S + r) * H + h) * D;
-}
-
-// ------------------------------------------------------------------ forward
-
-template <int D, int BQ, int BK>
-struct RingFwdSmem : FwdSmem<D, BQ, BK> {
-  static constexpr size_t qseg = FwdSmem<D, BQ, BK>::bytes;
-  static constexpr size_t kseg = qseg + sizeof(int) * BQ;
-  static constexpr size_t bytes = kseg + sizeof(int) * BK;
-};
-
-template <int D, int BQ, int BK>
-__global__ void __launch_bounds__(NTHREADS) ring_fwd_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  using SM = RingFwdSmem<D, BQ, BK>;
-  using L = Ld<D, BK>;
-  bf16* Qs = reinterpret_cast<bf16*>(smem + SM::q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + SM::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + SM::v);
-  float* Ss = reinterpret_cast<float*>(smem + SM::s);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + SM::p);
-  float* Os = reinterpret_cast<float*>(smem + SM::o);
-  float* row_m = reinterpret_cast<float*>(smem + SM::rows);
-  float* row_l = row_m + BQ;
-  float* row_alpha = row_l + BQ;
-  int* qseg = reinterpret_cast<int*>(smem + SM::qseg);
-  int* kseg = reinterpret_cast<int*>(smem + SM::kseg);
-
-  const int r0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  int lo, hi;
-  key_range<BQ, BK>(p, r0, lo, hi);
-  if (lo >= hi) return;  // no row sees this shard: the carry stays as it is
-
-  const int kh = h / (p.H / p.KVH);
-  const int tid = threadIdx.x;
-  const float slope = p.slopes != nullptr ? p.slopes[h] : 0.f;
-  const bf16* qb = p.q + b * p.qsb + static_cast<size_t>(h) * D;
-  const bf16* kb = p.k + b * p.ksb + static_cast<size_t>(kh) * D;
-  const bf16* vb = p.v + b * p.vsb + static_cast<size_t>(kh) * D;
-  const int* qsegb = p.qseg != nullptr ? p.qseg + static_cast<size_t>(b) * p.Sq : nullptr;
-  const int* ksegb = p.kseg != nullptr ? p.kseg + static_cast<size_t>(b) * p.Sk : nullptr;
-  const size_t roff = (static_cast<size_t>(b) * p.H + h) * p.Sq;
-
-  load_rows<D>(Qs, L::T, qb, p.qsr, r0, BQ, p.Sq);
-  load_seg(qseg, qsegb, r0, BQ, p.Sq);
-  for (int i = tid; i < BQ; i += NTHREADS) {
-    const bool in = r0 + i < p.Sq;
-    row_m[i] = in ? p.m[roff + r0 + i] : NEG_INF;
-    row_l[i] = in ? p.l[roff + r0 + i] : 0.f;
-  }
-  for (int e = tid; e < BQ * D; e += NTHREADS) {
-    const int i = e / D, d = e % D;
-    Os[i * L::O + d] = r0 + i < p.Sq ? p.acc[acc_index(b, r0 + i, h, p.Sq, p.H, D) + d] : 0.f;
-  }
-
-  for (int j = lo; j < hi; ++j) {
-    const int c0 = j * BK;
-    __syncthreads();  // the previous tile's readers are done with K, V, P
-    load_rows<D>(Ks, L::T, kb, p.ksr, c0, BK, p.Sk);
-    load_rows<D>(Vs, L::T, vb, p.vsr, c0, BK, p.Sk);
-    load_seg(kseg, ksegb, c0, BK, p.Sk);
-    __syncthreads();
-    gemm_nt<BQ, BK, D>(Ss, L::S, Qs, L::T, Ks, L::T);
-    __syncthreads();
-    const bool masked = tile_masked<BQ, BK>(p, r0, c0);
-    online_softmax_step<D, BQ, BK>(Ss, Ps, Os, Vs, row_m, row_l, row_alpha,
-                                   [&](int i, int c, float x) {
-      const int r = r0 + i, col = c0 + c;
-      if (p.slopes != nullptr)
-        x += slope * static_cast<float>((p.k_off + col) - (p.q_off + r));
-      return (!masked || visible(p, r, col, qseg[i], kseg[c])) ? x : -INFINITY;
-    });
-  }
-
-  for (int e = tid; e < BQ * D; e += NTHREADS) {
-    const int i = e / D, d = e % D;
-    if (r0 + i < p.Sq) p.acc[acc_index(b, r0 + i, h, p.Sq, p.H, D) + d] = Os[i * L::O + d];
-  }
-  for (int i = tid; i < BQ; i += NTHREADS) {
-    if (r0 + i >= p.Sq) continue;
-    p.m[roff + r0 + i] = row_m[i];
-    p.l[roff + r0 + i] = row_l[i];
   }
 }
 
@@ -301,7 +229,7 @@ __global__ void __launch_bounds__(NTHREADS) ring_dq_kernel(const Params p) {
   load_seg(qseg, qsegb, r0, BQ, p.Sq);
   for (int e = tid; e < BQ * D; e += NTHREADS) {
     const int i = e / D, d = e % D;
-    dQs[i * L::O + d] = r0 + i < p.Sq ? p.dq[acc_index(b, r0 + i, h, p.Sq, p.H, D) + d] : 0.f;
+    dQs[i * L::O + d] = r0 + i < p.Sq ? p.dq[row_index(b, r0 + i, h, p.Sq, p.H, D) + d] : 0.f;
   }
 
   for (int j = lo; j < hi; ++j) {
@@ -329,7 +257,7 @@ __global__ void __launch_bounds__(NTHREADS) ring_dq_kernel(const Params p) {
   __syncthreads();
   for (int e = tid; e < BQ * D; e += NTHREADS) {
     const int i = e / D, d = e % D;
-    if (r0 + i < p.Sq) p.dq[acc_index(b, r0 + i, h, p.Sq, p.H, D) + d] = dQs[i * L::O + d];
+    if (r0 + i < p.Sq) p.dq[row_index(b, r0 + i, h, p.Sq, p.H, D) + d] = dQs[i * L::O + d];
   }
 }
 
@@ -390,7 +318,7 @@ __global__ void __launch_bounds__(NTHREADS) ring_dkv_kernel(const Params p) {
   for (int e = tid; e < BK * D; e += NTHREADS) {
     const int i = e / D, d = e % D;
     const bool in = c0 + i < p.Sk;
-    const size_t off = acc_index(b, c0 + i, kh, p.Sk, p.KVH, D) + d;
+    const size_t off = row_index(b, c0 + i, kh, p.Sk, p.KVH, D) + d;
     dKs[i * L::O + d] = in ? p.dk[off] : 0.f;
     dVs[i * L::O + d] = in ? p.dv[off] : 0.f;
   }
@@ -432,7 +360,7 @@ __global__ void __launch_bounds__(NTHREADS) ring_dkv_kernel(const Params p) {
   for (int e = tid; e < BK * D; e += NTHREADS) {
     const int i = e / D, d = e % D;
     if (c0 + i >= p.Sk) continue;
-    const size_t off = acc_index(b, c0 + i, kh, p.Sk, p.KVH, D) + d;
+    const size_t off = row_index(b, c0 + i, kh, p.Sk, p.KVH, D) + d;
     p.dk[off] = dKs[i * L::O + d];
     p.dv[off] = dVs[i * L::O + d];
   }
@@ -448,20 +376,6 @@ __global__ void __launch_bounds__(NTHREADS) ring_dkv_kernel(const Params p) {
 // with the stage). Products are wgmma m64nNk16 with f32 accumulators in
 // registers; P and dS become the A operand of the second product without
 // leaving registers (hopper::a_fragment).
-
-constexpr int WG = 128;                         // threads of a warpgroup
-constexpr int CONSUMERS = 2;                    // consumer warpgroups
-constexpr int WG_THREADS = (CONSUMERS + 1) * WG;
-constexpr int WG_ROWS = 64;                     // a consumer's rows (wgmma M)
-constexpr int STAGES = 2;
-constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
-constexpr float LOG2E = 1.4426950408889634f;
-
-// the first 1024-byte aligned byte of dynamic shared memory, as an offset
-// from the array so that the compiler keeps it a shared-memory pointer
-__device__ __forceinline__ unsigned char* align1024(unsigned char* smem) {
-  return smem + ((1024 - (hopper::smem_addr(smem) & 1023)) & 1023);
-}
 
 // K14: the block's Q and dO (BQ rows), then a ring of K/V stages with the
 // key tile's segment ids. Every tile offset is a multiple of 1024 bytes.
@@ -490,27 +404,6 @@ struct DkvLayout {
   static constexpr size_t bars = rows + STAGES * 3 * BQ * sizeof(float);
   static constexpr size_t bytes = bars + (2 * STAGES + 1) * sizeof(uint64_t) + 1024;
 };
-
-// the stage ring's position: stage s in its phase of parity `phase`
-struct Ring {
-  int s = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void next() {
-    if (++s == STAGES) {
-      s = 0;
-      phase ^= 1;
-    }
-  }
-};
-
-// D / 64 column blocks of `rows` rows of one head into a swizzled tile
-template <int D>
-__device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int rows, int head, int row0, int b) {
-#pragma unroll
-  for (int c = 0; c < D / 64; ++c)
-    hopper::tma_load_4d(dst + c * rows * 64, map, bar, c * 64, head, row0, b);
-}
 
 template <int D>
 __global__ void __launch_bounds__(WG_THREADS, 1)
@@ -685,7 +578,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       for (int i = 0; i < D / 2; i += 2) {
         const int r = ra + 8 * ((i / 2) % 2), d = 8 * (i / 4) + 2 * (lane % 4);
         if (r >= p.Sq) continue;
-        float2* out = reinterpret_cast<float2*>(p.dq + acc_index(b, r, h, p.Sq, p.H, D) + d);
+        float2* out = reinterpret_cast<float2*>(p.dq + row_index(b, r, h, p.Sq, p.H, D) + d);
         float2 cur = *out;
         cur.x += dq[i];
         cur.y += dq[i + 1];
@@ -894,7 +787,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       for (int i = 0; i < D / 2; i += 2) {
         const int c = ka + 8 * ((i / 2) % 2), d = 8 * (i / 4) + 2 * (lane % 4);
         if (c >= p.Sk) continue;
-        const size_t off = acc_index(b, c, kh, p.Sk, p.KVH, D) + d;
+        const size_t off = row_index(b, c, kh, p.Sk, p.KVH, D) + d;
         float2* ok = reinterpret_cast<float2*>(p.dk + off);
         float2* ov = reinterpret_cast<float2*>(p.dv + off);
         float2 ck = *ok, cv = *ov;
@@ -907,6 +800,14 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       }
     }
   }
+}
+
+// K13 at D 64, 128 and 256: the forward of flash_fwd_wgmma.cuh on the carry
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    ring_fwd_wgmma(const flash_fwd::Params p, const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv) {
+  flash_fwd::forward<D, flash_fwd::RING>(p, &tq, &tk, &tv);
 }
 
 // the four tensor maps of q, k, v, do for blocks of q_rows query rows and
@@ -942,8 +843,7 @@ cudaError_t launch(Kind kind, const Params& p, int B, cudaStream_t stream) {
   constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
   switch (kind) {
     case FWD:
-      return launch_kernel(ring_fwd_kernel<D, BQ, BK>, RingFwdSmem<D, BQ, BK>::bytes,
-                           dim3((p.Sq + BQ - 1) / BQ, p.H, B), p, stream);
+      return flash_fwd::launch<D>(ring_fwd_wgmma<D>, p, B, stream);
     case DQ:
       if constexpr (D <= 128) {
         using SM = DqLayout<D>;
@@ -989,7 +889,9 @@ void kernel_info(Kind kind, int* info) {
   info[2] = NTHREADS;
   switch (kind) {
     case FWD:
-      info[1] = static_cast<int>(RingFwdSmem<D, BQ, BK>::bytes);
+      info[0] = 1;
+      info[1] = static_cast<int>(flash_fwd::Layout<D>::bytes);
+      info[2] = WG_THREADS;
       return;
     case DQ:
       if constexpr (D <= 128) {
@@ -1038,6 +940,7 @@ Params make_params(const void* q, const void* k, const void* v, const void* slop
   p.q_off = q_off;
   p.k_off = k_off;
   p.window = window;
+  p.causal = 1;
   return p;
 }
 

@@ -11,7 +11,9 @@ f32, then cast.
 
 Three wrappers, one per kernel, take the tensors' device as the choice of
 implementation: on CUDA tensors they launch the hand-written Hopper kernels
-(``csrc/flash_attention.cu``) or raise; on CPU tensors they run the plain
+(``csrc/flash_attention.cu``; K3 is a wgmma kernel on
+``csrc/flash_fwd_wgmma.cuh`` at every head dim, K4 and K5 wmma ones,
+``kernel_info`` says which) or raise; on CPU tensors they run the plain
 versions ``flash_attention_fwd_plain`` / ``flash_attention_bwd_plain``
 (dense f32 math of the same function), which the CPU tests and the card's
 comparisons use. Unlike the TPU kernels they take any S >= 1: the tail tile
@@ -232,6 +234,24 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal=True, segment_ids=Non
 
 for _f in (flash_attention_fwd, flash_attention_dq, flash_attention_dkv):
     _f.launches = 0
+
+_KINDS = {"fwd": 0, "dq": 1, "dkv": 2}
+
+
+def kernel_info(kind, d):
+    """The CUDA kernel that the ``kind`` ("fwd", "dq" or "dkv") wrapper
+    launches at head dim ``d``, as the built library reports it: its
+    ``variant`` ("wgmma" for the Hopper forward, "wmma" for dq and dk/dv),
+    ``smem_bytes`` (dynamic shared memory a block) and ``threads`` a block.
+    Builds the library if needed."""
+    info = (ctypes.c_int * 3)()
+    fn = op_builder.load("flash_attention").ds_flash_kernel_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if fn(_KINDS[kind], int(d), info) != 0:
+        raise ValueError(f"flash attention: no {kind} kernel at head dim {d}")
+    return {"variant": "wgmma" if info[0] else "wmma", "smem_bytes": info[1],
+            "threads": info[2]}
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -24,8 +24,10 @@ one rank of a ring over ``seq`` cards would launch.
 
 Three wrappers, one per kernel, take the tensors' device as the choice of
 implementation: on CUDA tensors they launch the hand-written Hopper kernels
-(``ops/csrc/ring_flash.cu``; K14 and K15 are wgmma kernels at head dims 64
-and 128 and wmma ones at 256, ``kernel_info`` says which) or raise; on CPU tensors they run the plain
+(``ops/csrc/ring_flash.cu``; K13 is a wgmma kernel on
+``ops/csrc/flash_fwd_wgmma.cuh`` at every head dim, K14 and K15 are wgmma
+kernels at head dims 64 and 128 and wmma ones at 256, ``kernel_info`` says
+which) or raise; on CPU tensors they run the plain
 versions ``ring_fwd_step_plain`` / ``ring_bwd_step_plain`` (dense f32 math
 of one ring step with the same masks). Every kernel and plain version
 updates its f32 outputs in place: the forward carry, and the dq, dk and dv
@@ -335,8 +337,8 @@ _KINDS = {"fwd": 0, "dq": 1, "dkv": 2}
 def kernel_info(kind, d):
     """The CUDA kernel that the ``kind`` ("fwd", "dq" or "dkv") wrapper
     launches at head dim ``d``, as the built library reports it: its
-    ``variant`` ("wgmma" for the Hopper dq and dk/dv kernels at D 64 and 128,
-    "wmma" otherwise), ``smem_bytes`` (dynamic shared memory a block) and
+    ``variant`` ("wgmma" for the Hopper forward, and for dq and dk/dv at D 64
+    and 128; "wmma" otherwise), ``smem_bytes`` (dynamic shared memory a block) and
     ``threads`` a block. Builds the library if needed."""
     info = (ctypes.c_int * 3)()
     fn = op_builder.load("ring_flash").ds_ring_kernel_info

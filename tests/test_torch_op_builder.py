@@ -64,9 +64,13 @@ def test_include_cycle_terminates(tree):
 
 
 def test_every_source_header_is_found_in_the_real_tree():
-    """ring_flash.cu reaches both shared headers; the wgmma one is named."""
-    found = {p.name for p in op_builder._headers(op_builder.CSRC / "ring_flash.cu", set())}
-    assert found == {"attention_tiles.cuh", "hopper_tiles.cuh"}
+    """ring_flash.cu and flash_attention.cu reach the same three shared
+    headers: the forward mainloop includes the wgmma primitives, so editing
+    either rebuilds both libraries."""
+    want = {"attention_tiles.cuh", "flash_fwd_wgmma.cuh", "hopper_tiles.cuh"}
+    for src in ("ring_flash.cu", "flash_attention.cu"):
+        found = {p.name for p in op_builder._headers(op_builder.CSRC / src, set())}
+        assert found == want, src
 
 
 def test_nvcc_flags_target_hopper_with_wgmma():
