@@ -12,13 +12,15 @@ meet the card in the same states: the tree's own
 at qwen2-7b's shard shapes beside SDPA) and ``chip_smoke.ring_train_path``
 (phase 24: qwen2-7b at full width, 4 layers, one 32768-token sequence a
 step over 4 shards, then its step profile); then the flash forward (K3) at
-gpt2-xl's training shape beside SDPA's forward, timed by the same code in
-both trees (the ``train_kernel_time`` row of phase 9), and the tree's own
+gpt2-xl's training shape beside SDPA's forward and the flash backward (K4,
+K5) beside SDPA's autograd backward, timed by the same code in both trees
+(the ``train_kernel_time`` rows of phase 9), and the tree's own
 ``chip_smoke.train_path`` (phase 10: gpt2-xl at full width and depth, then
 its step profile). The children's JSON lines pass through; the last line
-is a summary by tree, in run order: each kernel's ms per step kind, K3's
-ms, and each train step's ms, tokens/s, MFU, peak memory and idle share.
-Exits 1 without a card or when a child fails.
+is a summary by tree, in run order: each kernel's ms per step kind (K3,
+K4, K5: case gpt2xl_causal) with the library call's ms beside it, and
+each train step's ms, tokens/s, MFU, peak memory and idle share. Exits 1
+without a card or when a child fails.
 """
 
 import json
@@ -51,7 +53,24 @@ lib = cs.cuda_ms(torch, lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_
 cs.emit("train_kernel_time", kernel="flash_attention_fwd", case="gpt2xl_causal", ms=ms,
         library_ms=lib, bound_ms=cs.bound(nbytes, flops)[0], bytes=nbytes, flops=flops,
         tflops=flops / ms / 1e9, card=smi)
-del case, q, k, v, kw, qt, kt, vt
+do = case["do"]
+out, lse = FA.flash_attention_fwd(q, k, v, **kw)
+delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+lib = cs.cuda_ms(torch, lambda i: torch.autograd.grad(lib_out, (qg, kg, vg), do.transpose(1, 2),
+                                                      retain_graph=True))
+for name, fn in (("flash_attention_dq",
+                  lambda i: FA.flash_attention_dq(q, k, v, do, lse, delta, **kw)),
+                 ("flash_attention_dkv",
+                  lambda i: FA.flash_attention_dkv(q, k, v, do, lse, delta, **kw))):
+    nbytes, flops = cs.flash_work(case)[name]
+    ms = cs.cuda_ms(torch, fn)
+    cs.emit("train_kernel_time", kernel=name, case="gpt2xl_causal", ms=ms, library_ms=lib,
+            library="autograd backward of F.scaled_dot_product_attention (dq, dk and dv)",
+            bound_ms=cs.bound(nbytes, flops)[0], bytes=nbytes, flops=flops,
+            tflops=flops / ms / 1e9, card=smi)
+del case, q, k, v, kw, qt, kt, vt, do, out, lse, delta, qg, kg, vg, lib_out
 torch.cuda.empty_cache()
 engine, batch, _, ms_step = cs.train_path(torch, smi)
 cs.train_step_profile(torch, engine, batch, ms_step, smi)
@@ -60,10 +79,11 @@ TIMEOUT_S = 1200
 
 
 def summarize(stdout):
-    """A child's summary from its JSON lines: each kernel's ms by case, and
-    each train step's ms, tokens/s, MFU, peak memory, idle share and device
-    ms by class ("ring": qwen2-7b over 4 shards, "gpt2_xl")."""
-    out = {"kernels": {}, "ring": {}, "gpt2_xl": {}}
+    """A child's summary from its JSON lines: each kernel's ms by case and
+    the library call's ms beside it (where the row has one), and each train
+    step's ms, tokens/s, MFU, peak memory, idle share and device ms by class
+    ("ring": qwen2-7b over 4 shards, "gpt2_xl")."""
+    out = {"kernels": {}, "library": {}, "ring": {}, "gpt2_xl": {}}
     for line in stdout.splitlines():
         try:
             row = json.loads(line)
@@ -74,6 +94,8 @@ def summarize(stdout):
                 "train_path": "gpt2_xl", "train_step_profile": "gpt2_xl"}.get(phase)
         if phase in ("ring_kernel_time", "train_kernel_time"):
             out["kernels"].setdefault(row["kernel"], {})[row["case"]] = row["ms"]
+            if row.get("library_ms") is not None:
+                out["library"].setdefault(row["kernel"], {})[row["case"]] = row["library_ms"]
         elif phase in ("ring_train_path", "train_path"):
             out[step].update({k: row[k] for k in ("ms_per_step", "tokens_per_s", "mfu",
                                                   "peak_memory_gb")})

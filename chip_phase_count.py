@@ -1,25 +1,33 @@
 #!/usr/bin/env python3
-"""Where the attention forward's time goes on the card: a clock64 count of
+"""Where the attention kernels' time goes on the card: a clock64 count of
 each phase of the Hopper forward (``ops/csrc/flash_fwd_wgmma.cuh``, K3 and
-K13).
+K13) and backward (``ops/csrc/flash_bwd_wgmma.cuh``, K4 / K5 and K14 / K15).
 
     python3 chip_phase_count.py
 
 Copies the kernel sources into the build directory, adds clock64 counters
-around each phase of the forward's consumer loop and around the producer's
-wait for a free stage, builds the copy (the repository's sources are left
-as they are) and runs K3 at gpt2-xl's training shape (causal and not) and
-at a long non-causal shape, and K13 at qwen2-7b's shard shapes (the
-diagonal step and a full one). Prints one JSON line per case: the clocks
-per warpgroup-tile of each phase, summed over thread 0 of every consumer
+around each phase of the consumer loops and around the producer's wait for
+a free stage, builds the copy (the repository's sources are left as they
+are) and runs K3 at gpt2-xl's training shape (causal and not) and at a long
+non-causal shape, and K13 at qwen2-7b's shard shapes (the diagonal step and
+a full one); then K4 and K5 at gpt2-xl's training shape and K14 and K15 at
+a full qwen2-7b step. Prints one JSON line per case: the clocks per
+warpgroup-tile of each phase, summed over thread 0 of every consumer
 warpgroup (and the producer's lane 0) and divided by the warpgroup-tiles
-counted, then the card's name, power limit and SM clocks. Phases: the
-item's set-up (carry loads, Q wait), the wait for a full stage, S = Q K^T
-(issue to done), the wait for the element pass's turn, the element pass,
-O += P V with its rescale (issue to done), the item's epilogue, and the
-producer's wait for an empty stage. The counters cost a few instructions a
-phase, so the times are a little above the uninstrumented kernel's. Exits
-1 without a card, or if the sources no longer have the text it patches.
+counted, then the card's name, power limit and SM clocks.
+Forward phases: the item's set-up (carry loads, Q wait), the wait for a
+full stage, S = Q K^T (issue to done), the wait for the element pass's
+turn, the element pass, O += P V with its rescale (issue to done), the
+item's epilogue, and the producer's wait for an empty stage.
+Backward phases (dq | dk/dv): the item's set-up (row loads, the Q/dO | K/V
+wait), the wait for a full stage, S = Q K^T | S^T = K Q^T, the pass that
+forms p | P^T, dP = dO V^T over both halves | dP^T = V dO^T with dv +=
+P^T dO, the pass that forms ds | dS^T, dq += ds K | dk += dS^T Q (issue to
+done), the item's epilogue, and the producer's wait for an empty stage. A
+warpgroup-tile is 64 rows by 128 keys (dq) or 64 keys by 64 rows (dk/dv).
+The counters cost a few instructions a phase, so the times are a little
+above the uninstrumented kernel's. Exits 1 without a card, or if the
+sources no longer have the text it patches.
 """
 
 import ctypes
@@ -74,11 +82,127 @@ PATCHES = [
      "      for (int x = 0; x < 8; ++x) atomicAdd(&g_phase[x], pf[x]);\n  }\n}"),
 ]
 
+BWD_PHASES = ["item_setup", "wait_full", "s_product", "wait_turn", "p_pass", "dp_product",
+              "ds_pass", "grad_product", "epilogue", "tiles", "producer_wait_empty"]
+# where flash_bwd_wgmma.cuh's dk/dv mainloop starts: patches name the
+# mainloop ("dq" or "dkv") whose text they change, so that the two loops'
+# like lines are told apart
+BWD_SPLIT = "// dk and dv (K15 / K5)"
+_BWD_END = ("      pf[8] += clock64() - t_e;\n    }\n    turns.finish();\n",
+            "      pf[8] += clock64() - t_e;\n    }\n    turns.finish();\n    if (t == 0)\n"
+            "      for (int x = 0; x < 10; ++x) atomicAdd(&g_bwd[x], pf[x]);\n")
+
+
+def _bwd_common(loop, item_skip, item_wait, indent):
+    """The patches both backward loops take alike: the producer's wait for
+    an empty stage, the consumers' counters, the item's set-up, the wait
+    for a full stage and for the pass's turn, and the pass (``indent``: the
+    pass's indentation in the loop)."""
+    return [
+        (loop, "    StageRing<NS> ring;\n    StageRing<BUFS> buf;\n",
+         "    StageRing<NS> ring;\n    StageRing<BUFS> buf;\n    unsigned long long pp = 0;\n"),
+        (loop, "mbar_wait(&empty[ring.s], ring.phase ^ 1);\n",
+         "long long tp = clock64();\nmbar_wait(&empty[ring.s], ring.phase ^ 1);\n"
+         "pp += clock64() - tp;\n"),
+        (loop, "  } else {  // ---------------------------------------------------- consumers\n",
+         "    if (lane == 0) atomicAdd(&g_bwd[10], pp);\n"
+         "  } else {  // ---------------------------------------------------- consumers\n"
+         "    unsigned long long pf[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};\n"),
+        (loop, item_skip, item_skip + "      long long t_a = clock64();\n"),
+        (loop, item_wait, item_wait + "      pf[0] += clock64() - t_a;\n"),
+        (loop, "mbar_wait(&full[ring.s], ring.phase);\n",
+         "long long t0 = clock64();\nmbar_wait(&full[ring.s], ring.phase);\n"
+         "long long t1 = clock64();\npf[1] += t1 - t0;\n"),
+        (loop, f"{indent}turns.begin();\n",
+         f"{indent}turns.begin();\n{indent}long long t2b = clock64();\n"
+         f"{indent}pf[3] += t2b - t2;\n"),
+        (loop, f"{indent}turns.end();\n",
+         f"{indent}turns.end();\n{indent}long long t3 = clock64();\n{indent}pf[4] += t3 - t2b;\n"),
+    ]
+
+
+# (mainloop, text in flash_bwd_wgmma.cuh, what replaces it), applied in order
+BWD_PATCHES = [
+    ("dq", "namespace flash_bwd {\n",
+     "namespace flash_bwd {\n__device__ unsigned long long g_bwd[11];\n"),
+    ("dq", "          fence_regs(s);\n\n          // p = exp(s - lse)",
+     "          fence_regs(s);\n          long long t2 = clock64();\n          pf[2] += t2 - t1;\n"
+     "\n          // p = exp(s - lse)"),
+    *_bwd_common("dq",
+                 "      if (it.lo >= it.hi) continue;  // RING: nothing visible, dq gains 0 "
+                 "(FLASH: never)\n",
+                 "      mbar_wait(&q_full[buf.s], buf.phase);\n      buf.next();\n", " " * 10),
+    ("dq", "            float dp[32];",
+     "            long long t4 = clock64();\n            float dp[32];"),
+    ("dq", "            if (PERSISTENT && hf == BK / 64 - 1 && last)",
+     "            long long t5 = clock64();\n            pf[5] += t5 - t4;\n"
+     "            if (PERSISTENT && hf == BK / 64 - 1 && last)"),
+    ("dq", "            fence_regs(ds);\n            fence_regs(dq);\n",
+     "            long long t6 = clock64();\n            pf[6] += t6 - t5;\n"
+     "            fence_regs(ds);\n            fence_regs(dq);\n"),
+    ("dq", "            wgmma_commit();\n          }\n          wgmma_wait<0>();\n",
+     "            wgmma_commit();\n            pf[7] += clock64() - t6;\n          }\n"
+     "          long long t7 = clock64();\n          wgmma_wait<0>();\n"),
+    ("dq", "          fence_regs(dq);\n        } else {\n",
+     "          fence_regs(dq);\n          pf[7] += clock64() - t7;\n          pf[9] += 1;\n"
+     "        } else {\n"),
+    ("dq", "      }\n\n      // the block owns its rows",
+     "      }\n      long long t_e = clock64();\n\n      // the block owns its rows"),
+    ("dq", "                            lane, r < p.Sq);\n        }\n      }\n",
+     "                            lane, r < p.Sq);\n        }\n      }\n"
+     "      pf[8] += clock64() - t_e;\n"),
+    ("dq", *_BWD_END),
+    ("dkv", "            fence_regs(s);\n\n            // P^T",
+     "            fence_regs(s);\n            long long t2 = clock64();\n"
+     "            pf[2] += t2 - t1;\n\n            // P^T"),
+    *_bwd_common("dkv",
+                 "      if (it.lo >= it.hi) continue;  // RING: no row sees these keys "
+                 "(FLASH: never)\n",
+                 "      mbar_wait(&kv_full[buf.s], buf.phase);\n      buf.next();\n", " " * 12),
+    ("dkv", "            if (PERSISTENT && last) mbar_arrive(kv_free);  // K, V",
+     "            long long t4 = clock64();\n            pf[5] += t4 - t3;\n"
+     "            if (PERSISTENT && last) mbar_arrive(kv_free);  // K, V"),
+    ("dkv", "            fence_regs(dst);\n            fence_regs(dk);\n",
+     "            long long t5 = clock64();\n            pf[6] += t5 - t4;\n"
+     "            fence_regs(dst);\n            fence_regs(dk);\n"),
+    ("dkv", "            fence_regs(dk);\n          } else {\n",
+     "            fence_regs(dk);\n            pf[7] += clock64() - t5;\n            pf[9] += 1;\n"
+     "          } else {\n"),
+    ("dkv", "      }\n\n      // the block owns its keys",
+     "      }\n      long long t_e = clock64();\n\n      // the block owns its keys"),
+    ("dkv", "dv, u, lane, c < p.Sk);\n        }\n      }\n",
+     "dv, u, lane, c < p.Sk);\n        }\n      }\n      pf[8] += clock64() - t_e;\n"),
+    ("dkv", *_BWD_END),
+]
+
+
+def patch_backward(text):
+    """The backward header with BWD_PATCHES applied, each to the first
+    occurrence of its text in its mainloop; None if one is missing."""
+    cut = text.index(BWD_SPLIT) if BWD_SPLIT in text else -1
+    if cut < 0:
+        return None
+    parts = {"dq": text[:cut], "dkv": text[cut:]}
+    for loop, old, new in BWD_PATCHES:
+        if old not in parts[loop]:
+            print(f"chip_phase_count: FAILED: the backward's {loop} loop no longer has {old!r}",
+                  file=sys.stderr)
+            return None
+        parts[loop] = parts[loop].replace(old, new, 1)
+    return parts["dq"] + parts["dkv"]
+
+
 READER = '''
 extern "C" int ds_phase_count(unsigned long long* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, flash_fwd::g_phase, sizeof flash_fwd::g_phase);
   const unsigned long long zero[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(flash_fwd::g_phase, zero, sizeof zero);
+  return e;
+}
+extern "C" int ds_phase_count_bwd(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, flash_bwd::g_bwd, sizeof flash_bwd::g_bwd);
+  const unsigned long long zero[11] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(flash_bwd::g_bwd, zero, sizeof zero);
   return e;
 }
 '''
@@ -98,6 +222,11 @@ def instrumented_build(op_builder):
             sys.exit(1)
         text = text.replace(old, new, 1)
     header.write_text(text)
+    bwd = root / "csrc" / "flash_bwd_wgmma.cuh"
+    text = patch_backward(bwd.read_text())
+    if text is None:
+        sys.exit(1)
+    bwd.write_text(text)
     for name in ("flash_attention.cu", "ring_flash.cu"):
         path = root / "csrc" / name
         path.write_text(path.read_text() + READER)
@@ -106,10 +235,10 @@ def instrumented_build(op_builder):
     op_builder.build(["flash_attention", "ring_flash"])
 
 
-def count(torch, op_builder, lib, fn, calls):
+def count(torch, op_builder, lib, fn, calls, phases=PHASES, reader="ds_phase_count"):
     """Clocks per warpgroup-tile of each phase over ``calls`` calls."""
-    buf = (ctypes.c_ulonglong * 9)()
-    read = op_builder.load(lib).ds_phase_count
+    buf = (ctypes.c_ulonglong * len(phases))()
+    read = getattr(op_builder.load(lib), reader)
     read.argtypes = [ctypes.c_void_p]
     read.restype = ctypes.c_int
     fn()
@@ -121,7 +250,7 @@ def count(torch, op_builder, lib, fn, calls):
     if read(buf) != 0:
         print("chip_phase_count: FAILED: reading the counters", file=sys.stderr)
         sys.exit(1)
-    vals = dict(zip(PHASES, buf))
+    vals = dict(zip(phases, buf))
     tiles = vals.pop("tiles")
     out = {k: v / tiles for k, v in vals.items()}
     out["warpgroup_tiles_per_call"] = tiles / calls
@@ -157,6 +286,31 @@ def main():
         phases = count(torch, op_builder, "ring_flash",
                        lambda: RF.ring_fwd_step(q, k, v, m, l, acc, **kw), calls=5)
         print(json.dumps({"phase": "phase_count", "kernel": "ring_fwd_step", "case": kind,
+                          "clocks_per_warpgroup_tile": phases}), flush=True)
+    bwd = dict(phases=BWD_PHASES, reader="ds_phase_count_bwd")
+    c = cs.flash_case(torch, "k4_k5", b=cs.TRAIN_MICRO, s=cs.TRAIN_SEQ, h=25, kvh=25, d=64)
+    q, k, v, do, kw = c["q"], c["k"], c["v"], c["do"], c["kw"]
+    out, lse = FA.flash_attention_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    for name, fn in (("flash_attention_dq",
+                      lambda: FA.flash_attention_dq(q, k, v, do, lse, delta, **kw)),
+                     ("flash_attention_dkv",
+                      lambda: FA.flash_attention_dkv(q, k, v, do, lse, delta, **kw))):
+        phases = count(torch, op_builder, "flash_attention", fn, calls=20, **bwd)
+        print(json.dumps({"phase": "phase_count", "kernel": name,
+                          "shape": dict(B=cs.TRAIN_MICRO, S=cs.TRAIN_SEQ, H=25, D=64, causal=True),
+                          "clocks_per_warpgroup_tile": phases}), flush=True)
+    del c, q, k, v, do, out, lse, delta
+    qo, ko = cs.RING_STEPS["below"]
+    c = cs.ring_case(torch, "below", b=1, s=cs.RING_SHARD, h=cs.RING_H, kvh=cs.RING_KVH,
+                     d=cs.RING_D, q_off=qo, k_off=ko, seed=22)
+    q, k, v, do, lse, delta, kw = (c[n] for n in ("q", "k", "v", "do", "lse", "delta", "kw"))
+    dq, dk, dv = (c[n].clone() for n in ("dq", "dk", "dv"))
+    for name, fn in (("ring_dq_step", lambda: RF.ring_dq_step(q, k, v, do, lse, delta, dq, **kw)),
+                     ("ring_dkv_step",
+                      lambda: RF.ring_dkv_step(q, k, v, do, lse, delta, dk, dv, **kw))):
+        phases = count(torch, op_builder, "ring_flash", fn, calls=5, **bwd)
+        print(json.dumps({"phase": "phase_count", "kernel": name, "case": "below",
                           "clocks_per_warpgroup_tile": phases}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)

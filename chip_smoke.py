@@ -695,8 +695,9 @@ def check_flash(torch, case):
     values sit in the first causal rows, so that limit alone would pass a
     kernel wrong on most rows: out, dq, dk and dv are also held to a
     relative Frobenius error ||got - plain|| / ||plain|| <= 1e-2, and the
-    median |plain| is printed beside each limit. The forward runs a second
-    time on the same inputs and must give out and lse bit for bit."""
+    median |plain| is printed beside each limit. Each kernel runs a second
+    time on the same inputs and must give out, lse, dq, dk and dv bit for
+    bit; at D 64 and 128 all three must be the wgmma kernels."""
     from deepspeed_tpu_torch.ops import flash_attention as FA
     q, k, v, do, kw = case["q"], case["k"], case["v"], case["do"], case["kw"]
     before = [f.launches for f in (FA.flash_attention_fwd, FA.flash_attention_dq,
@@ -709,14 +710,21 @@ def check_flash(torch, case):
     after = [f.launches for f in (FA.flash_attention_fwd, FA.flash_attention_dq,
                                   FA.flash_attention_dkv)]
     out2, lse2 = FA.flash_attention_fwd(q, k, v, **kw)   # the same inputs: bit for bit
-    deterministic = {"out": bool(torch.equal(out, out2)), "lse": bool(torch.equal(lse, lse2))}
-    del out2, lse2
+    dq2 = FA.flash_attention_dq(q, k, v, do, lse, delta, **kw)
+    dk2, dv2 = FA.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
+    deterministic = {nm: bool(torch.equal(a, b_)) for nm, a, b_ in (
+        ("out", out, out2), ("lse", lse, lse2), ("dq", dq, dq2), ("dk", dk, dk2),
+        ("dv", dv, dv2))}
+    del out2, lse2, dq2, dk2, dv2
     f32 = [t.float() for t in (q, k, v, do)]
     p_out, p_lse = FA.flash_attention_fwd_plain(*f32[:3], **kw)
     p_dq, p_dk, p_dv = FA.flash_attention_bwd_plain(*f32, lse, delta, **kw)
+    d = q.shape[3]
+    variant = {kind: FA.kernel_info(kind, d)["variant"] for kind in ("fwd", "dq", "dkv")}
     row = {"kernel_launches": [a - b for a, b in zip(after, before)],
-           "fwd_deterministic": deterministic}
+           "deterministic": deterministic}
     ok = row["kernel_launches"] == [1, 1, 1] and all(deterministic.values())
+    ok &= d not in (64, 128) or set(variant.values()) == {"wgmma"}
     for nm, got, ref in (("out", out, p_out), ("lse", lse, p_lse)):
         err = (got.float() - ref).abs()
         row[nm] = float(err.max())
@@ -739,9 +747,7 @@ def check_flash(torch, case):
                     D=q_.shape[3], causal=kw["causal"], window=kw["window"],
                     alibi=kw["alibi_slopes"] is not None,
                     segments=kw["segment_ids"] is not None),
-         variant={kind: FA.kernel_info(kind, q_.shape[3])["variant"]
-                  for kind in ("fwd", "dq", "dkv")},
-         max_abs_err=row, within=ok)
+         variant=variant, max_abs_err=row, within=ok)
     if not ok:
         fail(f"flash attention {case['name']}: {row}")
     return row
@@ -777,6 +783,10 @@ def train_kernel_phases(torch, largest_leaf):
         ("segments", dict(b=2, s=512, h=4, kvh=2, d=128, seg=True, seed=5)),
         ("noncausal", dict(b=2, s=512, h=4, kvh=4, d=64, causal=False, seed=6)),
         ("tail_s1000", dict(b=2, s=1000, h=4, kvh=2, d=64, seed=7)),
+        ("d128_noncausal_gqa_segments", dict(b=2, s=512, h=8, kvh=2, d=128, causal=False,
+                                             seg=True, seed=8)),
+        ("d128_window_gqa", dict(b=2, s=1024, h=16, kvh=4, d=128, window=384, seed=9)),
+        ("d128_tail_gqa", dict(b=1, s=1000, h=8, kvh=2, d=128, seed=10)),
     ]
     worst = {"out": 0.0, "dq": 0.0, "dkv": 0.0}
     for name, kw in cases:
@@ -2170,7 +2180,8 @@ RING_STEPS = {"diagonal": (RING_SHARD, RING_SHARD), "below": (2 * RING_SHARD, RI
 WGMMA_LIBS = {
     "ring_flash": ("deepspeed_tpu_torch.sequence.ring_flash",
                    ("ring_fwd_wgmma", "ring_dq_wgmma", "ring_dkv_wgmma")),
-    "flash_attention": ("deepspeed_tpu_torch.ops.flash_attention", ("flash_fwd_wgmma",)),
+    "flash_attention": ("deepspeed_tpu_torch.ops.flash_attention",
+                        ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")),
 }
 
 
@@ -2181,7 +2192,8 @@ def wgmma_build_report(op_builder, lib):
     (wgmma) instructions from ``cuobjdump --dump-sass``. Fails unless ptxas
     kept setmaxnreg, every wgmma kernel issues HGMMA and spills nothing, and
     the library's wgmma kernels at D 64 and 128 (the forward K13 / K3, and
-    K14 / K15) are all there."""
+    the backward K14 / K15, K4 / K5) are all there. A kernel with a causal
+    template argument is named ``base<D, causal>`` or ``base<D, noncausal>``."""
     import importlib
     import re
     from pathlib import Path
@@ -2195,8 +2207,12 @@ def wgmma_build_report(op_builder, lib):
         fail(f"ptxas ignored setmaxnreg in {lib}.cu")
 
     def short(mangled):
-        m = re.search(r"((?:ring|flash)_(?:fwd|dq|dkv)_(?:kernel|wgmma))ILi(\d+)E", mangled)
-        return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+        m = re.search(r"((?:ring|flash)_(?:fwd|dq|dkv)_(?:kernel|wgmma))ILi(\d+)E(?:Lb([01])E)?",
+                      mangled)
+        if m is None:
+            return mangled
+        causal = {"1": ", causal", "0": ", noncausal", None: ""}[m.group(3)]
+        return f"{m.group(1)}<{m.group(2)}{causal}>"
 
     rows, name, props = {}, None, None
     for ln in log.splitlines():
@@ -2227,7 +2243,7 @@ def wgmma_build_report(op_builder, lib):
     bad = {}
     for name, row in rows.items():
         base, d = name.split("<")
-        row.update(info(base.split("_")[1], int(d.rstrip(">"))))
+        row.update(info(base.split("_")[1], int(d.rstrip(">").split(",")[0])))
         if base.endswith("_wgmma") and (row.get("hgmma", 0) == 0 or row.get("spill_stores")
                                         or row.get("spill_loads")):
             bad[name] = row
@@ -2235,7 +2251,7 @@ def wgmma_build_report(op_builder, lib):
         fail(f"{bad} (the wgmma kernels must issue HGMMA and spill nothing)")
     for base in required:
         for d in (64, 128):
-            if f"{base}<{d}>" not in rows:
+            if not any(n.split(",")[0].rstrip(">") == f"{base}<{d}" for n in rows):
                 fail(f"{base}<{d}> missing from the ptxas report of {lib}")
     return rows
 

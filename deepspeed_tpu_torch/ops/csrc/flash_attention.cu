@@ -4,8 +4,12 @@
 // Replaces the TPU kernels of deepspeed_tpu/ops/pallas/flash_attention.py:
 //   K3 _fwd_kernel  -> flash_fwd_wgmma   (out, and lse = m + log l per row;
 //                      the forward of flash_fwd_wgmma.cuh in mode FLASH)
-//   K4 _dq_kernel   -> flash_dq_kernel   (dq from q, k, v, do, lse, delta)
-//   K5 _dkv_kernel  -> flash_dkv_kernel  (dk, dv; GQA groups summed in f32)
+//   K4 _dq_kernel   -> flash_dq_wgmma    (dq from q, k, v, do, lse, delta;
+//                      the dq of flash_bwd_wgmma.cuh in mode FLASH;
+//                      flash_dq_kernel at D = 256)
+//   K5 _dkv_kernel  -> flash_dkv_wgmma   (dk, dv; GQA groups summed in f32
+//                      registers; the dk/dv of flash_bwd_wgmma.cuh in mode
+//                      FLASH; flash_dkv_kernel at D = 256)
 // Semantics, per query row r and key column c of one (batch, head); q comes
 // in already scaled (the wrapper folds the softmax scale into q):
 //   s = q . k  (+ slope[h] * (c - r) with ALiBi)
@@ -15,15 +19,15 @@
 //   masked key never contributes exp(0) = 1 (the TPU kernel masks scores to
 //   -1e30 against m = -1e30 instead).
 //   backward: p = exp(s - lse), dp = do . v, ds = p * (dp - delta) with
-//   delta = sum(do * out) per row (computed by the wrapper), dq = ds k,
-//   dk = ds^T q, dv = p^T do.
+//   delta = sum(do * out) per row (computed by the wrapper), ds rounded to
+//   bf16 before dq = ds k and dk = ds^T q, p to bf16 before dv = p^T do.
 //
 // What bounds it on this card: at gpt2-xl's training shape (S = 1024,
 // D = 64, causal) the forward's 4 * D flops per visible (q, k) pair and the
 // bytes of q, k, v and out read or written once take about the same least
 // time (~254 flops per byte against the H100's ~295: bytes-bound by a
 // hair, 0.032 ms); the backward's 6 * D (dq) and 8 * D (dk, dv) flops per
-// pair make it operation-bound.
+// pair make it operation-bound (0.041 and 0.054 ms).
 // The forward is the Hopper design of flash_fwd_wgmma.cuh at every head dim
 // (D 64, 128 and 256): a persistent grid, one block an SM (the 240-register
 // consumers fill the register file), over items of 128 query rows of one
@@ -35,23 +39,28 @@
 // item walks 1-8 key tiles (1,600 items, about 12 a block), so the next
 // item's Q and K/V loads overlap the current item's last products and its
 // epilogue (bf16 out, lse).
-// The backward (K4, K5) is still the first design: wmma products from
-// shared memory, tiles, scores and accumulators in shared memory, K/V by
-// plain 16-byte vector loads; it is the next to take the Hopper design.
-// Inside a block every K/V tile is reused by 64 query rows, and causal
-// and sliding-window tiles that no row of the block can see are skipped,
-// never loaded.
+// The backward at D 64 and 128 is the Hopper design of flash_bwd_wgmma.cuh,
+// the mainloops of the ring's K14 and K15 at offset 0 with causal as a
+// template parameter: persistent, items of 128 query rows (dq; K/V tiles of
+// 128 keys stream) or 128 keys (dk/dv; Q/dO tiles of 64 rows stream over the
+// G heads of the group), every product a wgmma with its f32 accumulator in
+// registers, and each block writing its rows once in bf16. At D = 256 dk
+// and dv do not fit a consumer's registers, so the backward there is still
+// the first design: wmma products from shared memory, tiles, scores and
+// accumulators in shared memory, K/V by plain 16-byte vector loads, causal
+// and sliding-window tiles that no row of the block can see skipped.
 //
 // Layout: q, out, do, dq (B, S, H, D); k, v, dk, dv (B, S, KVH, D), all bf16;
 // lse, delta (B, H, S) f32; seg (B, S) int32 or null; slopes (H,) f32 or null.
-// dq: one block per (q tile, head, batch). dk/dv: one block per (key tile,
-// kv head, batch) that walks the G = H / KVH query heads of its group, so
-// the group sum happens in the block's f32 accumulators.
+// The wmma backward (D = 256): dq one block per (q tile, head, batch); dk/dv
+// one block per (key tile, kv head, batch) that walks the G = H / KVH query
+// heads of its group, so the group sum happens in the block's f32
+// accumulators.
 
 #include <cstdint>
 
 #include "attention_tiles.cuh"
-#include "flash_fwd_wgmma.cuh"
+#include "flash_bwd_wgmma.cuh"
 
 using namespace attn_tiles;
 
@@ -87,7 +96,7 @@ __device__ __forceinline__ void key_range(const Params& p, int r0, int& lo, int&
   lo = p.window > 0 ? max(0, r0 - p.window + 1) / BK : 0;
 }
 
-// ----------------------------------------------------------------------- dq
+// ----------------------------------------------------------- dq (wmma, D = 256)
 
 template <int D, int BQ, int BK>
 struct DqSmem {
@@ -171,7 +180,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_dq_kernel(const Params p) {
   }
 }
 
-// ------------------------------------------------------------------- dk, dv
+// ------------------------------------------------------- dk, dv (wmma, D = 256)
 
 template <int D, int BQ, int BK>
 struct DkvSmem {
@@ -280,6 +289,23 @@ __global__ void __launch_bounds__(hopper::WG_THREADS, 1)
   flash_fwd::forward<D, flash_fwd::FLASH>(p, &tq, &tk, &tv);
 }
 
+// K4 and K5 at D 64 and 128: the backward of flash_bwd_wgmma.cuh, bf16 results
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(hopper::WG_THREADS, 1)
+    flash_dq_wgmma(const flash_bwd::Params p, const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo) {
+  flash_bwd::backward_dq<D, flash_bwd::FLASH, CAUSAL>(p, &tq, &tk, &tv, &tdo);
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(hopper::WG_THREADS, 1)
+    flash_dkv_wgmma(const flash_bwd::Params p, const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo) {
+  flash_bwd::backward_dkv<D, flash_bwd::FLASH, CAUSAL>(p, &tq, &tk, &tv, &tdo);
+}
+
 // the forward's view of contiguous (B, S, heads, D) tensors at offset 0
 flash_fwd::Params fwd_params(const Params& p, int D) {
   flash_fwd::Params f = {};
@@ -302,46 +328,86 @@ flash_fwd::Params fwd_params(const Params& p, int D) {
   return f;
 }
 
+// the backward's view: the forward's, with do read as q is and the bf16 results
+flash_bwd::Params bwd_params(const Params& p, int D) {
+  flash_bwd::Params f = {};
+  static_cast<flash_fwd::Params&>(f) = fwd_params(p, D);
+  f.dout = p.dout;
+  f.lse = p.lse;
+  f.delta = p.delta;
+  f.dq_out = p.dq;
+  f.dk_out = p.dk;
+  f.dv_out = p.dv;
+  f.dsr = f.qsr;
+  f.dsb = f.qsb;
+  return f;
+}
+
+// the wgmma backward of p.causal: causal_kernel (CAUSAL true) or full_kernel
+template <int D, bool DKV, typename Kernel>
+cudaError_t launch_bwd(Kernel causal_kernel, Kernel full_kernel, const Params& p, int B,
+                       cudaStream_t stream) {
+  return flash_bwd::launch<D, flash_bwd::FLASH, DKV>(p.causal ? causal_kernel : full_kernel,
+                                                     bwd_params(p, D), B, stream);
+}
+
 // ------------------------------------------------------------------ launch
 
-// tile sizes per head dim: 64-row tiles, 32 for D = 256 (shared memory)
-template <int D> struct Tiles { static constexpr int BQ = 64, BK = 64; };
-template <> struct Tiles<256> { static constexpr int BQ = 32, BK = 32; };
+// the wmma backward's tiles (D = 256): 32 rows, for shared memory
+constexpr int BQ256 = 32, BK256 = 32;
 
 enum Kind { FWD, DQ, DKV };
 
 template <int D>
 cudaError_t launch(Kind kind, const Params& p, int B, cudaStream_t stream) {
-  constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
   switch (kind) {
     case FWD:
       return flash_fwd::launch<D>(flash_fwd_wgmma<D>, fwd_params(p, D), B, stream);
     case DQ:
-      return launch_kernel(flash_dq_kernel<D, BQ, BK>, DqSmem<D, BQ, BK>::bytes,
-                           dim3((p.S + BQ - 1) / BQ, p.H, B), p, stream);
+      if constexpr (D <= 128)
+        return launch_bwd<D, false>(flash_dq_wgmma<D, true>, flash_dq_wgmma<D, false>, p, B,
+                                    stream);
+      else
+        return launch_kernel(flash_dq_kernel<D, BQ256, BK256>, DqSmem<D, BQ256, BK256>::bytes,
+                             dim3((p.S + BQ256 - 1) / BQ256, p.H, B), p, stream);
     case DKV:
-      return launch_kernel(flash_dkv_kernel<D, BQ, BK>, DkvSmem<D, BQ, BK>::bytes,
-                           dim3((p.S + BK - 1) / BK, p.KVH, B), p, stream);
+      if constexpr (D <= 128)
+        return launch_bwd<D, true>(flash_dkv_wgmma<D, true>, flash_dkv_wgmma<D, false>, p, B,
+                                   stream);
+      else
+        return launch_kernel(flash_dkv_kernel<D, BQ256, BK256>, DkvSmem<D, BQ256, BK256>::bytes,
+                             dim3((p.S + BK256 - 1) / BK256, p.KVH, B), p, stream);
   }
   return cudaErrorInvalidValue;
 }
 
-// what launch<D> runs for `kind`: info[0] 1 for the wgmma kernel, 0 for the
+// what launch<D> runs for `kind`: info[0] 1 for the wgmma kernels, 0 for the
 // wmma ones; info[1] the dynamic shared memory of a block, bytes; info[2]
 // the threads of a block
 template <int D>
 void kernel_info(Kind kind, int* info) {
-  constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
-  info[0] = 0;
-  info[2] = NTHREADS;
+  info[0] = 1;
+  info[2] = hopper::WG_THREADS;
   switch (kind) {
-    case FWD:
-      info[0] = 1;
-      info[1] = static_cast<int>(flash_fwd::Layout<D>::bytes);
-      info[2] = hopper::WG_THREADS;
+    case FWD: info[1] = static_cast<int>(flash_fwd::Layout<D>::bytes); return;
+    case DQ:
+      if constexpr (D <= 128) {
+        info[1] = static_cast<int>(flash_bwd::Layout<flash_bwd::FLASH, false, D>::bytes);
+      } else {
+        info[0] = 0;
+        info[1] = static_cast<int>(DqSmem<D, BQ256, BK256>::bytes);
+        info[2] = NTHREADS;
+      }
       return;
-    case DQ: info[1] = static_cast<int>(DqSmem<D, BQ, BK>::bytes); return;
-    case DKV: info[1] = static_cast<int>(DkvSmem<D, BQ, BK>::bytes); return;
+    case DKV:
+      if constexpr (D <= 128) {
+        info[1] = static_cast<int>(flash_bwd::Layout<flash_bwd::FLASH, true, D>::bytes);
+      } else {
+        info[0] = 0;
+        info[1] = static_cast<int>(DkvSmem<D, BQ256, BK256>::bytes);
+        info[2] = NTHREADS;
+      }
+      return;
   }
 }
 

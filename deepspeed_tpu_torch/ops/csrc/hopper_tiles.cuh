@@ -269,17 +269,19 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* smem) {
   return smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
 }
 
-// the stage ring's position: stage s in its phase of parity `phase`
-struct Ring {
+// the position in a ring of N stages: stage s in its phase of parity `phase`
+template <int N = STAGES>
+struct StageRing {
   int s = 0;
   uint32_t phase = 0;
   __device__ __forceinline__ void next() {
-    if (++s == STAGES) {
+    if (++s == N) {
       s = 0;
       phase ^= 1;
     }
   }
 };
+using Ring = StageRing<>;
 
 // D / 64 column blocks of `rows` rows of one head into a swizzled tile
 template <int D>

@@ -12,7 +12,8 @@ f32, then cast.
 Three wrappers, one per kernel, take the tensors' device as the choice of
 implementation: on CUDA tensors they launch the hand-written Hopper kernels
 (``csrc/flash_attention.cu``; K3 is a wgmma kernel on
-``csrc/flash_fwd_wgmma.cuh`` at every head dim, K4 and K5 wmma ones,
+``csrc/flash_fwd_wgmma.cuh`` at every head dim, K4 and K5 wgmma kernels on
+``csrc/flash_bwd_wgmma.cuh`` at head dims 64 and 128 and wmma ones at 256,
 ``kernel_info`` says which) or raise; on CPU tensors they run the plain
 versions ``flash_attention_fwd_plain`` / ``flash_attention_bwd_plain``
 (dense f32 math of the same function), which the CPU tests and the card's
@@ -241,7 +242,8 @@ _KINDS = {"fwd": 0, "dq": 1, "dkv": 2}
 def kernel_info(kind, d):
     """The CUDA kernel that the ``kind`` ("fwd", "dq" or "dkv") wrapper
     launches at head dim ``d``, as the built library reports it: its
-    ``variant`` ("wgmma" for the Hopper forward, "wmma" for dq and dk/dv),
+    ``variant`` ("wgmma" for the Hopper forward, and for dq and dk/dv at
+    head dims 64 and 128; "wmma" for dq and dk/dv at 256),
     ``smem_bytes`` (dynamic shared memory a block) and ``threads`` a block.
     Builds the library if needed."""
     info = (ctypes.c_int * 3)()

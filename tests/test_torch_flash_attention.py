@@ -38,6 +38,11 @@ CASES = {
     "alibi": (1, 128, 4, 2, {"alibi": True}),
     "segments": (2, 128, 2, 2, {"segments": True}),
     "segments_noncausal": (1, 128, 2, 1, {"segments": True, "causal": False}),
+    # head dim 128, the other one the Hopper backward kernels are built for
+    "d128_gqa4_alibi": (1, 128, 4, 1, {"alibi": True, "d": 128}),
+    "d128_noncausal_gqa_segments": (2, 128, 4, 2, {"segments": True, "causal": False,
+                                                   "d": 128}),
+    "d128_window_gqa": (1, 192, 4, 2, {"window": 70, "d": 128}),
 }
 
 
@@ -97,7 +102,7 @@ def _port(x, kw):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_flash_matches_pallas(name):
     b, s, h, kvh, opts = CASES[name]
-    x, kw = _inputs(b, s, h, kvh, opts, seed=len(name))
+    x, kw = _inputs(b, s, h, kvh, opts, seed=len(name), d=opts.get("d", 64))
     j_out, j_lse, j_grads = _jax(x, kw)
     p_out, p_lse, p_grads = _port(x, kw)
     np.testing.assert_allclose(p_out, j_out, rtol=FWD_TOL, atol=FWD_TOL)

@@ -7,7 +7,7 @@ The forward (``ops/csrc/flash_fwd_wgmma.cuh``, K3 through
 the plain version without building or loading any library; the kind codes
 of both ``kernel_info`` functions match the C ``Kind`` enums their
 libraries index by; ``chip_phase_count.py`` still finds every line it
-instruments in the forward; ``chip_compare.py`` reads both training
+instruments in the forward and the backward; ``chip_compare.py`` reads both training
 slices' rows from a child's output.
 """
 
@@ -88,14 +88,28 @@ def test_kernel_info_calls_its_library_entry_point(module, source, entry):
     assert f".{entry}" in inspect.getsource(module.kernel_info)
 
 
-@pytest.mark.parametrize("i", range(len(PHASE_COUNT.PATCHES)))
+@pytest.mark.parametrize("i", [*range(len(PHASE_COUNT.PATCHES)),
+                               *(f"bwd-{j}" for j in range(len(PHASE_COUNT.BWD_PATCHES)))])
 def test_phase_count_finds_what_it_instruments(i):
-    """chip_phase_count.py patches the committed forward in order: patch i
-    finds its text once the patches before it are applied."""
-    text = (CSRC / "flash_fwd_wgmma.cuh").read_text()
-    for old, new in PHASE_COUNT.PATCHES[:i]:
-        text = text.replace(old, new, 1)
-    assert PHASE_COUNT.PATCHES[i][0] in text
+    """chip_phase_count.py patches the committed forward (cases 0, 1, ...)
+    and backward ("bwd-0", ...) in order: patch i finds its text once the
+    patches before it are applied, the backward's in the mainloop it names,
+    and the whole list applies."""
+    if isinstance(i, int):
+        text = (CSRC / "flash_fwd_wgmma.cuh").read_text()
+        for old, new in PHASE_COUNT.PATCHES[:i]:
+            text = text.replace(old, new, 1)
+        assert PHASE_COUNT.PATCHES[i][0] in text
+        return
+    j = int(i.split("-")[1])
+    text = (CSRC / "flash_bwd_wgmma.cuh").read_text()
+    cut = text.index(PHASE_COUNT.BWD_SPLIT)
+    parts = {"dq": text[:cut], "dkv": text[cut:]}
+    for loop, old, new in PHASE_COUNT.BWD_PATCHES[:j]:
+        parts[loop] = parts[loop].replace(old, new, 1)
+    loop, old, _ = PHASE_COUNT.BWD_PATCHES[j]
+    assert old in parts[loop]
+    assert PHASE_COUNT.patch_backward(text) is not None
 
 
 def test_compare_summary_reads_both_training_slices():
@@ -110,12 +124,17 @@ def test_compare_summary_reads_both_training_slices():
         line(phase="ring_step_profile", idle_share=0.002, device_ms_by_class={"ring_fwd": 114.0}),
         line(phase="train_kernel_time", kernel="flash_attention_fwd", case="gpt2xl_causal",
              ms=0.12, library_ms=0.09),
+        line(phase="train_kernel_time", kernel="flash_attention_dq", case="gpt2xl_causal",
+             ms=0.2, library_ms=0.34),
         line(phase="train_path", **{**step, "ms_per_step": 796.0}),
         line(phase="train_step_profile", idle_share=0.01, device_ms_by_class={"flash_fwd": 11.6}),
     ])
     assert CHIP_COMPARE.summarize(stdout) == {
         "kernels": {"ring_fwd_step": {"below": 1.8, "diagonal": 0.9},
-                    "flash_attention_fwd": {"gpt2xl_causal": 0.12}},
+                    "flash_attention_fwd": {"gpt2xl_causal": 0.12},
+                    "flash_attention_dq": {"gpt2xl_causal": 0.2}},
+        "library": {"flash_attention_fwd": {"gpt2xl_causal": 0.09},
+                    "flash_attention_dq": {"gpt2xl_causal": 0.34}},
         "ring": {**step, "idle_share": 0.002, "device_ms_by_class": {"ring_fwd": 114.0}},
         "gpt2_xl": {**step, "ms_per_step": 796.0, "idle_share": 0.01,
                     "device_ms_by_class": {"flash_fwd": 11.6}}}
