@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Time the two training slices of this checkout against another tree of
-the repository on one card.
+"""Time the two training slices and the two block-sparse / Evoformer
+kernels of this checkout against another tree of the repository on one
+card.
 
     python3 chip_compare.py OTHER_DIR
 
 OTHER_DIR holds another tree of the repository, for example the parent
 commit (``git archive <commit> | tar -x -C OTHER_DIR``). Each tree runs in
 a child process of its own, in the order other, this, this, other, so both
-meet the card in the same states: the tree's own
+meet the card in the same states: first K11 on the three layouts of the
+public-ops slice (B 4, S 4096, 16 heads of 64, block 16) and K12 at
+(1, 512, 256, 4, 64), each beside SDPA with the same mask or summed bias,
+timed by the same code in both trees; then the tree's own
 ``chip_smoke.ring_kernel_time`` (phase 23: K13, K14 and K15 per step kind
 at qwen2-7b's shard shapes beside SDPA) and ``chip_smoke.ring_train_path``
 (phase 24: qwen2-7b at full width, 4 layers, one 32768-token sequence a
@@ -18,7 +22,8 @@ K5) beside SDPA's autograd backward, timed by the same code in both trees
 ``chip_smoke.train_path`` (phase 10: gpt2-xl at full width and depth, then
 its step profile). The children's JSON lines pass through; the last line
 is a summary by tree, in run order: each kernel's ms per step kind (K3,
-K4, K5: case gpt2xl_causal) with the library call's ms beside it, and
+K4, K5: case gpt2xl_causal; K11 per layout; K12: main_path) with the
+library call's ms beside it, and
 each train step's ms, tokens/s, MFU, peak memory and idle share. Exits 1
 without a card or when a child fails.
 """
@@ -35,10 +40,41 @@ sys.path.insert(0, ".")
 import chip_smoke as cs
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import flash_attention as FA
+from deepspeed_tpu_torch.ops import evoformer_flash as EF
+from deepspeed_tpu_torch.ops import sparse_flash as SF
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-op_builder.build(["ring_flash", "fused_adam", "flash_attention"])
+op_builder.build(["ring_flash", "fused_adam", "flash_attention", "sparse_flash", "evoformer_flash"])
 smi = cs.nvidia_smi()
+for name, cfg in cs.sparse_configs(16).items():
+    c = cs.sparse_inputs(torch, b=cs.SPARSE_B, s=cs.SPARSE_S, h=16, kvh=16, d=64,
+                         layout=cfg.make_layout(cs.SPARSE_S), causal=False, seed=4)
+    token = SF.token_mask_from_tiles(c["table"], c["counts"], c["bits"])
+    qh, kh, vh = (c[x].transpose(1, 2) for x in "qkv")
+    nbytes, flops = cs.sparse_work(c)
+    ms = cs.cuda_ms(torch, lambda i: cs.sparse_call(SF.sparse_flash_fwd, c))
+    lib = cs.cuda_ms(torch, lambda i: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=token),
+                     reps=3, iters=5)
+    cs.emit("ops_kernel_time", kernel="sparse_flash_fwd", case=name, ms=ms, library_ms=lib,
+            library="F.scaled_dot_product_attention with the (S, S) boolean token mask",
+            bound_ms=cs.bound(nbytes, flops)[0], bytes=nbytes, flops=flops,
+            tflops=flops / ms / 1e9, card=smi)
+    del c, token, qh, kh, vh
+c = cs.evo_inputs(torch, cs.EVO_MAIN, seed=5)
+b, n, s, hh, dd = cs.EVO_MAIN
+qf, kf, vf = (c[x].reshape(b * n, hh, s, dd) for x in "qkv")
+bias = (c["b1"].reshape(b * n, 1, 1, s) + c["b2"].reshape(b, hh, s, s).repeat_interleave(n, 0)
+        ).to(torch.bfloat16)
+nbytes, flops = cs.evo_work(c)
+ms = cs.cuda_ms(torch, lambda i: cs.evo_call(EF.evoformer_flash_fwd, c))
+lib = cs.cuda_ms(torch, lambda i: F.scaled_dot_product_attention(qf, kf, vf, attn_mask=bias,
+                                                                 scale=dd ** -0.5))
+cs.emit("ops_kernel_time", kernel="evoformer_flash_fwd", case="main_path", ms=ms, library_ms=lib,
+        library="F.scaled_dot_product_attention with b1 + b2 summed into a bf16 mask",
+        bound_ms=cs.bound(nbytes, flops)[0], bytes=nbytes, flops=flops,
+        tflops=flops / ms / 1e9, card=smi)
+del c, qf, kf, vf, bias
+torch.cuda.empty_cache()
 cs.ring_kernel_time(torch)
 engine = cs.ring_train_path(torch, smi)[0]
 del engine
@@ -92,7 +128,7 @@ def summarize(stdout):
         phase = row.get("phase") if isinstance(row, dict) else None
         step = {"ring_train_path": "ring", "ring_step_profile": "ring",
                 "train_path": "gpt2_xl", "train_step_profile": "gpt2_xl"}.get(phase)
-        if phase in ("ring_kernel_time", "train_kernel_time"):
+        if phase in ("ring_kernel_time", "train_kernel_time", "ops_kernel_time"):
             out["kernels"].setdefault(row["kernel"], {})[row["case"]] = row["ms"]
             if row.get("library_ms") is not None:
                 out["library"].setdefault(row["kernel"], {})[row["case"]] = row["library_ms"]

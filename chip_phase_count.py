@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the attention kernels' time goes on the card: a clock64 count of
-each phase of the Hopper forward (``ops/csrc/flash_fwd_wgmma.cuh``, K3 and
-K13) and backward (``ops/csrc/flash_bwd_wgmma.cuh``, K4 / K5 and K14 / K15).
+each phase of the Hopper forward (``ops/csrc/flash_fwd_wgmma.cuh``, K3,
+K13, K11 and K12) and backward (``ops/csrc/flash_bwd_wgmma.cuh``, K4 / K5
+and K14 / K15).
 
     python3 chip_phase_count.py
 
@@ -9,8 +10,10 @@ Copies the kernel sources into the build directory, adds clock64 counters
 around each phase of the consumer loops and around the producer's wait for
 a free stage, builds the copy (the repository's sources are left as they
 are) and runs K3 at gpt2-xl's training shape (causal and not) and at a long
-non-causal shape, and K13 at qwen2-7b's shard shapes (the diagonal step and
-a full one); then K4 and K5 at gpt2-xl's training shape and K14 and K15 at
+non-causal shape, K13 at qwen2-7b's shard shapes (the diagonal step and
+a full one), K11 on the Fixed layout at bert-large's width (B 4, S 4096,
+16 heads of 64, block 16; a warpgroup-tile is 64 rows by one stage of 8
+key blocks) and K12 at (1, 512, 256, 4, 64); then K4 and K5 at gpt2-xl's training shape and K14 and K15 at
 a full qwen2-7b step. Prints one JSON line per case: the clocks per
 warpgroup-tile of each phase, summed over thread 0 of every consumer
 warpgroup (and the producer's lane 0) and divided by the warpgroup-tiles
@@ -18,7 +21,9 @@ counted, then the card's name, power limit and SM clocks.
 Forward phases: the item's set-up (carry loads, Q wait), the wait for a
 full stage, S = Q K^T (issue to done), the wait for the element pass's
 turn, the element pass, O += P V with its rescale (issue to done), the
-item's epilogue, and the producer's wait for an empty stage.
+item's epilogue, and the producer's wait for an empty stage. K11 and K12
+form their logits (scale and mask; the two biases) outside the pass's
+turn, so their "wait_turn" holds that work as well as the wait.
 Backward phases (dq | dk/dv): the item's set-up (row loads, the Q/dO | K/V
 wait), the wait for a full stage, S = Q K^T | S^T = K Q^T, the pass that
 forms p | P^T, dP = dO V^T over both halves | dP^T = V dO^T with dv +=
@@ -44,8 +49,8 @@ PHASES = ["item_setup", "wait_full", "s_product", "wait_turn", "element_pass", "
 PATCHES = [
     ("namespace flash_fwd {\n",
      "namespace flash_fwd {\n__device__ unsigned long long g_phase[9];\n"),
-    ("    Ring ring;\n    uint32_t q_phase = 0;\n",
-     "    Ring ring;\n    uint32_t q_phase = 0;\n    unsigned long long pp = 0;\n"),
+    ("    StageRing<SM::STAGES> ring;\n    uint32_t q_phase = 0;\n",
+     "    StageRing<SM::STAGES> ring;\n    uint32_t q_phase = 0;\n    unsigned long long pp = 0;\n"),
     ("        mbar_wait(&empty[ring.s], ring.phase ^ 1);\n",
      "        long long tp = clock64();\n        mbar_wait(&empty[ring.s], ring.phase ^ 1);\n"
      "        pp += clock64() - tp;\n"),
@@ -192,13 +197,15 @@ def patch_backward(text):
     return parts["dq"] + parts["dkv"]
 
 
-READER = '''
+FWD_READER = '''
 extern "C" int ds_phase_count(unsigned long long* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, flash_fwd::g_phase, sizeof flash_fwd::g_phase);
   const unsigned long long zero[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(flash_fwd::g_phase, zero, sizeof zero);
   return e;
 }
+'''
+BWD_READER = '''
 extern "C" int ds_phase_count_bwd(unsigned long long* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, flash_bwd::g_bwd, sizeof flash_bwd::g_bwd);
   const unsigned long long zero[11] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
@@ -227,12 +234,14 @@ def instrumented_build(op_builder):
     if text is None:
         sys.exit(1)
     bwd.write_text(text)
-    for name in ("flash_attention.cu", "ring_flash.cu"):
-        path = root / "csrc" / name
-        path.write_text(path.read_text() + READER)
+    for name, reader in (("flash_attention", FWD_READER + BWD_READER),
+                         ("ring_flash", FWD_READER + BWD_READER),
+                         ("sparse_flash", FWD_READER), ("evoformer_flash", FWD_READER)):
+        path = root / "csrc" / f"{name}.cu"
+        path.write_text(path.read_text() + reader)
     op_builder.CSRC = root / "csrc"
     op_builder.BUILD_DIR = root / "build"
-    op_builder.build(["flash_attention", "ring_flash"])
+    op_builder.build(["flash_attention", "ring_flash", "sparse_flash", "evoformer_flash"])
 
 
 def count(torch, op_builder, lib, fn, calls, phases=PHASES, reader="ds_phase_count"):
@@ -264,8 +273,10 @@ def main():
         sys.exit(1)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import chip_smoke as cs
+    from deepspeed_tpu_torch.ops import evoformer_flash as EF
     from deepspeed_tpu_torch.ops import flash_attention as FA
     from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops import sparse_flash as SF
     from deepspeed_tpu_torch.sequence import ring_flash as RF
     instrumented_build(op_builder)
     for b, s, h, causal in ((cs.TRAIN_MICRO, cs.TRAIN_SEQ, 25, True),
@@ -287,6 +298,22 @@ def main():
                        lambda: RF.ring_fwd_step(q, k, v, m, l, acc, **kw), calls=5)
         print(json.dumps({"phase": "phase_count", "kernel": "ring_fwd_step", "case": kind,
                           "clocks_per_warpgroup_tile": phases}), flush=True)
+    h = 16
+    c = cs.sparse_inputs(torch, b=cs.SPARSE_B, s=cs.SPARSE_S, h=h, kvh=h, d=64,
+                         layout=cs.sparse_configs(h)["fixed"].make_layout(cs.SPARSE_S),
+                         causal=False, seed=4)
+    phases = count(torch, op_builder, "sparse_flash",
+                   lambda: cs.sparse_call(SF.sparse_flash_fwd, c), calls=20)
+    print(json.dumps({"phase": "phase_count", "kernel": "sparse_flash_fwd", "case": "fixed",
+                      "shape": dict(B=cs.SPARSE_B, S=cs.SPARSE_S, H=h, D=64),
+                      "clocks_per_warpgroup_tile": phases}), flush=True)
+    c = cs.evo_inputs(torch, cs.EVO_MAIN, seed=5)
+    phases = count(torch, op_builder, "evoformer_flash",
+                   lambda: cs.evo_call(EF.evoformer_flash_fwd, c), calls=20)
+    print(json.dumps({"phase": "phase_count", "kernel": "evoformer_flash_fwd", "case": "main_path",
+                      "shape": dict(zip("BNSHD", cs.EVO_MAIN)),
+                      "clocks_per_warpgroup_tile": phases}), flush=True)
+    del c
     bwd = dict(phases=BWD_PHASES, reader="ds_phase_count_bwd")
     c = cs.flash_case(torch, "k4_k5", b=cs.TRAIN_MICRO, s=cs.TRAIN_SEQ, h=25, kvh=25, d=64)
     q, k, v, do, kw = c["q"], c["k"], c["v"], c["do"], c["kw"]

@@ -1706,16 +1706,17 @@ def compare(torch, got, ref):
     return float(err.max()), rel, bool((err <= ATOL + RTOL * ref.abs()).all())
 
 
-def sparse_inputs(torch, *, b, s, h, kvh, d, layout, causal, seed):
+def sparse_inputs(torch, *, b, s, h, kvh, d, layout, causal, seed, block=SPARSE_BLOCK):
     """bf16 q (B, S, H, D) and k, v repeated to H heads (as
     sparse_flash_attention hands them to the kernel), with the layout's
-    tables on the card and its tile masks packed to bits."""
+    tables (layout blocks of ``block`` tokens) on the card and its tile
+    masks packed to bits."""
     from deepspeed_tpu_torch.ops import sparse_flash as SF
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = randn_bf16(torch, g, b, s, h, d), randn_bf16(torch, g, b, s, kvh, d), \
         randn_bf16(torch, g, b, s, kvh, d)
     k, v = k.repeat_interleave(h // kvh, dim=2), v.repeat_interleave(h // kvh, dim=2)
-    table, counts, masks = SF.precompile_layout(layout, SPARSE_BLOCK, causal)
+    table, counts, masks = SF.precompile_layout(layout, block, causal)
     return dict(q=q, k=k, v=v, table=table, counts=counts, bits=SF.pack_mask_bits(masks),
                 scale=d ** -0.5, causal=causal)
 
@@ -1737,8 +1738,8 @@ def sparse_pairs(c):
 def sparse_work(c):
     """(bytes, flops): q, k, v read and out written once, table and counts,
     the bits of each live tile (2 KB) once; 4 D flops per (query, key) pair
-    that the token mask lets through, and no more: the mask's 16-token
-    blocks could be skipped at the tensor cores' 16 x 16 grain."""
+    that the token mask lets through, and no more (the kernel computes the
+    pairs of every live 16-key block it gathers)."""
     b, s, h, d = c["q"].shape
     live = int(c["counts"].sum())
     nbytes = 4 * b * s * h * d * 2 + 4 * (c["table"].numel() + c["counts"].numel()) \
@@ -1746,14 +1747,17 @@ def sparse_work(c):
     return nbytes, 4 * d * sparse_pairs(c) * b * h
 
 
-def evo_inputs(torch, shape, *, biases="both", bias_dtype=None, seed=0):
+def evo_inputs(torch, shape, *, biases="both", bias_dtype=None, seed=0, spare_rows=0):
     """bf16 q, k, v (B, N, S, H, D) as head-major views (as
     DS4Sci_EvoformerAttention hands them to the kernel), a mask bias with
     -1e9 at a tenth of the keys and one MSA row fully masked, and a pair
-    bias, both f32 unless ``bias_dtype``."""
+    bias, both f32 unless ``bias_dtype``. ``spare_rows`` > 0: q, k, v are
+    the first N rows of storage with N + spare_rows, so that their batch
+    stride is no multiple of their row stride."""
     b, n, s, h, d = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (randn_bf16(torch, g, b, n, s, h, d).movedim(3, 2) for _ in range(3))
+    q, k, v = (randn_bf16(torch, g, b, n + spare_rows, s, h, d)[:, :n].movedim(3, 2)
+               for _ in range(3))
     b1 = b2 = None
     if biases in ("b1", "both"):
         b1 = torch.where(torch.rand(b, n, 1, 1, s, generator=g, device="cuda") < 0.1, -1e9, 0.0)
@@ -1811,23 +1815,37 @@ def ops_kernel_check(torch):
     worst = {"sparse_flash_fwd": 0.0, "evoformer_flash_fwd": 0.0, "quantize_fp8": 0.0}
 
     def held(kernel, case, shape, call, fn, plain, c, extra=None):
-        """``call(fn, c)`` through the kernel's wrapper, once, against
-        ``call(plain, c)`` on the same inputs."""
+        """``call(fn, c)`` through the kernel's wrapper, twice (the second
+        run bit-identical to the first), against ``call(plain, c)`` on the
+        same inputs."""
         before = fn.launches
         got = call(fn, c)
+        again = call(fn, c)
         torch.cuda.synchronize()
         launched = fn.launches - before
+        same = bool(torch.equal(got.contiguous().view(torch.int16),
+                                again.contiguous().view(torch.int16)))
         ref = call(plain, c)
         err, rel, ok = compare(torch, got, ref)
-        ok = ok and rel <= FRO_TOL and launched == 1 and bool(torch.isfinite(got).all())
+        ok = ok and rel <= FRO_TOL and launched == 2 and same and bool(torch.isfinite(got).all())
         extra = extra(got, ref) if extra else {}
         ok = ok and all(extra.values())
         worst[kernel] = max(worst[kernel], err)
         emit("ops_kernel_check", kernel=kernel, case=case, shape=shape, max_abs_err=err,
              rel_fro=rel, atol=ATOL, rtol=RTOL, fro_tol=FRO_TOL, launches=launched,
-             within=ok, **extra)
+             bit_identical_rerun=same, within=ok, **extra)
         if not ok:
-            fail(f"{kernel} {case}: max_abs_err {err}, rel_fro {rel}, launches {launched}, {extra}")
+            fail(f"{kernel} {case}: max_abs_err {err}, rel_fro {rel}, launches {launched}, "
+                 f"rerun bit-identical {same}, {extra}")
+
+    # both kernels are the Hopper forward (flash_fwd_wgmma.cuh) at every head dim
+    for module, dims in ((SF, SF.KERNEL_HEAD_DIMS), (EF, EF.KERNEL_HEAD_DIMS)):
+        for dd in dims:
+            info = module.kernel_info("fwd", dd)
+            emit("ops_kernel_check", kernel=module.__name__.rsplit(".", 1)[1], case=f"kernel_info_d{dd}",
+                 within=info["variant"] == "wgmma", **info)
+            if info["variant"] != "wgmma":
+                fail(f"{module.__name__} at D = {dd}: {info}, not the wgmma kernel")
 
     h, d = 16, 64
     for name, cfg in sparse_configs(h).items():
@@ -1854,6 +1872,28 @@ def ops_kernel_check(torch):
                                             D=kw["d"], live_tiles=int(c["counts"].sum())),
              sparse_call, SF.sparse_flash_fwd, SF.sparse_flash_plain, c,
              extra=lambda got, ref: {"empty_rows_zero": bool((got[:, empty] == 0).all())})
+    # the three layouts at D = 128; Fixed at layout blocks of 32 and 64 (its
+    # 16-key blocks come in runs); a causal Fixed layout, whose diagonal
+    # blocks are partial
+    from deepspeed_tpu_torch.ops import sparse_attention as SA
+    s2 = 2048
+    cases = [(f"{name}_d128", cfg.make_layout(s2), SPARSE_BLOCK, False, 128)
+             for name, cfg in sparse_configs(h).items()]
+    for blk in (32, 64):
+        cfg = SA.FixedSparsityConfig(num_heads=h, block=blk, num_local_blocks=4,
+                                     num_global_blocks=1)
+        cases.append((f"fixed_block{blk}", cfg.make_layout(s2), blk, False, 64))
+    cfg = SA.FixedSparsityConfig(num_heads=h, block=SPARSE_BLOCK, num_local_blocks=4,
+                                 num_global_blocks=1, attention="unidirectional")
+    cases.append(("fixed_unidirectional_causal", cfg.make_layout(s2), SPARSE_BLOCK, True, 64))
+    for case, layout, blk, causal, dd in cases:
+        c = sparse_inputs(torch, b=2, s=s2, h=h, kvh=h, d=dd, layout=layout, causal=causal,
+                          seed=3, block=blk)
+        kb = SF.key_blocks_of(c["table"], c["counts"], c["bits"])
+        held("sparse_flash_fwd", case, dict(B=2, S=s2, H=h, D=dd, block=blk,
+                                            stages=int(kb.stage_start[-1]),
+                                            full_stages=int(kb.full.sum())),
+             sparse_call, SF.sparse_flash_fwd, SF.sparse_flash_plain, c)
     torch.cuda.empty_cache()
 
     for d in (64, 128, 256):
@@ -1862,10 +1902,20 @@ def ops_kernel_check(torch):
             held("evoformer_flash_fwd", f"d{d}_{biases}", dict(B=1, N=4, S=256, H=4, D=d),
                  evo_call, EF.evoformer_flash_fwd, EF.evoformer_flash_plain, c)
     for case, shape, kw in (("main_path", EVO_MAIN, {}),
-                            ("s512_bf16_biases", (1, 2, 512, 2, 128), dict(bias_dtype=torch.bfloat16))):
+                            ("s512_bf16_biases", (1, 2, 512, 2, 128), dict(bias_dtype=torch.bfloat16)),
+                            ("s128_one_stage", (1, 4, 128, 4, 64), {}),
+                            ("strides_unfolded_b2_n3", (2, 3, 256, 4, 64), dict(spare_rows=1))):
         c = evo_inputs(torch, shape, seed=3, **kw)
         held("evoformer_flash_fwd", case, dict(zip("BNSHD", shape)),
              evo_call, EF.evoformer_flash_fwd, EF.evoformer_flash_plain, c)
+    # an MSA row whose mask bias is -inf everywhere outputs 0 (the row of
+    # -1e9 in every case above averages V)
+    for d in (64, 256):
+        c = evo_inputs(torch, (1, 4, 256, 4, d), seed=4)
+        c["b1"][:, 1] = float("-inf")
+        held("evoformer_flash_fwd", f"d{d}_minus_inf_row", dict(B=1, N=4, S=256, H=4, D=d),
+             evo_call, EF.evoformer_flash_fwd, EF.evoformer_flash_plain, c,
+             extra=lambda got, ref: {"minus_inf_row_zero": bool((got[:, 1] == 0).all())})
     torch.cuda.empty_cache()
 
     # K9: codes and scales byte-identical to the plain version, which draws
@@ -1934,6 +1984,7 @@ def ops_kernel_time(torch):
         qh, kh, vh = (c[x].transpose(1, 2) for x in "qkv")
         nbytes, flops = sparse_work(c)
         b_ms, b_by = bound(nbytes, flops)
+        kb = SF.key_blocks_of(c["table"], c["counts"], c["bits"])
         row = dict(ms=cuda_ms(torch, lambda i: sparse_call(SF.sparse_flash_fwd, c)),
                    plain_ms=cuda_ms(torch, lambda i: sparse_call(SF.sparse_flash_plain, c),
                                     reps=2, iters=1),
@@ -1941,7 +1992,9 @@ def ops_kernel_time(torch):
                        qh, kh, vh, attn_mask=token), reps=3, iters=5),
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
                    live_tiles=int(c["counts"].sum()), tiles=(SPARSE_S // TILE) ** 2,
-                   fine_density=sparse_pairs(c) / SPARSE_S ** 2)
+                   fine_density=sparse_pairs(c) / SPARSE_S ** 2,
+                   stages=int(kb.stage_start[-1]), full_stages=int(kb.full.sum()))
+        row["tflops"] = flops / row["ms"] / 1e9
         emit("ops_kernel_time", kernel="sparse_flash_fwd", case=name,
              shape=dict(B=SPARSE_B, S=SPARSE_S, H=h, D=d, dtype="bfloat16"),
              library="F.scaled_dot_product_attention with the (S, S) boolean token mask", **row)
@@ -1962,6 +2015,7 @@ def ops_kernel_time(torch):
                library_ms=cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
                    qf, kf, vf, attn_mask=bias, scale=dd ** -0.5)),
                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+    row["tflops"] = flops / row["ms"] / 1e9
     emit("ops_kernel_time", kernel="evoformer_flash_fwd", case="main_path",
          shape=dict(zip("BNSHD", EVO_MAIN)), library="F.scaled_dot_product_attention with "
          "b1 + b2 summed beforehand into a (B*N, H, S, S) bf16 mask", **row)
@@ -2182,6 +2236,8 @@ WGMMA_LIBS = {
                    ("ring_fwd_wgmma", "ring_dq_wgmma", "ring_dkv_wgmma")),
     "flash_attention": ("deepspeed_tpu_torch.ops.flash_attention",
                         ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")),
+    "sparse_flash": ("deepspeed_tpu_torch.ops.sparse_flash", ("sparse_fwd_wgmma",)),
+    "evoformer_flash": ("deepspeed_tpu_torch.ops.evoformer_flash", ("evo_fwd_wgmma",)),
 }
 
 
@@ -2191,8 +2247,8 @@ def wgmma_build_report(op_builder, lib):
     memory and threads a block from the library's kernel_info, and its HGMMA
     (wgmma) instructions from ``cuobjdump --dump-sass``. Fails unless ptxas
     kept setmaxnreg, every wgmma kernel issues HGMMA and spills nothing, and
-    the library's wgmma kernels at D 64 and 128 (the forward K13 / K3, and
-    the backward K14 / K15, K4 / K5) are all there. A kernel with a causal
+    the library's wgmma kernels at D 64 and 128 (the forward K13 / K3 / K11
+    / K12, and the backward K14 / K15, K4 / K5) are all there. A kernel with a causal
     template argument is named ``base<D, causal>`` or ``base<D, noncausal>``."""
     import importlib
     import re
@@ -2207,8 +2263,8 @@ def wgmma_build_report(op_builder, lib):
         fail(f"ptxas ignored setmaxnreg in {lib}.cu")
 
     def short(mangled):
-        m = re.search(r"((?:ring|flash)_(?:fwd|dq|dkv)_(?:kernel|wgmma))ILi(\d+)E(?:Lb([01])E)?",
-                      mangled)
+        m = re.search(r"((?:ring|flash|sparse|evo)_(?:fwd|dq|dkv)_(?:kernel|wgmma))ILi(\d+)E"
+                      r"(?:Lb([01])E)?", mangled)
         if m is None:
             return mangled
         causal = {"1": ", causal", "0": ", noncausal", None: ""}[m.group(3)]

@@ -1,12 +1,11 @@
 // Hopper (sm_90a) primitives for the port's attention kernels: TMA tile loads
 // into 128-byte-swizzled shared memory, mbarrier pipelines, wgmma with f32
 // accumulators in registers, and register reallocation between warpgroups.
-// Raw PTX, no CUTLASS. Used by ring_flash.cu's ring_dq_wgmma (K14, for
-// deepspeed_tpu/sequence/ring_flash.py _ring_dq_kernel) and ring_dkv_wgmma
-// (K15, for _ring_dkv_kernel), and by the forward of flash_fwd_wgmma.cuh
-// (K13 in ring_flash.cu, K3 in flash_attention.cu); the other attention
-// kernels (K4, K5 in flash_attention.cu, sparse_flash.cu, evoformer_flash.cu)
-// can take the same design. The kernel layout they serve: consumer warpgroups of 64 rows
+// Raw PTX, no CUTLASS. Used by the backward of flash_bwd_wgmma.cuh (K14 /
+// K15 in ring_flash.cu, K4 / K5 in flash_attention.cu) and the forward of
+// flash_fwd_wgmma.cuh (K13 in ring_flash.cu, K3 in flash_attention.cu, K11
+// in sparse_flash.cu, K12 in evoformer_flash.cu). The kernel layout they
+// serve: consumer warpgroups of 64 rows
 // whose f32 accumulators live in registers (setmaxnreg raises a consumer to
 // 240 registers a thread, enough for three or four 64 x 128 f32 tiles, and
 // drops the producer to 24), and one producer warp feeding a ring of
@@ -197,6 +196,11 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                "r"(bytes)
                : "memory");
 }
+// orders this thread's shared-memory stores before later reads of the async
+// proxy (wgmma, TMA) that a barrier hands them to
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 // wait until the phase of parity `parity` has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_addr(bar);
@@ -233,6 +237,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// one box of a 5-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
       : "memory");
 }
 
@@ -291,6 +306,16 @@ __device__ __forceinline__ void tma_rows(__nv_bfloat16* dst, const CUtensorMap* 
   for (int c = 0; c < D / 64; ++c) tma_load_4d(dst + c * rows * 64, map, bar, c * 64, head, row0, b);
 }
 
+// the same from a 5-D (D, heads, S, N, B) map at (n, b)
+template <int D>
+__device__ __forceinline__ void tma_rows5(__nv_bfloat16* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int rows, int head, int row0, int n,
+                                          int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    tma_load_5d(dst + c * rows * 64, map, bar, c * 64, head, row0, n, b);
+}
+
 // ------------------------------------------------------------------- host
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -318,14 +343,28 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// A tensor map of `rank` dimensions (dims[0] contiguous; strides[i] the
+// byte stride of dimension i + 1) read in boxes of `box` into the
+// 128-byte-swizzled layout (box[0] elements of 128 bytes); out-of-range
+// elements read as zeros.
+inline cudaError_t tiled_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                             int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                             const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // The tensor map of a bf16 (B, S, heads, D) tensor read in place: row r of
 // head h in batch b at base + b * batch_stride + r * row_stride + h * D
 // (elements), read as boxes of `box_rows` rows of one head by 64 columns
 // into the 128-byte-swizzled layout; rows at or past S read as zeros.
 inline cudaError_t rows_map(CUtensorMap* map, const void* base, int D, int heads, int S, int B,
                             long long row_stride, long long batch_stride, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
   if (B == 1) batch_stride = row_stride * S;  // unread; keep it a valid stride
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
@@ -333,12 +372,7 @@ inline cudaError_t rows_map(CUtensorMap* map, const void* base, int D, int heads
                                  static_cast<cuuint64_t>(row_stride) * 2,
                                  static_cast<cuuint64_t>(batch_stride) * 2};
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4, dims, strides, box);
 }
 
 }  // namespace hopper

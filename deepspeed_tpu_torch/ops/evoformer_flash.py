@@ -9,8 +9,8 @@ over the N rows, folded into the logits inside the kernel, so the
 
 ``evoformer_flash_fwd`` takes the tensors' device as the choice of
 implementation: on CUDA tensors it launches the hand-written Hopper kernel
-(``csrc/evoformer_flash.cu``, K12) or raises; on CPU tensors it runs
-``evoformer_flash_plain``. The backward pass is the query-chunked recompute
+(``csrc/evoformer_flash.cu``, K12), which scales q itself, or raises; on CPU
+tensors it runs ``evoformer_flash_plain``. The backward pass is the query-chunked recompute
 of ``ops/evoformer.py``, as in JAX.
 """
 
@@ -83,8 +83,6 @@ def _check(q, k, v, bias1, bias2):
     for t in (k, v, bias1, bias2):
         if t is not None and t.device != q.device:
             raise ValueError(f"evoformer_flash_fwd: tensors on {t.device} and {q.device}")
-    if b * n > 65535:
-        raise ValueError(f"evoformer kernel: B * N = {b * n} exceeds the grid's 65535")
 
 
 def evoformer_flash_fwd(q, k, v, bias1, bias2, *, scale):
@@ -92,28 +90,47 @@ def evoformer_flash_fwd(q, k, v, bias1, bias2, *, scale):
     contiguous: a ``movedim`` view of (B, N, S, H, D) storage is read in
     place); bias1 (B, N, 1, 1, S) or None; bias2 (B, 1, H, S, S) or None,
     any float dtype (read as f32). Returns (B, N, H, S, D) in q's dtype, a
-    view of (B, N, S, H, D) storage. CUDA launches count in
+    view of (B, N, S, H, D) storage. On the card the kernel scales q
+    itself, as ``prescale`` does. CUDA launches count in
     ``evoformer_flash_fwd.launches``."""
     if q.device.type == "cpu":
         return evoformer_flash_plain(q, k, v, bias1, bias2, scale=scale)
     _check(q, k, v, bias1, bias2)
     b, n, h, s, d = q.shape
-    qs = prescale(q, scale)
-    out = torch.empty((b, n, s, h, d), dtype=q.dtype, device=q.device).movedim(3, 2)
+    out = torch.empty((b, n, s, h, d), dtype=q.dtype, device=q.device)
     b1 = None if bias1 is None else bias1.float().contiguous()
     b2 = None if bias2 is None else bias2.float().contiguous()
-    strides = (ctypes.c_longlong * 16)(*[st for t in (qs, k, v, out) for st in t.stride()[:4]])
+    strides = (ctypes.c_longlong * 12)(*[st for t in (q, k, v) for st in t.stride()[:4]])
     fn = op_builder.load("evoformer_flash").ds_evoformer_flash_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                                                    ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), None if b1 is None else b1.data_ptr(),
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None if b1 is None else b1.data_ptr(),
              None if b2 is None else b2.data_ptr(), out.data_ptr(), strides, b, n, h, s, d,
+             float(torch.tensor(scale, dtype=q.dtype)),   # prescale's rounded scale
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"evoformer attention kernel launch failed: cudaError {err}")
     evoformer_flash_fwd.launches += 1
-    return out
+    return out.movedim(3, 2)
 
 
 evoformer_flash_fwd.launches = 0
+
+_KINDS = {"fwd": 0}
+
+
+def kernel_info(kind, d):
+    """The CUDA kernel that ``evoformer_flash_fwd`` (``kind`` "fwd")
+    launches at head dim ``d``, as the built library reports it: its
+    ``variant`` ("wgmma"), ``smem_bytes`` (dynamic shared memory a block)
+    and ``threads`` a block. Builds the library if needed."""
+    info = (ctypes.c_int * 3)()
+    fn = op_builder.load("evoformer_flash").ds_evoformer_kernel_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if fn(_KINDS[kind], int(d), info) != 0:
+        raise ValueError(f"evoformer attention: no {kind} kernel at head dim {d}")
+    return {"variant": "wgmma" if info[0] else "wmma", "smem_bytes": info[1],
+            "threads": info[2]}

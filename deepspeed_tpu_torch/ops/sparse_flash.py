@@ -10,8 +10,10 @@ package's). The port packs each tile's mask to bits once per layout
 
 ``sparse_flash_fwd`` takes the tensors' device as the choice of
 implementation: on CUDA tensors it launches the hand-written Hopper kernel
-(``csrc/sparse_flash.cu``, K11) or raises; on CPU tensors it runs
-``sparse_flash_plain``, the same tile walk in torch. The backward pass is
+(``csrc/sparse_flash.cu``, K11), which walks only the live 16-key blocks of
+each query tile (``compile_key_blocks``, compiled once per tables), or
+raises; on CPU tensors it runs ``sparse_flash_plain``, the TPU kernel's
+tile walk in torch. The backward pass is
 not a kernel in either package: it rebuilds the (S, S) token mask from the
 tiles and recomputes the dense masked attention. Unlike the TPU kernel,
 masked keys get p = 0 explicitly, so a query row that sees no key outputs 0
@@ -24,6 +26,8 @@ transposes to (B, H, S, D) for its kernel, the port's kernel reads the
 """
 
 import ctypes
+import heapq
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,6 +39,9 @@ from . import op_builder
 NEG_INF = -1e30
 TILE_Q = 128
 TILE_K = 128
+KEY_BLOCK = 16                 # the kernel's key grain: one wgmma k-step, one TMA box
+STAGE_SLOTS = 8                # key blocks a kernel stage (128 keys)
+ITEM_COST = 0.5                # an item's Q load and epilogue, in stages, for the deal
 KERNEL_HEAD_DIMS = (64, 128)   # the kernel's compiled head dims; it takes bf16
 
 
@@ -83,10 +90,92 @@ def unpack_mask_bits(bits: torch.Tensor) -> torch.Tensor:
     return on.reshape(qt, ma, TILE_Q, TILE_K).bool()
 
 
+class KeyBlocks(NamedTuple):
+    """The kernel's walk over the live 16-key blocks of each 128-row query
+    tile (``compile_key_blocks``), stages of STAGE_SLOTS blocks in CSR form:
+    query tile t walks stages ``stage_start[t]`` .. ``stage_start[t + 1]``."""
+    order: torch.Tensor        # (QT,) int32: query tiles, most stages first
+    stage_start: torch.Tensor  # (QT + 1,) int32
+    blocks: torch.Tensor       # (NS, STAGE_SLOTS) int32: key block of each slot, -1 padding
+    bits: torch.Tensor         # (NS, TILE_Q, 4) int32: the mask of the stage's 128
+    #                            gathered columns (slot c // 16, key 16 block + c % 16)
+    full: torch.Tensor         # (NS,) int32: 1 where every bit of the stage is set
+
+
+def compile_key_blocks(table, counts, bits) -> KeyBlocks:
+    """The live KEY_BLOCK-key blocks of each query tile, from the tile
+    tables (table, counts, bits) of ``compile_layout_tables`` /
+    ``pack_mask_bits``: a block is listed if any row of the tile sees one of
+    its keys. Blocks go in ascending order, STAGE_SLOTS to a stage of 128
+    keys, the last stage padded with empty slots (-1, no mask bit set).
+    Computed where ``bits`` lies; the kernel's input form."""
+    dev = bits.device
+    qt, ma = table.shape
+    per_tile = TILE_K // KEY_BLOCK
+    valid = torch.arange(ma, device=dev)[None, :] < counts.to(dev).long()[:, None]
+    w = bits.long() & 0xFFFFFFFF                                     # (QT, MA, TQ, 4)
+    halves = torch.stack((w & 0xFFFF, w >> 16), dim=-1).reshape(qt, ma, TILE_Q, per_tile)
+    live = (halves != 0).any(dim=2) & valid[:, :, None]              # (QT, MA, 8)
+    key = table.to(dev).long()[:, :, None] * per_tile + torch.arange(per_tile, device=dev)
+    big = torch.iinfo(torch.int64).max
+    key = torch.where(live, key, big).reshape(qt, ma * per_tile)
+    key, src = key.sort(dim=1, stable=True)                           # live blocks first
+    n_live = live.reshape(qt, -1).sum(dim=1)
+    n_stages = (n_live + STAGE_SLOTS - 1) // STAGE_SLOTS
+    stage_start = torch.zeros(qt + 1, dtype=torch.long, device=dev)
+    stage_start[1:] = n_stages.cumsum(0)
+    ns = int(stage_start[-1])
+    ms = int(n_stages.max()) if qt else 0
+    width = ms * STAGE_SLOTS
+    if width > key.shape[1]:                                          # room for padding
+        pad = width - key.shape[1]
+        key = torch.cat((key, torch.full((qt, pad), big, device=dev)), dim=1)
+        src = torch.cat((src, torch.zeros((qt, pad), dtype=src.dtype, device=dev)), dim=1)
+    key, src = key[:, :width], src[:, :width]
+    on = key != big                                                   # (QT, MS * 8)
+    # each slot's 16 columns of every row: 16-bit halves of the tile's words
+    flat = halves.permute(0, 1, 3, 2).reshape(qt, ma * per_tile, TILE_Q)
+    cols = torch.gather(flat, 1, src[:, :, None].expand(-1, -1, TILE_Q))
+    cols = torch.where(on[:, :, None], cols, 0).reshape(qt, ms, STAGE_SLOTS // 2, 2, TILE_Q)
+    words = (cols[:, :, :, 0] | (cols[:, :, :, 1] << 16)).permute(0, 1, 3, 2)  # (QT, MS, TQ, 4)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    in_csr = torch.arange(ms, device=dev)[None, :] < n_stages[:, None]   # (QT, MS)
+    blocks = torch.where(on, key, -1).reshape(qt, ms, STAGE_SLOTS)[in_csr]
+    words = words[in_csr]
+    full = (words == -1).reshape(ns, TILE_Q * 4).all(dim=1)
+    order = torch.sort(n_stages, descending=True, stable=True).indices
+    i32 = torch.int32
+    return KeyBlocks(order.to(i32), stage_start.to(i32), blocks.to(i32).contiguous(),
+                     words.to(i32).contiguous(), full.to(i32))
+
+
+def deal_items(stage_start, order, b, h, blocks):
+    """The kernel's items dealt to ``blocks`` persistent blocks: item i is
+    query tile ``order[i // (h b)]`` of (batch, head) i % (h b), so items
+    come longest first; each goes to the block with the least work so far
+    (its stages plus ITEM_COST an item; ties to the lowest block). Returns
+    (start (blocks + 1,), items) int32 on the CPU: block x takes items
+    ``items[start[x]:start[x + 1]]`` in that order."""
+    n_stages = (stage_start[1:] - stage_start[:-1]).tolist()
+    weights = [n_stages[t] + ITEM_COST for t in order.tolist()]
+    hb = h * b
+    heap = [(0.0, x) for x in range(blocks)]
+    lists = [[] for _ in range(blocks)]
+    for i in range(len(weights) * hb):
+        load, x = heapq.heappop(heap)
+        lists[x].append(i)
+        heapq.heappush(heap, (load + weights[i // hb], x))
+    start = np.cumsum([0] + [len(items) for items in lists])
+    return (torch.tensor(start, dtype=torch.int32),
+            torch.tensor([i for items in lists for i in items], dtype=torch.int32))
+
+
 class _LayoutCache:
-    """layout bytes -> compiled (table, counts, bits), the kernel's inputs,
-    on the CPU (the f32 masks are packed to bits at once and dropped), and
-    copies on each device they were asked for."""
+    """layout bytes -> compiled (table, counts, bits) on the CPU (the f32
+    masks are packed to bits at once and dropped), and copies on each
+    device they were asked for; the kernel's key-block tables of each copy
+    are compiled at its first launch and kept in ``_KEY_BLOCKS``, keyed by
+    the copy's bits, which this cache holds for good."""
 
     def __init__(self):
         self._store = {}
@@ -108,6 +197,33 @@ _LAYOUTS = _LayoutCache()
 # the f32 masks precompile_layout handed out -> their cached bits, so that
 # ``tables=`` does not pack them again
 _BITS_OF_MASKS = WeakTensorKeyDictionary()
+# bits -> their compile_key_blocks tables: a second launch on the same
+# tables compiles nothing
+_KEY_BLOCKS = WeakTensorKeyDictionary()
+
+
+def key_blocks_of(table, counts, bits) -> KeyBlocks:
+    """``compile_key_blocks`` of these tables, compiled once per bits tensor."""
+    kb = _KEY_BLOCKS.get(bits)
+    if kb is None:
+        kb = _KEY_BLOCKS[bits] = compile_key_blocks(table, counts, bits)
+    return kb
+
+
+_DEALS = WeakTensorKeyDictionary()   # bits -> {(b, h, blocks): deal_items on bits' device}
+
+
+def _deal_of(kb, bits, b, h):
+    """The deal of these tables' items at (b, h) to one block an SM (fewer
+    when there are fewer items), made once per bits tensor and shape."""
+    items = kb.order.numel() * h * b
+    sms = torch.cuda.get_device_properties(bits.device).multi_processor_count
+    blocks = min(items, sms)
+    deals = _DEALS.setdefault(bits, {})
+    if (b, h, blocks) not in deals:
+        deals[(b, h, blocks)] = tuple(t.to(bits.device) for t in deal_items(
+            kb.stage_start.cpu(), kb.order.cpu(), b, h, blocks))
+    return (*deals[(b, h, blocks)], blocks)
 
 
 def precompile_layout(layout, layout_block: int, causal: bool = False, device=None):
@@ -205,20 +321,23 @@ def _check(q, k, v, table, counts, bits):
 
 def sparse_flash_fwd(q, k, v, table, counts, bits, scale):
     """K11: block-sparse attention of q against k, v over the live tiles of
-    (table, counts, bits). CUDA launches count in
+    (table, counts, bits); the kernel walks their live 16-key blocks
+    (``key_blocks_of``). CUDA launches count in
     ``sparse_flash_fwd.launches``."""
     if q.device.type == "cpu":
         return sparse_flash_plain(q, k, v, table, counts, bits, scale)
     _check(q, k, v, table, counts, bits)
     b, s, h, d = q.shape
+    kb = key_blocks_of(table, counts, bits)
+    deal_start, deal, blocks = _deal_of(kb, bits, b, h)
     out = torch.empty_like(q)
     fn = op_builder.load("sparse_flash").ds_sparse_flash_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float,
-                                                                    ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p] + \
+            [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(), counts.data_ptr(),
-             bits.data_ptr(), out.data_ptr(), b, s, h, d, table.shape[1], scale,
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *(t.data_ptr() for t in kb),
+             deal_start.data_ptr(), deal.data_ptr(), blocks, out.data_ptr(), b, s, h, d, scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"block-sparse attention kernel launch failed: cudaError {err}")
@@ -227,6 +346,23 @@ def sparse_flash_fwd(q, k, v, table, counts, bits, scale):
 
 
 sparse_flash_fwd.launches = 0
+
+_KINDS = {"fwd": 0}
+
+
+def kernel_info(kind, d):
+    """The CUDA kernel that ``sparse_flash_fwd`` (``kind`` "fwd") launches
+    at head dim ``d``, as the built library reports it: its ``variant``
+    ("wgmma"), ``smem_bytes`` (dynamic shared memory a block) and
+    ``threads`` a block. Builds the library if needed."""
+    info = (ctypes.c_int * 3)()
+    fn = op_builder.load("sparse_flash").ds_sparse_kernel_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if fn(_KINDS[kind], int(d), info) != 0:
+        raise ValueError(f"block-sparse attention: no {kind} kernel at head dim {d}")
+    return {"variant": "wgmma" if info[0] else "wmma", "smem_bytes": info[1],
+            "threads": info[2]}
 
 
 class _SparseAttn(torch.autograd.Function):

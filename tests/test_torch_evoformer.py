@@ -147,3 +147,36 @@ def test_supported_rule_is_jax_rule():
     for s in (64, 128, 256, 384, 512, 640, 1024, 70):
         for d in (16, 32, 64, 128, 256):
             assert tef.evoformer_flash_supported(s, d) == jef.evoformer_flash_supported(s, d)
+
+
+def test_cuda_route_scales_q_in_the_kernel(monkeypatch):
+    """On the card the kernel scales q (``prescale`` is the CPU plain
+    version's alone): the wrapper hands q itself, its strides and the scale
+    rounded to bf16 to the library, and never calls ``prescale``. Run here
+    on meta tensors against a stand-in library."""
+    seen = {}
+
+    class Entry:
+        argtypes = None
+
+        def __call__(self, *args):
+            seen["args"] = args
+            return 0
+
+    lib = type("Lib", (), {"ds_evoformer_flash_fwd": Entry()})()
+    monkeypatch.setattr(tef, "prescale", lambda *a: pytest.fail("prescale on the CUDA route"))
+    monkeypatch.setattr(tef, "_check", lambda *a: None)
+    monkeypatch.setattr(tef.op_builder, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("Stream", (), {"cuda_stream": 0})())
+    b, n, s, h, d = 1, 2, 128, 2, 64
+    q, k, v = (torch.empty(b, n, s, h, d, dtype=torch.bfloat16, device="meta").movedim(3, 2)
+               for _ in range(3))
+    before = tef.evoformer_flash_fwd.launches
+    out = tef.evoformer_flash_fwd(q, k, v, None, None, scale=128 ** -0.5)
+    assert tef.evoformer_flash_fwd.launches == before + 1
+    assert out.shape == (b, n, h, s, d) and out.movedim(2, 3).is_contiguous()
+    args = seen["args"]
+    assert list(args[6]) == [st for _ in range(3) for st in q.stride()[:4]]
+    assert args[7:12] == (b, n, h, s, d)
+    assert args[12] == float(torch.tensor(128 ** -0.5, dtype=torch.bfloat16))

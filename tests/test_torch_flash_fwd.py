@@ -1,11 +1,13 @@
 """The Hopper attention forward's contracts that hold off the card.
 
 The forward (``ops/csrc/flash_fwd_wgmma.cuh``, K3 through
-``ops.flash_attention.flash_attention_fwd`` and K13 through
-``sequence.ring_flash.ring_fwd_step``) runs only on an H100, where
+``ops.flash_attention.flash_attention_fwd``, K13 through
+``sequence.ring_flash.ring_fwd_step``, K11 through
+``ops.sparse_flash.sparse_flash_fwd`` and K12 through
+``ops.evoformer_flash.evoformer_flash_fwd``) runs only on an H100, where
 ``chip_smoke.py`` holds it to the plain versions. Here: CPU tensors take
 the plain version without building or loading any library; the kind codes
-of both ``kernel_info`` functions match the C ``Kind`` enums their
+of the four ``kernel_info`` functions match the C ``Kind`` enums their
 libraries index by; ``chip_phase_count.py`` still finds every line it
 instruments in the forward and the backward; ``chip_compare.py`` reads both training
 slices' rows from a child's output.
@@ -20,8 +22,10 @@ from pathlib import Path
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops import evoformer_flash as EF
 from deepspeed_tpu_torch.ops import flash_attention as FA
 from deepspeed_tpu_torch.ops import op_builder
+from deepspeed_tpu_torch.ops import sparse_flash as SF
 from deepspeed_tpu_torch.sequence import ring_flash as RF
 
 REPO = Path(__file__).resolve().parents[1]
@@ -71,8 +75,9 @@ def test_ring_fwd_step_on_cpu_is_the_plain_version_without_a_library(no_library)
     assert RF.ring_fwd_step.launches == before
 
 
-@pytest.mark.parametrize("module, source", [(FA, "flash_attention.cu"), (RF, "ring_flash.cu")],
-                         ids=["flash_attention", "ring_flash"])
+@pytest.mark.parametrize("module, source", [(FA, "flash_attention.cu"), (RF, "ring_flash.cu"),
+                                            (SF, "sparse_flash.cu"), (EF, "evoformer_flash.cu")],
+                         ids=["flash_attention", "ring_flash", "sparse_flash", "evoformer_flash"])
 def test_kernel_info_kinds_match_the_c_enum(module, source):
     """kernel_info passes kind codes that the library's Kind enum gives the
     same meaning."""
@@ -82,7 +87,10 @@ def test_kernel_info_kinds_match_the_c_enum(module, source):
 
 @pytest.mark.parametrize("module, source, entry", [
     (FA, "flash_attention.cu", "ds_flash_kernel_info"),
-    (RF, "ring_flash.cu", "ds_ring_kernel_info")], ids=["flash_attention", "ring_flash"])
+    (RF, "ring_flash.cu", "ds_ring_kernel_info"),
+    (SF, "sparse_flash.cu", "ds_sparse_kernel_info"),
+    (EF, "evoformer_flash.cu", "ds_evoformer_kernel_info")],
+    ids=["flash_attention", "ring_flash", "sparse_flash", "evoformer_flash"])
 def test_kernel_info_calls_its_library_entry_point(module, source, entry):
     assert f'extern "C" int {entry}(int kind, int D, int* info)' in (CSRC / source).read_text()
     assert f".{entry}" in inspect.getsource(module.kernel_info)
@@ -138,3 +146,17 @@ def test_compare_summary_reads_both_training_slices():
         "ring": {**step, "idle_share": 0.002, "device_ms_by_class": {"ring_fwd": 114.0}},
         "gpt2_xl": {**step, "ms_per_step": 796.0, "idle_share": 0.01,
                     "device_ms_by_class": {"flash_fwd": 11.6}}}
+
+
+def test_compare_summary_reads_the_ops_kernel_rows():
+    """K11 per layout and K12 come through as kernels with their SDPA times."""
+    stdout = "\n".join(json.dumps(row) for row in (
+        dict(phase="ops_kernel_time", kernel="sparse_flash_fwd", case="fixed", ms=0.25,
+             library_ms=1.05),
+        dict(phase="ops_kernel_time", kernel="evoformer_flash_fwd", case="main_path", ms=0.18,
+             library_ms=0.24)))
+    got = CHIP_COMPARE.summarize(stdout)
+    assert got["kernels"] == {"sparse_flash_fwd": {"fixed": 0.25},
+                              "evoformer_flash_fwd": {"main_path": 0.18}}
+    assert got["library"] == {"sparse_flash_fwd": {"fixed": 1.05},
+                              "evoformer_flash_fwd": {"main_path": 0.24}}

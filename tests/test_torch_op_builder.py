@@ -74,6 +74,37 @@ def test_every_source_header_is_found_in_the_real_tree():
         assert found == want, src
 
 
+@pytest.mark.parametrize("src", ["sparse_flash.cu", "evoformer_flash.cu"])
+def test_forward_libraries_take_the_hopper_headers(src):
+    """K11 and K12 are modes of the Hopper forward: they include its header
+    and, through it, the wgmma primitives, and no longer the wmma tiles."""
+    found = {p.name for p in op_builder._headers(op_builder.CSRC / src, set())}
+    assert found == {"flash_fwd_wgmma.cuh", "hopper_tiles.cuh"}
+
+
+@pytest.mark.parametrize("header", ["flash_fwd_wgmma.cuh", "hopper_tiles.cuh"])
+def test_forward_header_edit_marks_both_libraries_stale(tmp_path, monkeypatch, header):
+    """A copy of the real sources with libraries newer than all of them: an
+    edit of either forward header rebuilds sparse_flash and evoformer_flash,
+    an edit of the wmma tiles neither."""
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    build.mkdir()
+    import shutil
+    shutil.copytree(op_builder.CSRC, csrc)
+    for path in csrc.iterdir():
+        os.utime(path, (1000, 1000))
+    names = ("sparse_flash", "evoformer_flash")
+    for name in names:
+        (build / f"lib{name}.so").write_bytes(b"")
+        os.utime(build / f"lib{name}.so", (2000, 2000))
+    monkeypatch.setattr(op_builder, "CSRC", csrc)
+    monkeypatch.setattr(op_builder, "BUILD_DIR", build)
+    os.utime(csrc / "attention_tiles.cuh", (3000, 3000))
+    assert not any(op_builder._stale(n) for n in names)
+    os.utime(csrc / header, (3000, 3000))
+    assert all(op_builder._stale(n) for n in names)
+
+
 def test_nvcc_flags_target_hopper_with_wgmma():
     flags = " ".join(op_builder.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
