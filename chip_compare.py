@@ -1,14 +1,24 @@
 #!/usr/bin/env python3
-"""Time the two training slices and the two block-sparse / Evoformer
-kernels of this checkout against another tree of the repository on one
-card.
+"""Time the two training slices, the weight-only-quantized matmul and
+fused decode attention, and the two block-sparse / Evoformer kernels of this
+checkout against another tree of the repository on one card.
 
     python3 chip_compare.py OTHER_DIR
 
 OTHER_DIR holds another tree of the repository, for example the parent
 commit (``git archive <commit> | tar -x -C OTHER_DIR``). Each tree runs in
 a child process of its own, in the order other, this, this, other, so both
-meet the card in the same states: first K11 on the three layouts of the
+meet the card in the same states: first the tree's own
+``chip_smoke.kernel_phases`` (phases 2-4: the build, K1 against its plain
+version and timed beside gather + SDPA) and ``chip_smoke.main_path``
+(phases 5-7: ``serve()`` on llama3-8b and its decode and prefill steps'
+profile); then K6 (the weight-only-quantized
+matmul) on llama3-8b's gate, down and q projections at int8, int4 and fp6
+and M = 4 and 2048, beside torch.matmul on the dequantized bf16 weight, and
+K2 (fused decode attention) on the main (B 4, 8192 live slots a sequence)
+and mixed cases and at B 1 and 16 on full caches, beside SDPA, all timed by
+the same code in both trees: "ms" is device time (the calls replayed from
+one CUDA graph), "event_ms" back-to-back calls by CUDA events; then K11 on the three layouts of the
 public-ops slice (B 4, S 4096, 16 heads of 64, block 16) and K12 at
 (1, 512, 256, 4, 64), each beside SDPA with the same mask or summed bias,
 timed by the same code in both trees; then the tree's own
@@ -44,8 +54,79 @@ from deepspeed_tpu_torch.ops import evoformer_flash as EF
 from deepspeed_tpu_torch.ops import sparse_flash as SF
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-op_builder.build(["ring_flash", "fused_adam", "flash_attention", "sparse_flash", "evoformer_flash"])
 smi = cs.nvidia_smi()
+cs.kernel_phases(torch)   # builds every kernel; K1 checked and timed
+cs.main_path(torch, smi)  # the serving step on llama3-8b, then its profile
+gc.collect()
+torch.cuda.empty_cache()
+import statistics
+from deepspeed_tpu_torch.ops import woq_matmul as W
+from deepspeed_tpu_torch.ops import decode_attention as DA
+
+
+def graph_ms(fn, iters=20, reps=5):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    del graph
+    return statistics.median(times)
+
+
+g = torch.Generator(device="cuda").manual_seed(4)
+for pname in ("gate", "down", "q"):
+    k, n = cs.PROJ[pname]
+    w = torch.randn(k, n, generator=g, device="cuda").mul_(0.02).to(torch.bfloat16)
+    for bits in (8, 4, 6):
+        st = W.quantize_woq(w, bits, cs.WOQ_GROUP)
+        qbytes = st["q"].numel() + st["scales"].numel() * 4
+        copies = [st] + [dict(st, q=st["q"].clone(), scales=st["scales"].clone())
+                         for _ in range(int(2 * cs.L2_BYTES // qbytes))]
+        w_deq = W.woq_dequantize(st, torch.bfloat16)
+        libs = [w_deq] + [w_deq.clone() for _ in range(int(2 * cs.L2_BYTES // (2 * k * n)))]
+        for m in (4, 2048):
+            x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+            kern = lambda i: W.woq_matmul(x, copies[i % len(copies)])
+            lib = lambda i: x @ libs[i % len(libs)]
+            nbytes = qbytes + m * k * 2 + m * n * 2
+            cs.emit("woq_kernel_time", kernel="woq_matmul", case=f"{pname}/int{bits}/M{m}",
+                    ms=graph_ms(kern), event_ms=cs.cuda_ms(torch, kern),
+                    library_ms=graph_ms(lib), library_event_ms=cs.cuda_ms(torch, lib),
+                    library="x @ the pre-dequantized bf16 weight (torch.matmul)",
+                    bound_ms=cs.bound(nbytes, 2 * m * k * n)[0], card=smi)
+            del x
+        del st, copies, w_deq, libs
+    del w
+    torch.cuda.empty_cache()
+for name, lens in (("main", [8192] * 4), ("mixed", [8192, 8065, 4097, 1, 0]),
+                   ("B1", [8192]), ("B16", [8192] * 16)):
+    c = cs.decode_case(torch, lens, seed=1)
+    kern = lambda i: DA.fused_decode_attention(c["q"], c["k"], c["v"], c["lens"])
+    lib = cs.sdpa_decode(torch, c)
+    cs.emit("v1_kernel_time", kernel="fused_decode_attention", case=name, ms=graph_ms(kern),
+            event_ms=cs.cuda_ms(torch, kern), library_ms=graph_ms(lib),
+            library_event_ms=cs.cuda_ms(torch, lib),
+            library="F.scaled_dot_product_attention (boolean mask, enable_gqa)",
+            bound_ms=cs.bound(*cs.decode_work(c))[0], card=smi)
+    del c
+    torch.cuda.empty_cache()
 for name, cfg in cs.sparse_configs(16).items():
     c = cs.sparse_inputs(torch, b=cs.SPARSE_B, s=cs.SPARSE_S, h=16, kvh=16, d=64,
                          layout=cfg.make_layout(cs.SPARSE_S), causal=False, seed=4)
@@ -116,10 +197,11 @@ TIMEOUT_S = 1200
 
 def summarize(stdout):
     """A child's summary from its JSON lines: each kernel's ms by case and
-    the library call's ms beside it (where the row has one), and each train
-    step's ms, tokens/s, MFU, peak memory, idle share and device ms by class
-    ("ring": qwen2-7b over 4 shards, "gpt2_xl")."""
-    out = {"kernels": {}, "library": {}, "ring": {}, "gpt2_xl": {}}
+    the library call's ms beside it (where the row has one), the serving
+    run's tokens/s, peak memory and each step's wall, device and idle
+    share, and each train step's ms, tokens/s, MFU, peak memory, idle share
+    and device ms by class ("ring": qwen2-7b over 4 shards, "gpt2_xl")."""
+    out = {"kernels": {}, "library": {}, "serving": {}, "ring": {}, "gpt2_xl": {}}
     for line in stdout.splitlines():
         try:
             row = json.loads(line)
@@ -128,7 +210,14 @@ def summarize(stdout):
         phase = row.get("phase") if isinstance(row, dict) else None
         step = {"ring_train_path": "ring", "ring_step_profile": "ring",
                 "train_path": "gpt2_xl", "train_step_profile": "gpt2_xl"}.get(phase)
-        if phase in ("ring_kernel_time", "train_kernel_time", "ops_kernel_time"):
+        if phase == "main_path":
+            out["serving"].update({k: row[k] for k in ("tokens_per_s", "serve_s",
+                                                       "peak_memory_gb")})
+        elif phase == "step_profile":
+            out["serving"][f"{row['step']}_step"] = {
+                k: row[k] for k in ("wall_ms", "device_busy_ms", "idle_share")}
+        elif phase in ("kernel_time", "ring_kernel_time", "train_kernel_time", "ops_kernel_time",
+                       "woq_kernel_time", "v1_kernel_time"):
             out["kernels"].setdefault(row["kernel"], {})[row["case"]] = row["ms"]
             if row.get("library_ms") is not None:
                 out["library"].setdefault(row["kernel"], {})[row["case"]] = row["library_ms"]

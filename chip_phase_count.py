@@ -1,10 +1,20 @@
 #!/usr/bin/env python3
-"""Where the attention kernels' time goes on the card: a clock64 count of
-each phase of the Hopper forward (``ops/csrc/flash_fwd_wgmma.cuh``, K3,
-K13, K11 and K12) and backward (``ops/csrc/flash_bwd_wgmma.cuh``, K4 / K5
-and K14 / K15).
+"""Where the attention kernels' and the weight-only-quantized matmul's
+time goes on the card: a clock64 count of each phase of the Hopper forward
+(``ops/csrc/flash_fwd_wgmma.cuh``, K3, K13, K11 and K12), backward
+(``ops/csrc/flash_bwd_wgmma.cuh``, K4 / K5 and K14 / K15) and of K6's
+streaming and wgmma routes (``ops/csrc/woq_matmul.cu``).
 
-    python3 chip_phase_count.py
+    python3 chip_phase_count.py        # everything
+    python3 chip_phase_count.py woq    # K6 only (builds only its library)
+
+K6 first: the streaming route at M = 4 and the wgmma route at M = 2048 on
+llama3-8b's gate and down projections at int8, int4 and fp6 (per warp
+step: the wait for the step's bytes and the dequantization with its
+products; per warp: staging x and the scales, and the sums across warps and
+blocks; per wgmma batch: the stage wait, the byte loads, the
+dequantization, the wait for the previous batch's products; per tile: the
+epilogue and the producer's wait for free stages).
 
 Copies the kernel sources into the build directory, adds clock64 counters
 around each phase of the consumer loops and around the producer's wait for
@@ -197,6 +207,103 @@ def patch_backward(text):
     return parts["dq"] + parts["dkv"]
 
 
+# K6, the weight-only-quantized matmul (ops/csrc/woq_matmul.cu): clocks of
+# the streaming route (small M) per warp step and of the wgmma route (large
+# M) per consumer k16 step, from lane 0 of each warp (stream) or thread 0 of
+# each consumer warpgroup and the producer (wgmma)
+WOQ_STREAM_PHASES = ["stage", "wait_bytes", "dequant_mma", "reduce", "steps", "warps"]
+WOQ_WGMMA_PHASES = ["wait_full", "lds_bytes", "dequant", "wgmma_wait", "epilogue", "batches",
+                    "producer_wait_empty", "tiles"]
+WOQ_PATCHES = [
+    ("namespace stream {\n",
+     "namespace stream {\n__device__ unsigned long long g_woq_stream[6];\n"),
+    ("  float sc[F::PK][16];\n  int i = 0;",
+     "  float sc[F::PK][16];\n  unsigned long long pc[4] = {0, 0, 0, 0}, nst = 0;\n"
+     "  long long tph = 0;\n  int i = 0;"),
+    ("    __syncthreads();   // the previous chunk's slice and scales are read\n",
+     "    tph = clock64();\n"
+     "    __syncthreads();   // the previous chunk's slice and scales are read\n"),
+    ("    __syncthreads();\n    int gcur = -1;\n",
+     "    __syncthreads();\n    pc[0] += clock64() - tph;\n    int gcur = -1;\n"),
+    ("        if (i0 + u < n_w) {\n",
+     "        if (i0 + u < n_w) {\n          const long long tw0 = clock64();\n"
+     "#pragma unroll\n          for (int l = 0; l < LOADS; ++l)\n"
+     "            asm volatile(\"mov.b32 %0, %0;\" : \"+r\"(raw[u][l].x));\n"
+     "          const long long tw1 = clock64();\n          pc[1] += tw1 - tw0;\n"),
+    ("          load(raw[u], i + u + F::U);\n",
+     "          pc[2] += clock64() - tw1;\n          ++nst;\n"
+     "          load(raw[u], i + u + F::U);\n"),
+    ("  // the four warps' sums into `red`",
+     "  tph = clock64();\n  // the four warps' sums into `red`"),
+    ("  cluster_sync();   // no block leaves while another reads its shared memory\n",
+     "  cluster_sync();   // no block leaves while another reads its shared memory\n"
+     "  pc[3] += clock64() - tph;\n  if (lane == 0) {\n"
+     "    for (int q = 0; q < 4; ++q) atomicAdd(&g_woq_stream[q], pc[q]);\n"
+     "    atomicAdd(&g_woq_stream[4], nst);\n    atomicAdd(&g_woq_stream[5], 1ull);\n  }\n"),
+    ("namespace wg {\n", "namespace wg {\n__device__ unsigned long long g_woq_wg[8];\n"),
+    ("      StageRing<F::STAGES> ring;\n      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {\n",
+     "      StageRing<F::STAGES> ring;\n      unsigned long long pp = 0;\n"
+     "      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {\n"),
+    ("          mbar_wait(&empty[ring.s], ring.phase ^ 1);\n",
+     "          const long long tp = clock64();\n"
+     "          mbar_wait(&empty[ring.s], ring.phase ^ 1);\n          pp += clock64() - tp;\n"),
+    ("((hh * F::SL + pl) * a.Kp + ks * BR) / a.g);\n          }\n      }\n",
+     "((hh * F::SL + pl) * a.Kp + ks * BR) / a.g);\n          }\n      }\n"
+     "      atomicAdd(&g_woq_wg[6], pp);\n"),
+    ("  uint32_t afr[2][FR][4];\n  StageRing<F::STAGES> ring;\n",
+     "  uint32_t afr[2][FR][4];\n  StageRing<F::STAGES> ring;\n"
+     "  unsigned long long pf[6] = {0, 0, 0, 0, 0, 0}, ntile = 0;\n"
+     "  long long tq = 0, tr = 0;\n"),
+    ("      mbar_wait(&full[ring.s], ring.phase);\n      const unsigned char* st",
+     "      tq = clock64();\n      mbar_wait(&full[ring.s], ring.phase);\n"
+     "      tr = clock64();\n      pf[0] += tr - tq;\n      const unsigned char* st"),
+    ("      // batches of KB k16 steps",
+     "      tq = clock64();\n      pf[1] += tq - tr;\n      // batches of KB k16 steps"),
+    ("        const int buf = bt & 1;\n",
+     "        const int buf = bt & 1;\n        tq = clock64();\n"),
+    ("        wgmma_fence();\n#pragma unroll\n        for (int kk = 0; kk < KB; ++kk)",
+     "        wgmma_fence();\n        tr = clock64();\n        pf[2] += tr - tq;\n"
+     "        ++pf[5];\n#pragma unroll\n        for (int kk = 0; kk < KB; ++kk)"),
+    ("        wgmma_wait<1>();   // the previous batch's products are done\n",
+     "        tq = clock64();\n"
+     "        wgmma_wait<1>();   // the previous batch's products are done\n"
+     "        pf[3] += clock64() - tq;\n"),
+    ("    wgmma_wait<0>();\n#pragma unroll\n    for (int f = 0; f < FR; ++f) {\n",
+     "    tq = clock64();\n    wgmma_wait<0>();\n#pragma unroll\n    for (int f = 0; f < FR; ++f) {\n"),
+    ("                pack_bf16(acc[mt][4 * jj + e], acc[mt][4 * jj + 2 + e]);\n        }\n  }\n",
+     "                pack_bf16(acc[mt][4 * jj + e], acc[mt][4 * jj + 2 + e]);\n        }\n"
+     "    pf[4] += clock64() - tq;\n    ++ntile;\n  }\n"
+     "  if (tid == 0) {\n    for (int q = 0; q < 4; ++q) atomicAdd(&g_woq_wg[q], pf[q]);\n"
+     "    atomicAdd(&g_woq_wg[4], pf[4]);\n    atomicAdd(&g_woq_wg[5], pf[5]);\n"
+     "    atomicAdd(&g_woq_wg[7], ntile);\n  }\n"),
+]
+WOQ_READER = """
+extern "C" int ds_phase_count_woq(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, stream::g_woq_stream, sizeof stream::g_woq_stream);
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(out + 6, wg::g_woq_wg, sizeof wg::g_woq_wg);
+  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(stream::g_woq_stream, zero, 6 * sizeof zero[0]);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(wg::g_woq_wg, zero, sizeof zero);
+  return e;
+}
+"""
+
+
+def patch_woq(text):
+    """The K6 source with the counters in, or None (with the missing text
+    printed) when a patched line is gone."""
+    for old, new in WOQ_PATCHES:
+        if old not in text:
+            print(f"chip_phase_count: FAILED: woq_matmul.cu no longer has {old!r}",
+                  file=sys.stderr)
+            return None
+        text = text.replace(old, new, 1)
+    # the reader goes after the anonymous namespace that holds stream and wg
+    cut = text.rindex("}  // namespace\n") + len("}  // namespace\n")
+    return text[:cut] + WOQ_READER + text[cut:]
+
+
 FWD_READER = '''
 extern "C" int ds_phase_count(unsigned long long* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, flash_fwd::g_phase, sizeof flash_fwd::g_phase);
@@ -215,8 +322,12 @@ extern "C" int ds_phase_count_bwd(unsigned long long* out) {
 '''
 
 
-def instrumented_build(op_builder):
-    """Point op_builder at a patched copy of the sources and build it."""
+ALL_LIBS = ("flash_attention", "ring_flash", "sparse_flash", "evoformer_flash", "woq_matmul")
+
+
+def instrumented_build(op_builder, names=None):
+    """Point op_builder at a patched copy of the sources and build the named
+    libraries from it."""
     src = op_builder.CSRC
     root = op_builder.BUILD_DIR / "phase_count"
     shutil.rmtree(root, ignore_errors=True)
@@ -239,9 +350,14 @@ def instrumented_build(op_builder):
                          ("sparse_flash", FWD_READER), ("evoformer_flash", FWD_READER)):
         path = root / "csrc" / f"{name}.cu"
         path.write_text(path.read_text() + reader)
+    woq = root / "csrc" / "woq_matmul.cu"
+    text = patch_woq(woq.read_text())
+    if text is None:
+        sys.exit(1)
+    woq.write_text(text)
     op_builder.CSRC = root / "csrc"
     op_builder.BUILD_DIR = root / "build"
-    op_builder.build(["flash_attention", "ring_flash", "sparse_flash", "evoformer_flash"])
+    op_builder.build(list(names or ALL_LIBS))
 
 
 def count(torch, op_builder, lib, fn, calls, phases=PHASES, reader="ds_phase_count"):
@@ -266,6 +382,63 @@ def count(torch, op_builder, lib, fn, calls, phases=PHASES, reader="ds_phase_cou
     return out
 
 
+def woq_counts(torch, op_builder):
+    """K6 on llama3-8b's gate and down projections (group 256): the streaming
+    route at M = 4 and the wgmma route at M = 2048, each bit width. Stream
+    clocks are per warp step (16 k values of 128 columns; "stage" and
+    "reduce" per warp), wgmma clocks per consumer batch of fragments (two
+    k16 steps of each slab for int8 / int4, one step's four slabs for fp6,
+    64 columns by BM rows; "wait_full" and "lds_bytes" once a stage of 4 k16
+    steps, "epilogue" per tile, "producer_wait_empty" per tile)."""
+    from deepspeed_tpu_torch.ops import woq_matmul as W
+    g = torch.Generator(device="cuda").manual_seed(4)
+    phases = WOQ_STREAM_PHASES + WOQ_WGMMA_PHASES
+    for pname, (k, n) in (("gate", (4096, 14336)), ("down", (14336, 4096))):
+        w = torch.randn(k, n, generator=g, device="cuda").mul_(0.02).to(torch.bfloat16)
+        for bits in (8, 4, 6):
+            st = W.quantize_woq(w, bits, 256)
+            for m in (4, 2048):
+                x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+                buf = (ctypes.c_ulonglong * len(phases))()
+                read = op_builder.load("woq_matmul").ds_phase_count_woq
+                read.argtypes = [ctypes.c_void_p]
+                read.restype = ctypes.c_int
+                W.woq_matmul(x, st)
+                torch.cuda.synchronize()
+                read(buf)
+                calls = 10
+                for _ in range(calls):
+                    W.woq_matmul(x, st)
+                torch.cuda.synchronize()
+                if read(buf) != 0:
+                    print("chip_phase_count: FAILED: reading the K6 counters", file=sys.stderr)
+                    sys.exit(1)
+                v = dict(zip(phases, buf))
+                route = W.woq_route(m, n, bits)
+                if route == "stream":
+                    per_step = {p: v[p] / max(v["steps"], 1) for p in ("wait_bytes", "dequant_mma")}
+                    per_warp = {p: v[p] / max(v["warps"], 1) for p in ("stage", "reduce")}
+                    out = dict(per_step=per_step, per_warp=per_warp,
+                               steps_per_warp=v["steps"] / max(v["warps"], 1),
+                               warps_per_call=v["warps"] / calls)
+                else:
+                    nb = max(v["batches"], 1)
+                    out = dict(per_batch={p: v[p] / nb for p in
+                                          ("wait_full", "lds_bytes", "dequant", "wgmma_wait")},
+                               epilogue_per_tile=v["epilogue"] / max(v["tiles"], 1),
+                               producer_wait_empty_per_tile=v["producer_wait_empty"]
+                               / max(v["tiles"] / 2, 1),
+                               batches_per_tile=nb / max(v["tiles"], 1),
+                               warpgroup_tiles_per_call=v["tiles"] / calls)
+                print(json.dumps({"phase": "phase_count", "kernel": "woq_matmul", "proj": pname,
+                                  "K": k, "N": n, "M": m, "bits": bits, "route": route,
+                                  "clocks": out}), flush=True)
+                del x
+            del st
+        del w
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -278,7 +451,11 @@ def main():
     from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops import sparse_flash as SF
     from deepspeed_tpu_torch.sequence import ring_flash as RF
-    instrumented_build(op_builder)
+    only_woq = sys.argv[1:] == ["woq"]
+    instrumented_build(op_builder, ("woq_matmul",) if only_woq else None)
+    woq_counts(torch, op_builder)
+    if only_woq:
+        return
     for b, s, h, causal in ((cs.TRAIN_MICRO, cs.TRAIN_SEQ, 25, True),
                             (cs.TRAIN_MICRO, cs.TRAIN_SEQ, 25, False), (2, 4096, 25, False)):
         c = cs.flash_case(torch, "k3", b=b, s=s, h=h, kvh=h, d=64, causal=causal)

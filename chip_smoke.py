@@ -14,7 +14,9 @@ Phases, each printing one JSON line:
      flash_attention) its registers, spills, shared memory a block and
      HGMMA (wgmma) instructions from ``cuobjdump --dump-sass`` (the wgmma
      forward K13 and K3 and the wgmma K14/K15 must be there at D 64 and
-     128, issue HGMMA and spill nothing);
+     128, issue HGMMA and spill nothing); the same for K2 and K6 (K6's
+     wgmma route issues HGMMA and spills nothing at each bit width, K2
+     spills nothing at any head dim);
   3. kernel_check: each kernel against its plain PyTorch version on the
      card, at the main path's shapes (llama3-8b: H=32, KVH=8, D=128,
      bs=128, bf16), plus window / ALiBi / softcap cases and the other
@@ -56,16 +58,21 @@ quantization slice runs:
  13. v1_kernel_check / v1_kernel_time: fused decode attention (K2) against
      its plain version at llama3-8b decode shapes (cache_len 8192, 8065,
      4097, 1 and 0 in one batch; the main path's B = 4 full caches; head
-     dims 64/192/256 and 1 to 16 query heads per kv head), timed beside its
-     bound and SDPA; v1_crossover: K2 against the masked einsum at S_max
-     2048, 4096 and 8192;
+     dims 64/192/256 and 1 to 16 query heads per kv head), each case run
+     twice and bit-identical, timed beside its bound and SDPA (the main and
+     mixed cases and B = 1 and 16 on full caches, by back-to-back events
+     and by CUDA-graph replay); v1_crossover: K2 against the masked einsum
+     at S_max 2048, 4096 and 8192;
  14. quant_kernel_check / quant_kernel_time: the int8 and int4 group
      quantizers (K7, K8) on llama3-8b's stacked wi_gate leaf, q and scales
      byte-identical to their plain versions;
  15. woq_kernel_time: the weight-only-quantized matmul (K6) at bits 8, 4, 6
      on the seven projection shapes at M = 4 and 2048 (relative Frobenius
-     error <= 1e-2), beside its bound and torch.matmul on the dequantized
-     weight;
+     error <= 1e-2, each case twice and bit-identical, the route named),
+     beside its bound and torch.matmul on the dequantized weight;
+     woq_kernel_check: ragged M (1, 3, 17, 300) at N = 4096 and 1000 on
+     every route; woq_crossover: the streaming and wgmma routes forced at
+     M = 4 to 16 on the gate projection;
  16. v1_main_path: ``init_inference(llama3-8b).generate()`` at full width
      and depth, 4 prompts of 8064 tokens, 128 greedy new tokens over an
      8192-slot cache: K2 launches = layers x 127 decode steps; TTFT, decode
@@ -280,6 +287,38 @@ def cuda_ms(torch, fn, reps=5, iters=20):
     return statistics.median(times)
 
 
+def graph_ms(torch, fn, iters=20, reps=5):
+    """Median over ``reps`` of the mean per-call device time of ``iters``
+    calls captured in one CUDA graph (after warm-up on the capturing stream),
+    by CUDA events around each replay: the kernels' time without the host's
+    time to launch them, which back-to-back calls (``cuda_ms``) include when
+    a call is shorter than its launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return statistics.median(times)
+
+
 def kernel_phases(torch):
     """Phases 2-4 for the paged attention kernel. Returns the kernel's
     summary entry (without ``launches``, which the main path fills)."""
@@ -293,7 +332,9 @@ def kernel_phases(torch):
          ptxas={k: [ln for ln in v.splitlines()
                     if any(w in ln for w in ("registers", "smem", "spill"))]
                 for k, v in op_builder.BUILD_LOGS.items()},
-         wgmma_kernels={lib: wgmma_build_report(op_builder, lib) for lib in WGMMA_LIBS})
+         wgmma_kernels={lib: wgmma_build_report(op_builder, lib) for lib in WGMMA_LIBS},
+         decode_woq_kernels={lib: decode_woq_build_report(op_builder, lib)
+                             for lib in ("decode_attention", "woq_matmul")})
 
     # the two step shapes of the main path: 16 slots, 8 of them live (the
     # other 8 frozen, positions -1), decode at ragged contexts and a
@@ -1171,13 +1212,16 @@ def sdpa_decode(torch, case):
 
 
 def check_decode(torch, name, case):
-    """K2 once against its plain version on f32 copies of the inputs:
+    """K2 twice against its plain version on f32 copies of the inputs:
     |out - plain| <= 2e-2 + 2e-2 |plain| everywhere, relative Frobenius error
-    <= 1e-2, and rows with cache_len 0 exactly 0."""
+    <= 1e-2, rows with cache_len 0 exactly 0, and the two runs bit-identical
+    (the chunks merge in a fixed order whichever block finishes last)."""
     from deepspeed_tpu_torch.ops.decode_attention import (fused_decode_attention,
                                                           fused_decode_attention_plain)
     before = fused_decode_attention.launches
-    got = fused_decode_attention(case["q"], case["k"], case["v"], case["lens"]).float()
+    first = fused_decode_attention(case["q"], case["k"], case["v"], case["lens"])
+    second = fused_decode_attention(case["q"], case["k"], case["v"], case["lens"])
+    got = first.float()
     ref = fused_decode_attention_plain(case["q"].float(), case["k"].float(),
                                        case["v"].float(), case["lens"])
     torch.cuda.synchronize()
@@ -1185,14 +1229,15 @@ def check_decode(torch, name, case):
     rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
     empty = case["lens"] == 0
     zero = bool((got[empty] == 0).all()) if empty.any() else True
-    ok = (bool((err <= ATOL + RTOL * ref.abs()).all()) and rel <= FRO_TOL and zero
-          and fused_decode_attention.launches == before + 1)
+    same = bool(torch.equal(first, second))
+    ok = (bool((err <= ATOL + RTOL * ref.abs()).all()) and rel <= FRO_TOL and zero and same
+          and fused_decode_attention.launches == before + 2)
     b, h, d = case["q"].shape
     emit("v1_kernel_check", kernel="fused_decode_attention", case=name,
          shape=dict(B=b, S_max=case["k"].shape[1], H=h, KVH=case["k"].shape[2], D=d,
                     cache_len=case["lens"].tolist(), dtype="bfloat16"),
          max_abs_err=float(err.max()), rel_fro=rel, atol=ATOL, rtol=RTOL, fro_tol=FRO_TOL,
-         empty_rows_zero=zero, within=ok)
+         empty_rows_zero=zero, twice_bit_identical=same, within=ok)
     if not ok:
         fail(f"fused decode attention {name}: max err {float(err.max())}, rel {rel}")
     return float(err.max())
@@ -1215,21 +1260,28 @@ def v1_kernel_phases(torch):
     for name, kw in cases.items():
         worst = max(worst, check_decode(torch, name, decode_case(torch, **kw)))
         torch.cuda.empty_cache()
-    for name in ("main", "mixed"):
-        case = decode_case(torch, **cases[name])
+    # the main and mixed cases, then the batch sweep on full caches (B = 4
+    # is the main case)
+    timed = {"main": cases["main"], "mixed": cases["mixed"],
+             "B1": dict(lens=[8192], seed=7), "B16": dict(lens=[8192] * 16, seed=8)}
+    for name, kw in timed.items():
+        case = decode_case(torch, **kw)
         f32 = {k: case[k].float() for k in ("q", "k", "v")}
         nbytes, flops = decode_work(case)
         b_ms, b_by = bound(nbytes, flops)
+        kernel = lambda i: fused_decode_attention(case["q"], case["k"], case["v"], case["lens"])
+        library = sdpa_decode(torch, case)
         row = dict(
-            ms=cuda_ms(torch, lambda i: fused_decode_attention(
-                case["q"], case["k"], case["v"], case["lens"])),
+            ms=cuda_ms(torch, kernel), graph_ms=graph_ms(torch, kernel),
             plain_ms=cuda_ms(torch, lambda i: fused_decode_attention_plain(
                 f32["q"], f32["k"], f32["v"], case["lens"]), reps=3, iters=5),
-            library_ms=cuda_ms(torch, sdpa_decode(torch, case)),
+            library_ms=cuda_ms(torch, library), library_graph_ms=graph_ms(torch, library),
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
         emit("v1_kernel_time", kernel="fused_decode_attention", case=name,
-             cache_len=cases[name]["lens"], library="F.scaled_dot_product_attention "
-             "(boolean mask, enable_gqa) on pre-laid-out (B, H, 1, D) q", **row)
+             cache_len=kw["lens"], library="F.scaled_dot_product_attention "
+             "(boolean mask, enable_gqa) on pre-laid-out (B, H, 1, D) q",
+             timing="ms: back-to-back calls by CUDA events (host launch time included); "
+             "graph_ms: the same calls replayed from one CUDA graph (device time)", **row)
         rows[name] = row
         del case, f32
         torch.cuda.empty_cache()
@@ -1250,7 +1302,12 @@ def v1_kernel_phases(torch):
     m = rows["main"]
     return {"name": "fused_decode_attention", "route": "cuda", "source": DECODE_SOURCE,
             "replaces": DECODE_REPLACES, "max_abs_err": worst,
-            **{k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+            **{k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "device_ms": m["graph_ms"], "library_device_ms": m["library_graph_ms"],
+            "batch_sweep_device_ms": {n: {"ms": rows[n]["graph_ms"],
+                                          "library_ms": rows[n]["library_graph_ms"],
+                                          "bound_ms": rows[n]["bound_ms"]}
+                                      for n in ("B1", "main", "B16")}}
 
 
 def v1_main_path(torch, smi):
@@ -1473,14 +1530,31 @@ PROJ = {"q": (4096, 4096), "k": (4096, 1024), "v": (4096, 1024), "o": (4096, 409
 
 
 def woq_kernel_phases(torch):
-    """woq_kernel_check / woq_kernel_time: K6 at bits 8, 4 and 6 on the seven
-    projection shapes at M = 4 and M = 2048 (random weights, group 256)
-    against its plain version (the same bf16-rounded tiles, one f32 product):
-    relative Frobenius error <= 1e-2. Times cycle through copies of the
-    weight past the L2 cache, as a layer's weights are cold in a real step.
-    Returns the kernel entry (the gate projection, int8, M = 4)."""
+    """woq_kernel_check / woq_kernel_time / woq_crossover: K6 at bits 8, 4
+    and 6 on the seven projection shapes at M = 4 and M = 2048 (random
+    weights, group 256) against its plain version (the same bf16-rounded
+    tiles, one f32 product): relative Frobenius error <= 1e-2, each case run
+    twice and bit-identical. Times cycle through copies of the weight past
+    the L2 cache, as a layer's weights are cold in a real step; each row
+    names the route the shape takes. Then ragged shapes on every route and
+    the crossover in M between the streaming and wgmma routes. Returns the
+    kernel entry (the gate projection, int8, M = 4, with the worst M = 2048
+    row beside it)."""
     from deepspeed_tpu_torch.ops import woq_matmul as W
     g = torch.Generator(device="cuda").manual_seed(4)
+
+    def held(x, st):
+        """K6 twice on (x, st) against the plain version: (rel, max err,
+        bit-identical, launched twice)."""
+        before = W.woq_matmul.launches
+        first, second = W.woq_matmul(x, st), W.woq_matmul(x, st)
+        ref = W.woq_matmul_plain(x, st).float()
+        torch.cuda.synchronize()
+        got = first.float()
+        rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+        return (rel, float((got - ref).abs().max()), bool(torch.equal(first, second)),
+                W.woq_matmul.launches == before + 2)
+
     worst, rows = 0.0, {}
     for pname, (k, n) in PROJ.items():
         w = torch.randn(k, n, generator=g, device="cuda").mul_(0.02).to(torch.bfloat16)
@@ -1493,36 +1567,86 @@ def woq_kernel_phases(torch):
             libs = [w_deq] + [w_deq.clone() for _ in range(int(2 * L2_BYTES // (2 * k * n)))]
             for m in (4, 2048):
                 x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
-                before = W.woq_matmul.launches
-                got = W.woq_matmul(x, st).float()
-                ref = W.woq_matmul_plain(x, st).float()
-                torch.cuda.synchronize()
-                rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
-                err = float((got - ref).abs().max())
+                rel, err, same, counted = held(x, st)
                 worst = max(worst, err)
-                ok = rel <= FRO_TOL and W.woq_matmul.launches == before + 1
+                ok = rel <= FRO_TOL and same and counted
                 nbytes = qbytes + m * k * 2 + m * n * 2
                 b_ms, b_by = bound(nbytes, 2 * m * k * n)
+                kernel = lambda i: W.woq_matmul(x, copies[i % len(copies)])
+                library = lambda i: x @ libs[i % len(libs)]
                 row = dict(
-                    ms=cuda_ms(torch, lambda i: W.woq_matmul(x, copies[i % len(copies)])),
+                    ms=cuda_ms(torch, kernel), graph_ms=graph_ms(torch, kernel),
                     plain_ms=cuda_ms(torch, lambda i: W.woq_matmul_plain(x, st), reps=3, iters=3),
-                    library_ms=cuda_ms(torch, lambda i: x @ libs[i % len(libs)]),
+                    library_ms=cuda_ms(torch, library), library_graph_ms=graph_ms(torch, library),
                     bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=2 * m * k * n)
                 emit("woq_kernel_time", kernel="woq_matmul", proj=pname, K=k, N=n, M=m,
-                     bits=bits, group_size=WOQ_GROUP, rel_fro=rel, max_abs_err=err,
-                     fro_tol=FRO_TOL, within=ok,
-                     library="x @ the pre-dequantized bf16 weight (torch.matmul)", **row)
+                     bits=bits, group_size=WOQ_GROUP, route=W.woq_route(m, n, bits), rel_fro=rel,
+                     max_abs_err=err, fro_tol=FRO_TOL, twice_bit_identical=same, within=ok,
+                     library="x @ the pre-dequantized bf16 weight (torch.matmul)",
+                     timing="ms: back-to-back calls by CUDA events; graph_ms: the same calls "
+                     "replayed from one CUDA graph (device time)", **row)
                 if not ok:
-                    fail(f"woq_matmul {pname} bits {bits} M {m}: rel {rel}")
+                    fail(f"woq_matmul {pname} bits {bits} M {m}: rel {rel}, bit-identical {same}")
                 rows[(pname, bits, m)] = row
-                del x, got, ref
+                del x
             del copies, libs, w_deq, st
         del w
         torch.cuda.empty_cache()
+    # ragged M on the streaming and wgmma routes (N = 4096) and the simt route
+    # kept for an N that is no multiple of 16 (N = 1000)
+    for n in (4096, 1000):
+        w = torch.randn(4096, n, generator=g, device="cuda").mul_(0.02).to(torch.bfloat16)
+        for bits in (8, 4, 6):
+            st = W.quantize_woq(w, bits, WOQ_GROUP)
+            for m in (1, 3, 17, 300):
+                x = torch.randn(m, 4096, generator=g, device="cuda").to(torch.bfloat16)
+                rel, err, same, counted = held(x, st)
+                worst = max(worst, err)
+                ok = rel <= FRO_TOL and same and counted
+                emit("woq_kernel_check", kernel="woq_matmul", K=4096, N=n, M=m, bits=bits,
+                     group_size=WOQ_GROUP, route=W.woq_route(m, n, bits), rel_fro=rel,
+                     max_abs_err=err, fro_tol=FRO_TOL, twice_bit_identical=same, within=ok)
+                if not ok:
+                    fail(f"woq_matmul ragged N {n} M {m} bits {bits}: rel {rel}, "
+                         f"bit-identical {same}")
+            del st
+        del w
+    # the crossover: the gate projection with each route forced, by M
+    k, n = PROJ["gate"]
+    w = torch.randn(k, n, generator=g, device="cuda").mul_(0.02).to(torch.bfloat16)
+    cross = {}
+    for bits in (8, 4, 6):
+        st = W.quantize_woq(w, bits, WOQ_GROUP)
+        for m in (4, 8, 12, 16):
+            x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+            row = {}
+            # the streaming kernel takes up to 16 rows at int8, 8 at int4 / fp6
+            for route in (("stream", "wgmma") if m <= (16 if bits == 8 else 8) else ("wgmma",)):
+                chosen = W.woq_route
+                W.woq_route = lambda *args, r=route, **kw: r
+                try:
+                    row[route] = graph_ms(torch, lambda i: W.woq_matmul(x, st))
+                finally:
+                    W.woq_route = chosen
+            cross[f"{bits}/{m}"] = row
+            del x
+        del st
+    emit("woq_crossover", proj="gate", K=k, N=n, graph_ms_by_bits_and_M=cross,
+         stream_max_m=W.STREAM_MAX_M, note="device time of each route forced; the wrapper "
+         "takes the streaming route up to stream_max_m[bits] rows (16 the most it takes)")
+    del w
+    torch.cuda.empty_cache()
     m = rows[("gate", 8, 4)]
+    big = max((key for key in rows if key[2] == 2048),
+              key=lambda key: rows[key]["graph_ms"] / rows[key]["library_graph_ms"])
     return {"name": "woq_matmul", "route": "cuda", "source": WOQ_SOURCE,
             "replaces": WOQ_REPLACES, "max_abs_err": worst,
-            **{k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+            **{k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "device_ms": m["graph_ms"], "library_device_ms": m["library_graph_ms"],
+            "worst_m2048": {"proj": big[0], "bits": big[1], "device_ms": rows[big]["graph_ms"],
+                            "library_device_ms": rows[big]["library_graph_ms"],
+                            "bound_ms": rows[big]["bound_ms"], "ms": rows[big]["ms"],
+                            "library_ms": rows[big]["library_ms"]}}
 
 
 def _half_step_check(w, deq, scales, gs):
@@ -2239,6 +2363,65 @@ WGMMA_LIBS = {
     "sparse_flash": ("deepspeed_tpu_torch.ops.sparse_flash", ("sparse_fwd_wgmma",)),
     "evoformer_flash": ("deepspeed_tpu_torch.ops.evoformer_flash", ("evo_fwd_wgmma",)),
 }
+
+
+def decode_woq_build_report(op_builder, lib):
+    """Registers, stack and spills of each kernel of K2 (decode_attention) or
+    K6 (woq_matmul) from the build's ptxas report, and its HGMMA (wgmma)
+    instructions from ``cuobjdump --dump-sass``. Fails unless K6's wgmma
+    route (woq_wgmma<bits, tile rows>) issues HGMMA and spills nothing at
+    each bit width and tile and K2's decode kernel spills nothing at any head
+    dim."""
+    import re
+    from pathlib import Path
+    if lib not in op_builder.BUILD_LOGS:   # reused from an earlier run: rebuild
+        (op_builder.BUILD_DIR / f"lib{lib}.so").unlink()
+        op_builder.build([lib])
+
+    def short(mangled):
+        m = re.search(r"(woq_wgmma|woq_stream|woq_kernel|splitk_sum_kernel|decode_kernel)"
+                      r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", mangled)
+        if m is None:
+            return mangled
+        args = ",".join(a for a in m.groups()[1:] if a)
+        return f"{m.group(1)}<{args}>" if args else m.group(1)
+
+    rows, name = {}, None
+    for ln in op_builder.BUILD_LOGS[lib].splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = short(m.group(1))
+            rows[name] = {}
+        elif name and "spill stores" in ln:
+            st, ss, sl = map(int, re.findall(r"(\d+) bytes", ln)[:3])
+            rows[name].update(stack=st, spill_stores=ss, spill_loads=sl)
+        elif name and "Used" in ln and "registers" in ln:
+            rows[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    sass = subprocess.run(
+        [str(Path(op_builder.nvcc()).parent / "cuobjdump"), "--dump-sass",
+         str(op_builder.BUILD_DIR / f"lib{lib}.so")],
+        capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump exit {sass.returncode}: {sass.stderr.strip()[-500:]}")
+    name = None
+    for ln in sass.stdout.splitlines():
+        if "Function :" in ln:
+            name = short(ln.split("Function :")[1].strip())
+            rows.setdefault(name, {})["hgmma"] = 0
+        elif name and "HGMMA" in ln:
+            rows[name]["hgmma"] += 1
+    want = (["woq_wgmma<8,256>", "woq_wgmma<8,128>", "woq_wgmma<4,256>", "woq_wgmma<4,128>",
+             "woq_wgmma<6,128>"] if lib == "woq_matmul"
+            else [f"decode_kernel<{d}>" for d in (64, 128, 192, 256)])
+    for name in want:
+        row = rows.get(name)
+        if row is None:
+            fail(f"{name} missing from the ptxas report of {lib}")
+        if row.get("spill_stores") or row.get("spill_loads"):
+            fail(f"{name} spills: {row}")
+        if lib == "woq_matmul" and not row.get("hgmma"):
+            fail(f"{name} issues no HGMMA: {row}")
+    return rows
 
 
 def wgmma_build_report(op_builder, lib):

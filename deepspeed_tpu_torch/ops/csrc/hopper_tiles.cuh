@@ -2,10 +2,13 @@
 // into 128-byte-swizzled shared memory, mbarrier pipelines, wgmma with f32
 // accumulators in registers, and register reallocation between warpgroups.
 // Raw PTX, no CUTLASS. Used by the backward of flash_bwd_wgmma.cuh (K14 /
-// K15 in ring_flash.cu, K4 / K5 in flash_attention.cu) and the forward of
+// K15 in ring_flash.cu, K4 / K5 in flash_attention.cu), the forward of
 // flash_fwd_wgmma.cuh (K13 in ring_flash.cu, K3 in flash_attention.cu, K11
-// in sparse_flash.cu, K12 in evoformer_flash.cu). The kernel layout they
-// serve: consumer warpgroups of 64 rows
+// in sparse_flash.cu, K12 in evoformer_flash.cu), fused decode attention
+// (K2, decode_attention.cu: TMA, mbarriers, and the warp-level mma.sync,
+// ldmatrix and cp.async below) and the weight-only-quantized matmul (K6,
+// woq_matmul.cu: wgmma rs at large M, mma.sync at small M). The kernel
+// layout the attention kernels serve: consumer warpgroups of 64 rows
 // whose f32 accumulators live in registers (setmaxnreg raises a consumer to
 // 240 registers a thread, enough for three or four 64 x 128 f32 tiles, and
 // drops the producer to 24), and one producer warp feeding a ring of
@@ -117,7 +120,8 @@ __device__ __forceinline__ void a_fragment(uint32_t (&a)[4], const uint32_t (&pa
 }
 
 // m64nNk16, bf16 in, f32 accumulate. ss: A (K-major) and B from shared
-// memory, `accumulate` 0 overwrites D; rs: A from registers, D += A B.
+// memory, `accumulate` 0 overwrites D; rs: A from registers, D += A B (at
+// N = 128 `accumulate` 0 overwrites D too).
 // TRANS_B = 0: B K-major; 1: B MN-major.
 template <int N>
 struct Wgmma;
@@ -166,13 +170,13 @@ struct Wgmma<128> {
   // shared memory
   template <int TRANS_B>
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
-                                            uint64_t db) {
+                                            uint64_t db, int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TRANS_B));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
   }
 };
 
@@ -249,6 +253,79 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(c4)
       : "memory");
+}
+
+// one box of a 2-D / 3-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// --------------------------------------------------------------- cp.async
+
+// 16 bytes from global to shared memory; src_bytes 0 reads nothing and
+// writes zeros
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+// 8 bytes from global to shared memory (through L1)
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(src) : "memory");
+}
+// an arrival on `bar` once this thread's earlier cp.async copies have landed
+// (the pending count rises by one now, so the phase waits for it)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// -------------------------------------------- warp-level mma.sync, ldmatrix
+//
+// m16n8k16, bf16 in, f32 accumulate, D += A B. Thread l of the warp (g =
+// l / 4, t = l % 4) holds a[0] = A[g][2t, 2t + 1], a[1] = A[g + 8][2t, 2t + 1],
+// a[2] = A[g][2t + 8, 2t + 9], a[3] = A[g + 8][2t + 8, 2t + 9] (bf16 pairs, the
+// lower column in the low half); b0 = B[2t, 2t + 1][g], b1 = B[2t + 8, 2t + 9][g];
+// d[0], d[1] = D[g][2t, 2t + 1] and d[2], d[3] = D[g + 8][2t, 2t + 1].
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices from shared memory, lane i giving the address of
+// row i % 8 of matrix i / 8: r[m] holds, for lane l, row l / 4, columns
+// 2 (l % 4) and 2 (l % 4) + 1 of matrix m; with .trans, rows 2 (l % 4) and
+// 2 (l % 4) + 1 of column l / 4
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
 
 // --------------------------------------------------- register reallocation
@@ -345,16 +422,18 @@ inline EncodeTiled encode_tiled() {
 
 // A tensor map of `rank` dimensions (dims[0] contiguous; strides[i] the
 // byte stride of dimension i + 1) read in boxes of `box` into the
-// 128-byte-swizzled layout (box[0] elements of 128 bytes); out-of-range
-// elements read as zeros.
+// 128-byte-swizzled layout (box[0] elements of 128 bytes), or row after row
+// unswizzled with CU_TENSOR_MAP_SWIZZLE_NONE; out-of-range elements read as
+// zeros.
 inline cudaError_t tiled_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
                              int rank, const cuuint64_t* dims, const cuuint64_t* strides,
-                             const cuuint32_t* box) {
+                             const cuuint32_t* box,
+                             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -16,9 +16,12 @@ package's:
 (load time, plain XLA in JAX). ``woq_matmul`` takes the tensors' device as
 the choice of implementation: on CUDA tensors it launches the hand-written
 Hopper kernel (``csrc/woq_matmul.cu``, bf16 activations) or raises; on CPU
-tensors it runs ``woq_matmul_plain``. The JAX wrapper's fallback to one N
-tile when ``block_n`` does not divide N has no counterpart: the kernel
-masks a ragged N.
+tensors it runs ``woq_matmul_plain``. The kernel has three routes, chosen
+by ``woq_route`` from the shape before the launch: a weight-streaming
+kernel for small M, a wgmma mainloop for large M, and the first (SIMT)
+design for an N that is no multiple of 16. The JAX wrapper's fallback to
+one N tile when ``block_n`` does not divide N has no counterpart: every
+route masks a ragged N.
 """
 
 import ctypes
@@ -31,8 +34,23 @@ _FP6_MAX = 28.0
 _PLANES = {8: 1, 4: 2, 6: 4}
 # the kernel's K step (csrc/woq_matmul.cu BK); group sizes are multiples
 KERNEL_K_STEP = 32
-# output tiles of the kernel and the blocks a split-K launch aims for
+# output tiles of the simt route and the blocks its split-K launch aims for
 _BM, _BN, _TARGET_BLOCKS = 64, 128, 264
+ROUTES = ("simt", "stream", "wgmma")
+# the largest M the streaming route takes, by bit width; above it the wgmma
+# mainloop is faster (the crossover measured on the H100 by chip_smoke.py's
+# woq_crossover: PERF.md, section 6)
+STREAM_MAX_M = {8: 16, 4: 8, 6: 8}
+# the streaming route: columns a block, byte rows a warp step and steps a
+# warp prefetches per bit width, the most blocks a cluster takes along K, and
+# the shared memory a block may use for its x slice, scales and sums
+STREAM_COLS = 128
+STREAM_ROWS_PER_STEP = {8: 16, 4: 8, 6: 4}
+STREAM_PREFETCH = {8: 4, 4: 8, 6: 4}
+STREAM_WARPS = 4
+STREAM_BLOCKS_PER_SM = {8: 3, 4: 3, 6: 2}
+STREAM_MAX_CLUSTER = 8
+STREAM_SMEM_BYTES = 64 * 1024
 
 
 # ---- quantization (load time, plain torch) -------------------------------
@@ -140,13 +158,71 @@ def woq_matmul_plain(x, qstate):
 
 
 def _splitk(m, k, n):
-    """(splits, rows per split): enough blocks for the card at small M,
-    each split a whole number of kernel K steps."""
+    """(splits, rows per split) of the simt route: enough blocks for the
+    card at small M, each split a whole number of kernel K steps."""
     tiles = -(-m // _BM) * -(-n // _BN)
     steps = k // KERNEL_K_STEP
     splits = max(1, min(steps // 4, -(-_TARGET_BLOCKS // tiles)))
     per = -(-steps // splits) * KERNEL_K_STEP
     return -(-k // per), per
+
+
+def woq_route(m, n, bits, aligned=True):
+    """The kernel route for an (M, K) x (K, N) product at ``bits``:
+    ``"simt"`` where N is no multiple of 16 or a tensor does not start
+    16-byte aligned (the other routes read 16-byte pieces and TMA boxes),
+    else ``"stream"`` up to ``STREAM_MAX_M[bits]`` rows and ``"wgmma"``
+    above."""
+    if n % 16 or not aligned:
+        return "simt"
+    return "stream" if m <= STREAM_MAX_M[bits] else "wgmma"
+
+
+def stream_plan(m, k, n, bits, group, sms):
+    """(cluster size, steps a block, steps a chunk) of the streaming route.
+
+    A step is 16 k values: ``STREAM_ROWS_PER_STEP[bits]`` byte rows of each
+    plane, inside one quantization group (groups are multiples of 32 rows and
+    the planes start on group boundaries). A block takes 128 columns and a
+    run of whole steps, its 4 warps every fourth step; the blocks of one
+    cluster (at most 8) cover K, the last block's run shorter, and sum their
+    results in rank order. The cluster is sized so that the blocks fit in
+    one wave at ``STREAM_BLOCKS_PER_SM`` blocks an SM (what the registers
+    allow), an eighth of the slots spare for placing whole clusters. A
+    block stages x and the scales a chunk of steps at a time: a multiple of
+    4 x the prefetch depth, as many as fit ``STREAM_SMEM_BYTES`` beside the
+    block's sums."""
+    pk, rps, u = _PLANES[bits], STREAM_ROWS_PER_STEP[bits], STREAM_PREFETCH[bits]
+    steps = k // pk // rps
+    tiles = -(-n // STREAM_COLS)
+    # an eighth of the slots left free: a cluster's blocks must share a GPC
+    slots = 7 * STREAM_BLOCKS_PER_SM[bits] * sms // 8
+    cs = max(1, min(STREAM_MAX_CLUSTER, slots // tiles, steps // STREAM_WARPS))
+    per = -(-steps // cs)
+    cs = -(-steps // per)
+    m_pad = 8 if m <= 8 else 16
+    unit = STREAM_WARPS * u
+    chunk = -(-per // unit) * unit
+    while chunk > unit and _stream_smem(m_pad, pk, rps, chunk, group) > STREAM_SMEM_BYTES:
+        chunk -= unit
+    return cs, per, chunk
+
+
+def _stream_smem(m_pad, pk, rps, chunk, group):
+    """Shared memory of a streaming block: its x slice (padded rows), the
+    scale rows a chunk touches in each slab, and its f32 sums."""
+    rows = chunk * rps
+    return (m_pad * (pk * rows + 16) * 2 + pk * ((rows - 1) // group + 2) * STREAM_COLS * 4
+            + m_pad * STREAM_COLS * 4)
+
+
+_SMS = {}
+
+
+def _sm_count(device):
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
 
 
 def woq_matmul(x, qstate):
@@ -184,17 +260,27 @@ def woq_matmul(x, qstate):
         raise ValueError(f"woq_matmul kernel: q must be bytes and scales f32, got "
                          f"{q.dtype} and {scales.dtype}")
     x = x.contiguous()
-    splits, per = _splitk(m, k, n)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, q, scales))
+    route = woq_route(m, n, bits, aligned)
+    sms = _sm_count(x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    part, chunk = None, 1
+    if route == "simt":
+        splits, per = _splitk(m, k, n)
+        if splits > 1:
+            part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    elif route == "stream":
+        splits, per, chunk = stream_plan(m, k, n, bits, g, sms)
+    else:
+        splits, per = 1, 1
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
     fn = op_builder.load("woq_matmul").ds_woq_matmul
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(),
-             None if part is None else part.data_ptr(), m, k, n, g, bits, splits, per,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             None if part is None else part.data_ptr(), m, k, n, g, bits,
+             ROUTES.index(route), splits, per, chunk, sms, stream)
     if err != 0:
         raise RuntimeError(f"woq_matmul kernel launch failed: cudaError {err}")
     woq_matmul.launches += 1

@@ -154,3 +154,90 @@ def test_kernel_wrapper_runs_the_plain_path_only_on_the_cpu():
     kv = torch.empty((1, 8192, 1, 64), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         fused_decode_attention(q, kv, kv, torch.empty((1,), dtype=torch.int32, device="meta"))
+
+
+# ---- the kernel's split plan (ops/decode_attention.py plan, evaluated on the
+# card by find_item in csrc/decode_attention.cu)
+
+PLAN_LENS = {"full4": [8192] * 4, "mixed": [8192, 8065, 4097, 1, 0], "one": [8192],
+             "ragged": [63, 64, 65, 0, 129, 7000], "empty": [0, 0], "b16": [8192] * 16}
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132, 264])
+@pytest.mark.parametrize("kvh,groups", [(8, 1), (1, 2), (2, 1)])
+@pytest.mark.parametrize("name", list(PLAN_LENS))
+def test_plan_covers_every_live_slot_once(name, kvh, groups, sms):
+    """Every live slot of every sequence lies in exactly one chunk of each
+    (kv head, row group); no chunk reaches past cache_len; chunks start on
+    64-slot tiles and are cut evenly; a sequence with no live slot gets one
+    empty chunk (its zeros); the items fit the launched grid and the
+    workspace's chunks."""
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    lens = PLAN_LENS[name]
+    items = da.plan(lens, kvh, groups, sms)
+    assert len(items) <= da.grid_size(len(lens), kvh, groups, sms)
+    maxc = da.max_chunks(max(lens + [1]), kvh, groups, sms)
+    for b, n in enumerate(lens):
+        mine = [it for it in items if it[0] == b]
+        chunks = {it[4] for it in mine}
+        assert len(chunks) == 1 and chunks.pop() <= maxc
+        for kh in range(kvh):
+            for rg in range(groups):
+                spans = sorted((it[3], it[5], it[6]) for it in mine if it[1:3] == (kh, rg))
+                assert [c for c, _, _ in spans] == list(range(len(spans)))
+                if n == 0:
+                    assert [(s, e) for _, s, e in spans] == [(0, 0)]
+                    continue
+                covered = [slot for _, s, e in spans for slot in range(s, e)]
+                assert covered == list(range(n))
+                assert all(s % da.TILE == 0 and s < e <= n for _, s, e in spans)
+                sizes = [-(-(e - s) // da.TILE) for _, s, e in spans]
+                assert max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("name", ["full4", "one", "b16"])
+def test_plan_sizes_itself_to_the_sm_count(name):
+    """No chunk holds more than an SM's even share of the tiles (rounded up
+    to whole tiles), so more SMs give more, shorter chunks (down to one
+    chunk a sequence when the SMs are few)."""
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    lens = PLAN_LENS[name]
+    tiles = sum(-(-n // da.TILE) for n in lens) * 8
+    longest = {}
+    for sms in (33, 66, 132, 264):
+        items = da.plan(lens, 8, 1, sms)
+        longest[sms] = max(-(-(e - s) // da.TILE) for *_, s, e in items)
+        assert longest[sms] <= -(-tiles // sms)
+    assert longest[264] <= longest[132] <= longest[66] <= longest[33]
+    assert longest[264] < longest[33]
+
+
+@pytest.mark.parametrize("lens", list(LENS.values()) + [[5, 0, 256]], ids=list(LENS) + ["five"])
+def test_plan_chunks_merged_in_order_match_the_pallas_kernel(lens):
+    """The kernel's arithmetic on the CPU: each planned chunk's unnormalised
+    (m, l, acc) (p cast to the cache dtype into P V, l from the f32 p),
+    merged per (sequence, kv head) in chunk order and divided by l, against
+    the JAX kernel."""
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    x = _inputs(lens, seed=7)
+    want = np.asarray(jax_fused(jnp.asarray(x["q"][:, 0]), jnp.asarray(x["k"]),
+                                jnp.asarray(x["v"]), jnp.asarray(x["lens"]), block=128))
+    q = torch.from_numpy(x["q"][:, 0]).reshape(len(lens), KVH, H // KVH, D)
+    k, v = torch.from_numpy(x["k"]), torch.from_numpy(x["v"])
+    parts = {}
+    for b, kh, _, c, _, s, e in da.plan(lens, KVH, 1, 5):
+        if s == e:
+            continue
+        sc = (q[b, kh] @ k[b, s:e, kh].T) * D ** -0.5                  # (G, slots)
+        m = sc.amax(dim=1, keepdim=True)
+        p = torch.exp(sc - m)
+        pv = p.to(v.dtype) @ v[b, s:e, kh]
+        parts.setdefault((b, kh), []).append((c, m, p.sum(dim=1, keepdim=True), pv))
+    got = torch.zeros(len(lens), KVH, H // KVH, D)
+    for (b, kh), chunks in parts.items():
+        chunks.sort(key=lambda t: t[0])
+        mm = torch.stack([m for _, m, _, _ in chunks]).amax(dim=0)
+        l = sum(li * torch.exp(m - mm) for _, m, li, _ in chunks)
+        acc = sum(a * torch.exp(m - mm) for _, m, _, a in chunks)
+        got[b, kh] = acc / l
+    np.testing.assert_allclose(got.reshape(len(lens), H, D).numpy(), want, rtol=TOL, atol=TOL)

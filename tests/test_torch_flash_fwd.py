@@ -143,6 +143,7 @@ def test_compare_summary_reads_both_training_slices():
                     "flash_attention_dq": {"gpt2xl_causal": 0.2}},
         "library": {"flash_attention_fwd": {"gpt2xl_causal": 0.09},
                     "flash_attention_dq": {"gpt2xl_causal": 0.34}},
+        "serving": {},
         "ring": {**step, "idle_share": 0.002, "device_ms_by_class": {"ring_fwd": 114.0}},
         "gpt2_xl": {**step, "ms_per_step": 796.0, "idle_share": 0.01,
                     "device_ms_by_class": {"flash_fwd": 11.6}}}
@@ -160,3 +161,28 @@ def test_compare_summary_reads_the_ops_kernel_rows():
                               "evoformer_flash_fwd": {"main_path": 0.18}}
     assert got["library"] == {"sparse_flash_fwd": {"fixed": 1.05},
                               "evoformer_flash_fwd": {"main_path": 0.24}}
+
+
+def test_compare_summary_reads_the_serving_and_v1_rows():
+    """K1 and the serving run, K6 by projection / bits / M and K2 by case
+    come through, each kernel with its library call beside it."""
+    stdout = "\n".join(json.dumps(row) for row in (
+        dict(phase="kernel_time", kernel="paged_attention", case="decode", ms=0.27,
+             library_ms=1.54),
+        dict(phase="main_path", tokens_per_s=93.6, serve_s=2.7, peak_memory_gb=21.3, steps=56),
+        dict(phase="step_profile", step="decode", wall_ms=20.7, device_busy_ms=17.0,
+             idle_share=0.18, device_ms_by_class={"paged_attention": 8.5}),
+        dict(phase="woq_kernel_time", kernel="woq_matmul", case="gate/int8/M4", ms=0.036,
+             event_ms=0.04, library_ms=0.045),
+        dict(phase="v1_kernel_time", kernel="fused_decode_attention", case="main", ms=0.052,
+             library_ms=0.058)))
+    got = CHIP_COMPARE.summarize(stdout)
+    assert got["kernels"] == {"paged_attention": {"decode": 0.27},
+                              "woq_matmul": {"gate/int8/M4": 0.036},
+                              "fused_decode_attention": {"main": 0.052}}
+    assert got["library"] == {"paged_attention": {"decode": 1.54},
+                              "woq_matmul": {"gate/int8/M4": 0.045},
+                              "fused_decode_attention": {"main": 0.058}}
+    assert got["serving"] == {"tokens_per_s": 93.6, "serve_s": 2.7, "peak_memory_gb": 21.3,
+                              "decode_step": {"wall_ms": 20.7, "device_busy_ms": 17.0,
+                                              "idle_share": 0.18}}

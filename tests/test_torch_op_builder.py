@@ -105,6 +105,36 @@ def test_forward_header_edit_marks_both_libraries_stale(tmp_path, monkeypatch, h
     assert all(op_builder._stale(n) for n in names)
 
 
+@pytest.mark.parametrize("src", ["decode_attention.cu", "woq_matmul.cu"])
+def test_decode_and_woq_libraries_take_the_hopper_primitives(src):
+    """K2 and K6 use the TMA, mbarrier, mma.sync and wgmma primitives and
+    nothing of the attention mainloops."""
+    found = {p.name for p in op_builder._headers(op_builder.CSRC / src, set())}
+    assert found == {"hopper_tiles.cuh"}
+
+
+def test_hopper_primitives_edit_marks_k2_and_k6_stale(tmp_path, monkeypatch):
+    """A copy of the real sources with libraries newer than all of them: an
+    edit of hopper_tiles.cuh rebuilds decode_attention and woq_matmul, an
+    edit of the forward mainloop neither."""
+    import shutil
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    build.mkdir()
+    shutil.copytree(op_builder.CSRC, csrc)
+    for path in csrc.iterdir():
+        os.utime(path, (1000, 1000))
+    names = ("decode_attention", "woq_matmul")
+    for name in names:
+        (build / f"lib{name}.so").write_bytes(b"")
+        os.utime(build / f"lib{name}.so", (2000, 2000))
+    monkeypatch.setattr(op_builder, "CSRC", csrc)
+    monkeypatch.setattr(op_builder, "BUILD_DIR", build)
+    os.utime(csrc / "flash_fwd_wgmma.cuh", (3000, 3000))
+    assert not any(op_builder._stale(n) for n in names)
+    os.utime(csrc / "hopper_tiles.cuh", (3000, 3000))
+    assert all(op_builder._stale(n) for n in names)
+
+
 def test_nvcc_flags_target_hopper_with_wgmma():
     flags = " ".join(op_builder.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags

@@ -187,3 +187,105 @@ def test_kernel_wrappers_run_the_plain_path_only_on_the_cpu(op):
             tw.woq_matmul(x, tw.quantize_woq(torch.from_numpy(_w((256, 8))), 8, 128))
         else:
             getattr(tq, op)(x, 64)
+
+
+# ---- the kernel's routes and split plans (host functions, ops/woq_matmul.py)
+
+@pytest.mark.parametrize("m,n,bits,aligned,route", [
+    (1, 4096, 8, True, "stream"), (4, 14336, 8, True, "stream"), (16, 4096, 8, True, "stream"),
+    (8, 4096, 4, True, "stream"), (8, 4096, 6, True, "stream"), (9, 4096, 6, True, "wgmma"),
+    (17, 4096, 8, True, "wgmma"), (9, 4096, 4, True, "wgmma"), (300, 4096, 8, True, "wgmma"),
+    (2048, 14336, 6, True, "wgmma"), (4, 1000, 8, True, "simt"), (2048, 1000, 4, True, "simt"),
+    (4, 4104, 6, True, "simt"), (4, 4096, 8, False, "simt"), (2048, 4096, 4, False, "simt")])
+def test_route_is_chosen_by_shape(m, n, bits, aligned, route):
+    """Small M streams the weight, large M takes the wgmma mainloop, and an N
+    that is no multiple of 16 (or a tensor off 16-byte alignment) keeps the
+    SIMT kernel; the crossover is STREAM_MAX_M[bits]."""
+    assert tw.woq_route(m, n, bits, aligned) == route
+    for b in BITS:
+        assert tw.woq_route(tw.STREAM_MAX_M[b], 4096, b) == "stream"
+        assert tw.woq_route(tw.STREAM_MAX_M[b] + 1, 4096, b) == "wgmma"
+
+
+PLAN_SHAPES = [(4096, 14336), (14336, 4096), (4096, 1024), (4096, 4096), (512, 4096),
+               (256, 16), (1536, 4112)]
+
+
+PLAN_CASES = [(k, n, group, m, bits) for k, n in PLAN_SHAPES for group in (32, 128, 256)
+              for m in (1, 4, 8, 16) for bits in BITS
+              if k % (group * tw._PLANES[bits]) == 0 and m <= tw.STREAM_MAX_M[bits]]
+
+
+@pytest.mark.parametrize("k,n,group,m,bits", PLAN_CASES)
+def test_stream_plan_covers_k_in_whole_group_aligned_steps(k, n, group, m, bits):
+    """The cluster's blocks take runs of whole steps that cover every byte
+    row of every plane once (so every k value once); a step's rows never
+    straddle a quantization group; the cluster fits the hardware's portable
+    size; a chunk is a whole number of the 4 warps' prefetch rounds and fits
+    the block's shared memory."""
+    cs, per, chunk = tw.stream_plan(m, k, n, bits, group, 132)
+    rps = tw.STREAM_ROWS_PER_STEP[bits]
+    rows = k // tw._PLANES[bits]
+    steps = rows // rps
+    assert rows % rps == 0 and 1 <= cs <= tw.STREAM_MAX_CLUSTER
+    runs = [(z * per, min((z + 1) * per, steps)) for z in range(cs)]
+    assert all(a < b for a, b in runs) and runs[-1][1] == steps
+    covered = [r for a, b in runs for s in range(a, b) for r in range(s * rps, (s + 1) * rps)]
+    assert covered == list(range(rows))
+    assert all((s * rps) // group == ((s + 1) * rps - 1) // group for s in range(steps))
+    k_values = sorted(p * rows + r for p in range(tw._PLANES[bits]) for r in covered)
+    assert k_values == list(range(k))
+    unit = tw.STREAM_WARPS * tw.STREAM_PREFETCH[bits]
+    assert chunk % unit == 0
+    m_pad = 8 if m <= 8 else 16
+    assert (chunk == unit or tw._stream_smem(m_pad, tw._PLANES[bits], rps, chunk, group)
+            <= tw.STREAM_SMEM_BYTES)
+
+
+@pytest.mark.parametrize("k,n", PLAN_SHAPES)
+def test_stream_plan_sizes_the_cluster_to_the_card(k, n):
+    """The blocks fit one wave at the blocks an SM the registers allow,
+    unless the column tiles alone need more: a wide N needs fewer K splits
+    than a narrow one, and more SMs never give fewer splits."""
+    tiles = -(-n // tw.STREAM_COLS)
+    for bits in BITS:
+        for sms in (66, 132, 264):
+            cs, _, _ = tw.stream_plan(4, k, n, bits, 128, sms)
+            assert cs == 1 or tiles * cs <= tw.STREAM_BLOCKS_PER_SM[bits] * sms
+    assert tw.stream_plan(4, k, n, 8, 128, 264)[0] >= tw.stream_plan(4, k, n, 8, 128, 66)[0]
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 1000), (300, 4096, 1000), (1, 14336, 4104)])
+def test_simt_split_covers_k(m, k, n):
+    """The SIMT route's split-K ranges are whole 32-row steps covering K."""
+    splits, per = tw._splitk(m, k, n)
+    assert per % tw.KERNEL_K_STEP == 0 and (splits - 1) * per < k <= splits * per
+
+
+def _phase_count():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_phase_count.py"
+    spec = importlib.util.spec_from_file_location("chip_phase_count", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+PHASE_COUNT = _phase_count()
+
+
+@pytest.mark.parametrize("i", range(len(PHASE_COUNT.WOQ_PATCHES)))
+def test_phase_count_finds_what_it_instruments_in_k6(i):
+    """chip_phase_count.py patches the committed K6 source in order: patch i
+    finds its text once the patches before it are applied, and the whole
+    list applies, with the counters' reader after the kernels."""
+    source = (tw.op_builder.CSRC / "woq_matmul.cu").read_text()
+    text = source
+    for old, new in PHASE_COUNT.WOQ_PATCHES[:i]:
+        text = text.replace(old, new, 1)
+    assert PHASE_COUNT.WOQ_PATCHES[i][0] in text
+    patched = PHASE_COUNT.patch_woq(source)
+    assert patched is not None and patched.rstrip().endswith(
+        'extern "C" int ds_woq_matmul' + source.split('extern "C" int ds_woq_matmul')[1].rstrip())
+    assert PHASE_COUNT.WOQ_READER in patched
