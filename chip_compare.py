@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the two training slices, the weight-only-quantized matmul and
-fused decode attention, and the two block-sparse / Evoformer kernels of this
-checkout against another tree of the repository on one card.
+"""Time the two training slices, paged attention, the weight-only-quantized
+matmul and fused decode attention, and the two block-sparse / Evoformer
+kernels of this checkout against another tree of the repository on one
+card.
 
     python3 chip_compare.py OTHER_DIR
 
@@ -12,7 +13,9 @@ meet the card in the same states: first the tree's own
 ``chip_smoke.kernel_phases`` (phases 2-4: the build, K1 against its plain
 version and timed beside gather + SDPA) and ``chip_smoke.main_path``
 (phases 5-7: ``serve()`` on llama3-8b and its decode and prefill steps'
-profile); then K6 (the weight-only-quantized
+profile); then K1 (paged attention) on the decode, prefill and mixed
+serving steps of llama3-8b (``chip_smoke.K1_MAIN``, 8 layers of pool
+cycled) beside gather + SDPA; then K6 (the weight-only-quantized
 matmul) on llama3-8b's gate, down and q projections at int8, int4 and fp6
 and M = 4 and 2048, beside torch.matmul on the dequantized bf16 weight, and
 K2 (fused decode attention) on the main (B 4, 8192 live slots a sequence)
@@ -31,8 +34,9 @@ K5) beside SDPA's autograd backward, timed by the same code in both trees
 (the ``train_kernel_time`` rows of phase 9), and the tree's own
 ``chip_smoke.train_path`` (phase 10: gpt2-xl at full width and depth, then
 its step profile). The children's JSON lines pass through; the last line
-is a summary by tree, in run order: each kernel's ms per step kind (K3,
-K4, K5: case gpt2xl_causal; K11 per layout; K12: main_path) with the
+is a summary by tree, in run order: each kernel's ms per step kind (K1:
+graph ms by serving step; K3, K4, K5: case gpt2xl_causal; K11 per layout;
+K12: main_path) with the
 library call's ms beside it, and
 each train step's ms, tokens/s, MFU, peak memory and idle share. Exits 1
 without a card or when a child fails.
@@ -90,6 +94,25 @@ def graph_ms(fn, iters=20, reps=5):
     return statistics.median(times)
 
 
+from deepspeed_tpu_torch.ops import paged_attention as PA
+K1_CASES = {   # chip_smoke.K1_MAIN of this tree, spelled out so both trees run the same cases
+    "decode": dict(ctx=[99, 1999, 732, 1499, 256, 1023, 1898, 411] + [0] * 8, c=1,
+                   valid=[1] * 8 + [0] * 8),
+    "prefill": dict(ctx=[0, 256, 512, 768, 1024, 1280, 1536, 1792] + [0] * 8, c=128,
+                    valid=[128] * 7 + [57] + [0] * 8, seed=1),
+    "mixed": dict(ctx=[1024, 1536, 2048, 3072, 3500, 2500, 1500, 3900] + [0] * 8, c=128,
+                  valid=[128] * 4 + [1] * 4 + [0] * 8, seed=17)}
+for name, kw in K1_CASES.items():
+    c = cs.make_case(torch, name, layers=8, **kw)
+    kern = lambda i: cs.call(PA.paged_ragged_attention, c, i % 8)
+    lib = lambda i: cs.library_call(torch, c, i % 8)
+    cs.emit("k1_kernel_time", kernel="paged_attention", case=name, ms=graph_ms(kern),
+            event_ms=cs.cuda_ms(torch, kern), library_ms=graph_ms(lib),
+            library_event_ms=cs.cuda_ms(torch, lib),
+            library="pages gathered + F.scaled_dot_product_attention (boolean mask)",
+            bound_ms=cs.bound(*cs.case_work(c))[0], card=smi)
+    del c
+    torch.cuda.empty_cache()
 g = torch.Generator(device="cuda").manual_seed(4)
 for pname in ("gate", "down", "q"):
     k, n = cs.PROJ[pname]
@@ -215,9 +238,10 @@ def summarize(stdout):
                                                        "peak_memory_gb")})
         elif phase == "step_profile":
             out["serving"][f"{row['step']}_step"] = {
-                k: row[k] for k in ("wall_ms", "device_busy_ms", "idle_share")}
+                k: row[k] for k in ("wall_ms", "host_issue_ms", "device_busy_ms", "idle_share")
+                if k in row}
         elif phase in ("kernel_time", "ring_kernel_time", "train_kernel_time", "ops_kernel_time",
-                       "woq_kernel_time", "v1_kernel_time"):
+                       "woq_kernel_time", "v1_kernel_time", "k1_kernel_time"):
             out["kernels"].setdefault(row["kernel"], {})[row["case"]] = row["ms"]
             if row.get("library_ms") is not None:
                 out["library"].setdefault(row["kernel"], {})[row["case"]] = row["library_ms"]

@@ -14,26 +14,38 @@ Phases, each printing one JSON line:
      flash_attention) its registers, spills, shared memory a block and
      HGMMA (wgmma) instructions from ``cuobjdump --dump-sass`` (the wgmma
      forward K13 and K3 and the wgmma K14/K15 must be there at D 64 and
-     128, issue HGMMA and spill nothing); the same for K2 and K6 (K6's
-     wgmma route issues HGMMA and spills nothing at each bit width, K2
-     spills nothing at any head dim);
-  3. kernel_check: each kernel against its plain PyTorch version on the
-     card, at the main path's shapes (llama3-8b: H=32, KVH=8, D=128,
-     bs=128, bf16), plus window / ALiBi / softcap cases and the other
-     compiled instantiations (D=64/256, pages of 16/32 slots);
-  4. kernel_time: kernel, plain version and one PyTorch library call
-     (pages gather + scaled_dot_product_attention) by CUDA events, beside
-     the card's bound for the same work;
+     128, issue HGMMA and spill nothing); the same for K1, K2 and K6 (K1's
+     split route spills nothing at D 64, 80, 96, 128, 256 and its wgmma
+     route, mode PAGED, issues HGMMA and spills nothing at D 64, 128, 256,
+     each with its shared memory a block; K6's wgmma route issues HGMMA and
+     spills nothing at each bit width, K2 spills nothing at any head dim);
+  3. kernel_check: K1 twice on each case against its plain PyTorch version
+     on the card (atol = rtol = 2e-2, relative Frobenius <= 1e-2, pad rows
+     0, finite, the two runs bit-identical, the route named), at the main
+     path's shapes (llama3-8b: H=32, KVH=8, D=128, bs=128, bf16), the mixed
+     128-wide serving step, window / ALiBi / softcap cases, every compiled
+     instantiation (D=64/80/96/256, pages of 16/32 slots, MHA, MQA,
+     falcon-7b's 71 query heads on one kv head), a decode the plan splits
+     at bs 16, and NaN parked in stale slots, trash block 0 and pad chunk
+     rows;
+  4. kernel_time: K1 on the decode, prefill and mixed steps by CUDA events
+     and by CUDA-graph replay (a replayed call must give the eager call's
+     bits), its plain version and one PyTorch library call (pages gather +
+     scaled_dot_product_attention), beside the card's bound for the same
+     work; k1_crossover: both routes forced as the chunk width grows;
   5. main_path: ``InferenceEngineV2.serve()`` on llama3-8b at full width
      with random weights: 8 greedy requests over 3 frame boundaries; every
      request must complete, the kernel's launches must equal layers x
-     steps, and the KV pool must drain;
+     steps, and the KV pool must drain (after phase 7, phi2_path:
+     ``serve()`` on phi-2 at full width and depth, head dim 80 on K1's split
+     route, 4 greedy requests, K1 launches = layers x steps, the pool
+     drained);
   6. reference_check: the paged forward (128-token chunks through the
      kernel) against a dense causal forward written out in this script, on
      a 300-token prompt: last-position logits within 5% of their range;
   7. step_profile: one decode and one prefill step at the main path's
-     shapes, host wall time per step and device time by kernel class
-     (torch.profiler), and the device's idle share.
+     shapes, host wall time per step, the host's time to issue one, device
+     time by kernel class (torch.profiler), and the device's idle share.
 The serving engine is then freed, and the training slice runs:
   8. train_kernel_check: flash attention forward, dq and dk/dv (K3, K4, K5)
      against their plain versions at gpt2-xl and llama3-8b shapes and on
@@ -319,12 +331,178 @@ def graph_ms(torch, fn, iters=20, reps=5):
     return statistics.median(times)
 
 
+# the two step shapes of the main path: 16 slots, 8 of them live (the other
+# 8 frozen, positions -1), decode at ragged contexts and a 128-token prefill
+# chunk at staggered offsets; and a 128-wide step of the serving frame with
+# 4 rows prefilling and 4 decoding (one live position and 127 pad rows
+# each) at long contexts
+K1_MAIN = {
+    "decode": dict(ctx=[99, 1999, 732, 1499, 256, 1023, 1898, 411] + [0] * 8,
+                   c=1, valid=[1] * 8 + [0] * 8),
+    "prefill": dict(ctx=[0, 256, 512, 768, 1024, 1280, 1536, 1792] + [0] * 8,
+                    c=128, valid=[128] * 7 + [57] + [0] * 8, seed=1),
+    "mixed": dict(ctx=[1024, 1536, 2048, 3072, 3500, 2500, 1500, 3900] + [0] * 8,
+                  c=128, valid=[128] * 4 + [1] * 4 + [0] * 8, seed=17),
+}
+
+
+def poison(torch, case):
+    """NaN where no live row may look: every slot of trash block 0, the
+    stale slots of each sequence's live page (from its chunk's first
+    position, which the chunk rides beside), the rest of the page its
+    chunk ends in, table padding pointed at block 0, and the chunk's pad
+    rows."""
+    bs = case["kpool"].shape[3]
+    nan = float("nan")
+    for pool in ("kpool", "vpool"):
+        case[pool][:, :, 0] = nan
+        for i, n in enumerate(case["ctx"]):
+            end = n + case["valid"][i]
+            for slot in (n, end):
+                if slot // bs < case["block_tables"].shape[1]:
+                    case[pool][:, :, case["block_tables"][i, slot // bs], slot % bs:] = nan
+    for i, n in enumerate(case["ctx"]):
+        case["block_tables"][i, -(-(n + case["valid"][i]) // bs):] = 0
+    for t in ("chunk_k", "chunk_v"):
+        case[t][case["positions"] < 0] = nan
+    return case
+
+
+def k1_check_cases(torch):
+    """kernel_check's K1 cases: the main path's shapes, the options, every
+    compiled head dim and page size, falcon-7b's 71 query rows a kv head, a
+    decode the plan splits at bs 16, the mixed serving step, and NaN parked
+    where no live row may look."""
+    mk = make_case
+    return [mk(torch, name, **kw) for name, kw in K1_MAIN.items()] + [
+        mk(torch, "decode_window", ctx=[99, 1999, 700], c=1, window=256, seed=2),
+        mk(torch, "prefill_window", ctx=[0, 900], c=128, valid=[128, 77], window=200, seed=3),
+        mk(torch, "decode_alibi", ctx=[50, 1200], c=1, alibi=True, seed=4),
+        mk(torch, "prefill_softcap", ctx=[0, 640], c=128, valid=[100, 128], softcap=50.0, seed=5),
+        # the other compiled instantiations: head dims 64, 80, 96 and 256,
+        # pages smaller than the 64-slot tile, MHA, MQA and G = 71
+        mk(torch, "decode_d64_bs16_mha", ctx=[5, 300, 77], c=1, h=16, kvh=16, d=64, bs=16, seed=6),
+        mk(torch, "prefill_d64_bs32_mqa", ctx=[0, 200], c=40, valid=[40, 23], h=8, kvh=1, d=64,
+           bs=32, seed=7),
+        mk(torch, "prefill_d256_bs16", ctx=[0, 333], c=96, valid=[96, 50], h=16, kvh=8, d=256,
+           bs=16, window=64, seed=8),
+        mk(torch, "decode_d256", ctx=[1000, 17], c=1, h=8, kvh=2, d=256, alibi=True, seed=9),
+        mk(torch, "decode_d256_softcap", ctx=[1500, 40], c=1, h=16, kvh=8, d=256, softcap=50.0,
+           seed=21),
+        mk(torch, "decode_d80_phi2", ctx=[700, 5, 0], c=1, valid=[1, 1, 0], h=32, kvh=32, d=80,
+           seed=10),
+        mk(torch, "prefill_d80_phi2", ctx=[0, 300], c=128, valid=[128, 40], h=32, kvh=32, d=80,
+           seed=11),
+        mk(torch, "decode_d96_neox_bs16", ctx=[900, 33], c=1, h=64, kvh=64, d=96, bs=16,
+           window=512, seed=12),
+        mk(torch, "prefill_d96_neox", ctx=[0, 1000], c=64, valid=[64, 9], h=64, kvh=64, d=96,
+           alibi=True, seed=13),
+        mk(torch, "decode_g71_falcon", ctx=[1500, 3], c=1, h=71, kvh=1, d=64, bs=16, seed=14),
+        mk(torch, "decode_bs16_split", ctx=[4000], c=1, bs=16, seed=15),
+        poison(torch, mk(torch, "nan_decode", ctx=[99, 300, 0], c=1, valid=[1, 1, 0], seed=16)),
+        poison(torch, mk(torch, "nan_prefill", ctx=[0, 130, 0], c=128, valid=[60, 128, 0],
+                         seed=18)),
+        poison(torch, mk(torch, "nan_d80", ctx=[77, 0], c=16, valid=[16, 0], h=32, kvh=32, d=80,
+                         bs=16, seed=19)),
+    ]
+
+
+def check_k1(torch, case):
+    """K1 twice on the case against its plain version on f32 copies: within
+    atol = rtol = 2e-2 and relative Frobenius <= 1e-2 on the live rows, pad
+    rows exactly 0, every value finite, the two runs bit-identical, one
+    launch each. Returns (max error, route)."""
+    from deepspeed_tpu_torch.ops.paged_attention import (paged_ragged_attention,
+                                                          paged_ragged_attention_plain)
+    fn = paged_ragged_attention
+    fn.launches = 0
+    before = dict(fn.routes)
+    first = call(fn, case)
+    second = call(fn, case)
+    ref = call(paged_ragged_attention_plain, case, cast=lambda t: t.float())
+    torch.cuda.synchronize()
+    way = [k for k in fn.routes if fn.routes[k] != before[k]]
+    got = first.float()
+    live = case["positions"] >= 0
+    err = (got - ref).abs()[live]
+    rel = float(torch.linalg.vector_norm(got[live] - ref[live])
+                / torch.linalg.vector_norm(ref[live]))
+    pad_zero = bool((got[~live] == 0).all()) if (~live).any() else True
+    finite = bool(torch.isfinite(got).all())
+    same = bool(torch.equal(first, second))
+    ok = (bool((err <= ATOL + RTOL * ref.abs()[live]).all()) and rel <= FRO_TOL and pad_zero
+          and finite and same and fn.launches == 2 and len(way) == 1)
+    b, c, h, d = case["q"].shape
+    emit("kernel_check", kernel="paged_attention", case=case["name"], route=way,
+         shape=dict(B=b, C=c, H=h, KVH=case["kpool"].shape[1], D=d, bs=case["kpool"].shape[3]),
+         max_abs_err=float(err.max()), rel_fro=rel, atol=ATOL, rtol=RTOL, fro_tol=FRO_TOL,
+         pad_rows_zero=pad_zero, finite=finite, twice_bit_identical=same, within=ok)
+    if not ok:
+        fail(f"paged_attention {case['name']}: max_abs_err {float(err.max())}, rel {rel}, "
+             f"pad rows zero {pad_zero}, finite {finite}, same {same}, route {way}")
+    return float(err.max()), way[0]
+
+
+def graph_bits(torch, fn):
+    """One call captured in a CUDA graph and replayed gives the eager call's
+    bits (no host sync or host-built data in the call)."""
+    eager = fn(0).clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn(0)
+    graph.replay()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(out, eager))
+    del graph
+    return same
+
+
+def k1_crossover(torch):
+    """Both K1 routes forced (through SPLIT_MAX_ROWS and SPLIT_MAX_C) as the chunk width C
+    grows, on llama3-8b's shape (G 4) and falcon-7b's (71 query heads on one
+    kv head, D 64), 8 sequences at contexts 512-1919: device ms by graph
+    replay, and the route the chooser takes."""
+    from deepspeed_tpu_torch.ops import paged_attention as PA
+    keep = PA.SPLIT_MAX_ROWS, PA.SPLIT_MAX_C
+    shapes = {"llama3-8b": (dict(h=H, kvh=KVH, d=D), (1, 2, 4, 8, 16, 32, 64)),
+              "falcon-7b": (dict(h=71, kvh=1, d=64), (1, 2, 4))}
+    out = {}
+    try:
+        for model, (dims, widths) in shapes.items():
+            rows = {}
+            for c in widths:
+                case = make_case(torch, f"cross_{model}_c{c}", c=c, layers=8, seed=20 + c,
+                                 ctx=[512 + 201 * i for i in range(8)], **dims)
+                row = {}
+                for way, limit in (("split", 1 << 30), ("wgmma", 0)):
+                    PA.SPLIT_MAX_ROWS = PA.SPLIT_MAX_C = limit
+                    row[way] = graph_ms(torch, lambda i: call(PA.paged_ragged_attention, case,
+                                                              i % 8))
+                PA.SPLIT_MAX_ROWS, PA.SPLIT_MAX_C = keep
+                g = dims["h"] // dims["kvh"]
+                row.update(rows_per_kv_head=c * g, chooser=PA.route(c, g, dims["d"], BS))
+                rows[c] = row
+                del case
+            out[model] = rows
+    finally:
+        PA.SPLIT_MAX_ROWS, PA.SPLIT_MAX_C = keep
+    torch.cuda.empty_cache()
+    emit("k1_crossover", by_model_and_c=out, split_max_rows=keep[0], split_max_c=keep[1], bs=BS,
+         note="graph-replay device ms, both routes forced; contexts 512 + 201 i, 8 layers cycled")
+
+
 def kernel_phases(torch):
-    """Phases 2-4 for the paged attention kernel. Returns the kernel's
-    summary entry (without ``launches``, which the main path fills)."""
+    """Phases 2-4 for the paged attention kernel (K1), and its crossover.
+    Returns the kernel's summary entry (without ``launches``, which the main
+    path fills)."""
     from deepspeed_tpu_torch.ops import op_builder
-    from deepspeed_tpu_torch.ops.paged_attention import (
-        paged_ragged_attention, paged_ragged_attention_plain)
+    from deepspeed_tpu_torch.ops.paged_attention import (paged_ragged_attention,
+                                                          paged_ragged_attention_plain)
 
     t0 = time.perf_counter()
     secs = op_builder.build()
@@ -334,85 +512,52 @@ def kernel_phases(torch):
                 for k, v in op_builder.BUILD_LOGS.items()},
          wgmma_kernels={lib: wgmma_build_report(op_builder, lib) for lib in WGMMA_LIBS},
          decode_woq_kernels={lib: decode_woq_build_report(op_builder, lib)
-                             for lib in ("decode_attention", "woq_matmul")})
+                             for lib in ("paged_attention", "decode_attention", "woq_matmul")})
 
-    # the two step shapes of the main path: 16 slots, 8 of them live (the
-    # other 8 frozen, positions -1), decode at ragged contexts and a
-    # 128-token prefill chunk at staggered offsets
-    main = {
-        "decode": dict(ctx=[99, 1999, 732, 1499, 256, 1023, 1898, 411] + [0] * 8,
-                       c=1, valid=[1] * 8 + [0] * 8),
-        "prefill": dict(ctx=[0, 256, 512, 768, 1024, 1280, 1536, 1792] + [0] * 8,
-                        c=128, valid=[128] * 7 + [57] + [0] * 8, seed=1),
-    }
-    cases = [make_case(torch, name, **kw) for name, kw in main.items()] + [
-        make_case(torch, "decode_window", ctx=[99, 1999, 700], c=1,
-                  window=256, seed=2),
-        make_case(torch, "prefill_window", ctx=[0, 900], c=128,
-                  valid=[128, 77], window=200, seed=3),
-        make_case(torch, "decode_alibi", ctx=[50, 1200], c=1, alibi=True, seed=4),
-        make_case(torch, "prefill_softcap", ctx=[0, 640], c=128,
-                  valid=[100, 128], softcap=50.0, seed=5),
-        # the other compiled instantiations: head dims 64 and 256, pages
-        # smaller than the kernel's 64-key tile, MHA and MQA
-        make_case(torch, "decode_d64_bs16_mha", ctx=[5, 300, 77], c=1,
-                  h=16, kvh=16, d=64, bs=16, seed=6),
-        make_case(torch, "prefill_d64_bs32_mqa", ctx=[0, 200], c=40,
-                  valid=[40, 23], h=8, kvh=1, d=64, bs=32, seed=7),
-        make_case(torch, "prefill_d256_bs16", ctx=[0, 333], c=96,
-                  valid=[96, 50], h=16, kvh=8, d=256, bs=16, window=64, seed=8),
-        make_case(torch, "decode_d256", ctx=[1000, 17], c=1, h=8, kvh=2,
-                  d=256, alibi=True, seed=9),
-    ]
-    worst = 0.0
-    for case in cases:
-        paged_ragged_attention.launches = 0
-        got = call(paged_ragged_attention, case).float()
-        ref = call(paged_ragged_attention_plain, case, cast=lambda t: t.float())
-        torch.cuda.synchronize()
-        err = (got - ref).abs()
-        ok = bool((err <= ATOL + RTOL * ref.abs()).all())
-        pad = case["positions"] < 0
-        pad_zero = bool((got[pad] == 0).all()) if pad.any() else True
-        max_err = float(err.max())
-        worst = max(worst, max_err)
-        emit("kernel_check", kernel="paged_attention", case=case["name"],
-             max_abs_err=max_err, atol=ATOL, rtol=RTOL, within=ok,
-             pad_rows_zero=pad_zero)
-        if not (ok and pad_zero) or paged_ragged_attention.launches != 1:
-            fail(f"paged_attention {case['name']}: max_abs_err {max_err}, "
-                 f"pad rows zero {pad_zero}")
-    del cases
+    worst, routes = 0.0, {}
+    for case in k1_check_cases(torch):
+        err, routes[case["name"]] = check_k1(torch, case)
+        worst = max(worst, err)
+        del case
+    torch.cuda.empty_cache()
 
     # timing: 8 layers of pool cycled, so a call finds its pages cold in L2
     # as each layer of a real step does
     shapes = {}
-    for name, kw in main.items():
+    for name, kw in K1_MAIN.items():
         case = make_case(torch, name, layers=8, **kw)
         f32 = {k: case[k].float() for k in ("q", "kpool", "vpool", "chunk_k", "chunk_v")}
         plain_case = {**case, **f32}
         nbytes, flops = case_work(case)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        b_ms, b_by = bound(nbytes, flops)
+        kernel = lambda i: call(paged_ragged_attention, case, i % 8)   # noqa: E731
+        library = lambda i: library_call(torch, case, i % 8)           # noqa: E731
         row = dict(
-            ms=cuda_ms(torch, lambda i: call(paged_ragged_attention, case, i % 8)),
+            ms=cuda_ms(torch, kernel), graph_ms=graph_ms(torch, kernel),
+            graph_bit_identical=graph_bits(torch, kernel), route=routes[name],
             plain_ms=cuda_ms(torch, lambda i: call(
                 paged_ragged_attention_plain, plain_case, i % 8), reps=3, iters=5),
-            library_ms=cuda_ms(torch, lambda i: library_call(torch, case, i % 8)),
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bytes=nbytes, flops=flops,
+            library_ms=cuda_ms(torch, library), library_graph_ms=graph_ms(torch, library),
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
             shape=dict(B=len(case["ctx"]), C=int(case["positions"].shape[1]),
                        H=H, KVH=KVH, D=D, bs=BS, dtype="bfloat16"))
-        emit("kernel_time", kernel="paged_attention", case=name, **row)
+        emit("kernel_time", kernel="paged_attention", case=name,
+             library="pages gathered + F.scaled_dot_product_attention (boolean mask)",
+             timing="ms: back-to-back calls by CUDA events (host launch time included); "
+             "graph_ms: the same calls replayed from one CUDA graph (device time)", **row)
+        if not row["graph_bit_identical"]:
+            fail(f"paged_attention {name}: the graph replay differs from the eager call")
         shapes[name] = row
         del case, plain_case, f32
     torch.cuda.empty_cache()
+    k1_crossover(torch)
     dec = shapes["decode"]
     return {"name": "paged_attention", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "max_abs_err": worst,
             "ms": dec["ms"], "plain_ms": dec["plain_ms"],
             "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-            "library_ms": dec["library_ms"], "shapes": shapes}
+            "library_ms": dec["library_ms"], "device_ms": dec["graph_ms"],
+            "library_device_ms": dec["library_graph_ms"], "shapes": shapes}
 
 
 # ------------------------------------------------------------------ main path
@@ -519,6 +664,64 @@ def main_path(torch, smi):
     return launches
 
 
+def phi2_path(torch, smi):
+    """Phase 5b: ``serve()`` on phi-2 at full width and depth (head dim 80:
+    K1's split route at decode and prefill), 4 greedy requests with every
+    count set to 0 before and read after: tokens in [0, vocab), K1 launches
+    = layers x steps, the pool drained."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.ops.paged_attention import paged_ragged_attention
+    model = build_model("phi-2")
+    cfg = model.cfg
+    eng = InferenceEngineV2(model, RaggedInferenceEngineConfig(
+        max_ragged_batch_size=16, kv_block_size=BS, prefill_chunk_size=128,
+        dtype="bfloat16"), max_seq_len=2048)
+    g = torch.Generator().manual_seed(3)
+    lens = [300, 37, 900, 128]
+    prompts = {u: torch.randint(0, cfg.vocab_size, (n,), generator=g).numpy()
+               for u, n in enumerate(lens)}
+    steps = {"n": 0}
+    run_frame_loop = eng.runner.frame_loop
+
+    def counting_frame_loop(*a, **kw):
+        steps["n"] += kw["steps"]
+        return run_frame_loop(*a, **kw)
+
+    eng.runner.frame_loop = counting_frame_loop
+    zero_counts()
+    paged_ragged_attention.routes = {"split": 0, "wgmma": 0}
+    t0 = time.perf_counter()
+    try:
+        got = dict(eng.serve(iter([list(prompts.items())]), max_new_tokens=16))
+        torch.cuda.synchronize()
+    finally:
+        eng.runner.frame_loop = run_frame_loop
+    serve_s = time.perf_counter() - t0
+    counts = read_counts()
+    launches = counts["paged_attention"]
+    if set(got) != set(prompts) or any(len(t) != 16 for t in got.values()):
+        fail(f"phi-2 path: completed {sorted(got)} with {[len(t) for t in got.values()]} tokens")
+    if not all(((t >= 0) & (t < cfg.vocab_size)).all() for t in got.values()):
+        fail("phi-2 path: tokens outside [0, vocab)")
+    if launches != cfg.num_layers * steps["n"] or paged_ragged_attention.routes["wgmma"]:
+        fail(f"phi-2 path: {launches} K1 launches ({paged_ragged_attention.routes}), expected "
+             f"{cfg.num_layers} layers x {steps['n']} steps on the split route")
+    if eng.kv.free_blocks != eng.kv.num_blocks - 1 or eng.state.seqs:
+        fail(f"phi-2 path: pool did not drain ({eng.kv.free_blocks} of "
+             f"{eng.kv.num_blocks - 1} blocks free)")
+    n_tok = sum(len(t) for t in got.values())
+    emit("phi2_path", model="phi-2", layers=cfg.num_layers, hidden=cfg.hidden_size,
+         head_dim=cfg.dims_per_head, requests=len(got), tokens=n_tok, steps=steps["n"],
+         paged_attention_launches=launches, routes=dict(paged_ragged_attention.routes),
+         other_launches={k: v for k, v in counts.items() if v and k != "paged_attention"},
+         serve_s=serve_s, tokens_per_s=n_tok / serve_s, card=smi)
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def dense_logits(torch, eng, ids):
     """Last-position logits of ``ids`` by a dense causal forward written
     out here (no pages, no kernel; f32 softmax over every earlier token),
@@ -587,7 +790,7 @@ def reference_check(torch, eng, prompt):
 
 
 def _kernel_class(name):
-    if "paged_attention" in name:
+    if any(k in name for k in ("paged_attention", "paged_split", "paged_fwd_wgmma")):
         return "paged_attention"
     if any(s in name.lower() for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
         return "gemm"
@@ -631,6 +834,12 @@ def step_profile(torch, eng, smi):
                 step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+            issue = []   # the host's time to enqueue one step, the card idle at its start
+            for _ in range(3):
+                t0 = time.perf_counter()
+                step()
+                issue.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(3):
                     step()
@@ -647,7 +856,7 @@ def step_profile(torch, eng, smi):
         busy_ms = sum(by_class.values()) / 1e3
         top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:6]
         emit("step_profile", step=name, live_rows=len(starts), slots=n_slots, width=c,
-             wall_ms=wall_ms, device_busy_ms=busy_ms,
+             wall_ms=wall_ms, host_issue_ms=statistics.median(issue), device_busy_ms=busy_ms,
              idle_share=max(0.0, 1 - busy_ms / wall_ms),
              device_ms_by_class={k: v / 1e3 for k, v in by_class.items()},
              top_kernels_ms=[(k[:80], v / 1e3) for k, v in top], card=smi)
@@ -2366,12 +2575,14 @@ WGMMA_LIBS = {
 
 
 def decode_woq_build_report(op_builder, lib):
-    """Registers, stack and spills of each kernel of K2 (decode_attention) or
-    K6 (woq_matmul) from the build's ptxas report, and its HGMMA (wgmma)
-    instructions from ``cuobjdump --dump-sass``. Fails unless K6's wgmma
-    route (woq_wgmma<bits, tile rows>) issues HGMMA and spills nothing at
-    each bit width and tile and K2's decode kernel spills nothing at any head
-    dim."""
+    """Registers, stack and spills of each kernel of K1 (paged_attention),
+    K2 (decode_attention) or K6 (woq_matmul) from the build's ptxas report,
+    and its HGMMA (wgmma) instructions from ``cuobjdump --dump-sass``; K1's
+    also its dynamic shared memory and threads a block (kernel_info). Fails
+    unless K6's wgmma route (woq_wgmma<bits, tile rows>) and K1's wgmma
+    route (paged_fwd_wgmma<D>, mode PAGED) issue HGMMA and spill nothing at
+    each instantiation, and K2's decode kernel and K1's split route
+    (paged_split<D>) spill nothing at any head dim."""
     import re
     from pathlib import Path
     if lib not in op_builder.BUILD_LOGS:   # reused from an earlier run: rebuild
@@ -2379,7 +2590,8 @@ def decode_woq_build_report(op_builder, lib):
         op_builder.build([lib])
 
     def short(mangled):
-        m = re.search(r"(woq_wgmma|woq_stream|woq_kernel|splitk_sum_kernel|decode_kernel)"
+        m = re.search(r"(woq_wgmma|woq_stream|woq_kernel|splitk_sum_kernel|decode_kernel|"
+                      r"paged_split|paged_fwd_wgmma)"
                       r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", mangled)
         if m is None:
             return mangled
@@ -2410,16 +2622,24 @@ def decode_woq_build_report(op_builder, lib):
             rows.setdefault(name, {})["hgmma"] = 0
         elif name and "HGMMA" in ln:
             rows[name]["hgmma"] += 1
-    want = (["woq_wgmma<8,256>", "woq_wgmma<8,128>", "woq_wgmma<4,256>", "woq_wgmma<4,128>",
-             "woq_wgmma<6,128>"] if lib == "woq_matmul"
-            else [f"decode_kernel<{d}>" for d in (64, 128, 192, 256)])
+    want = {"woq_matmul": ["woq_wgmma<8,256>", "woq_wgmma<8,128>", "woq_wgmma<4,256>",
+                           "woq_wgmma<4,128>", "woq_wgmma<6,128>"],
+            "decode_attention": [f"decode_kernel<{d}>" for d in (64, 128, 192, 256)],
+            "paged_attention": [f"paged_split<{d}>" for d in (64, 80, 96, 128, 256)]
+            + [f"paged_fwd_wgmma<{d}>" for d in (64, 128, 256)]}[lib]
+    if lib == "paged_attention":
+        from deepspeed_tpu_torch.ops.paged_attention import kernel_info
+        for name in want:
+            rows.setdefault(name, {}).update(kernel_info(
+                "split" if name.startswith("paged_split") else "wgmma",
+                int(name.split("<")[1].rstrip(">"))))
     for name in want:
         row = rows.get(name)
-        if row is None:
+        if row is None or "registers" not in row:
             fail(f"{name} missing from the ptxas report of {lib}")
         if row.get("spill_stores") or row.get("spill_loads"):
             fail(f"{name} spills: {row}")
-        if lib == "woq_matmul" and not row.get("hgmma"):
+        if "wgmma" in name and not row.get("hgmma"):
             fail(f"{name} issues no HGMMA: {row}")
     return rows
 
@@ -3050,6 +3270,7 @@ def main():
     entry["launches"] = main_path(torch, smi)
     gc.collect()                  # the serving engine is gone: its pools go back
     torch.cuda.empty_cache()
+    phi2_path(torch, smi)
     entries = train_phases(torch, smi)
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,7 +1,7 @@
 // The attention forward for Hopper (sm_90a): one online-softmax mainloop on
-// wgmma with register accumulators, fed by TMA, shared by four kernels.
+// wgmma with register accumulators, fed by TMA, shared by five kernels.
 //
-// Replaces four TPU kernels that compute the same online softmax:
+// Replaces five TPU kernels that compute the same online softmax:
 //   K13 deepspeed_tpu/sequence/ring_flash.py _ring_fwd_kernel (one ring step:
 //       fold one K/V shard into the carry m, l, acc at global offsets) ->
 //       ring_flash.cu ring_fwd_wgmma, mode RING;
@@ -12,7 +12,10 @@
 //       the live 16-key blocks of each query tile) -> sparse_flash.cu
 //       sparse_fwd_wgmma, mode SPARSE;
 //   K12 deepspeed_tpu/ops/pallas/evoformer_flash.py _evo_fwd_kernel (two
-//       additive f32 biases) -> evoformer_flash.cu evo_fwd_wgmma, mode EVO.
+//       additive f32 biases) -> evoformer_flash.cu evo_fwd_wgmma, mode EVO;
+//   K1  deepspeed_tpu/ops/pallas/paged_attention.py _paged_kernel (queries of
+//       a chunk over in-place KV pages, at large C * G) -> paged_attention.cu
+//       paged_fwd_wgmma, mode PAGED.
 // Per query row r and key column c of one (batch, head), with q already
 // scaled and global positions row = q_off + r, col = k_off + c:
 //   s = q . k + slope[h] * (col - row)   (slope 0 without ALiBi)
@@ -36,6 +39,11 @@
 // b2[r, c] in f32 in that order, m from -1e30 as the TPU kernel (a row of
 // -inf logits gets p = 0 and outputs 0, a row of -1e9 logits averages V),
 // out = acc / l (0 where l = 0).
+// PAGED: the query rows r = c * G + g of one kv head (Sq = C G rows, H = KVH
+// items a sequence), s = (q . k) * scale in f32, + slope[kv head G + g] (key
+// pos - pos) with ALiBi, softcap tanh, visible iff the key's position is in
+// [pos - window + 1, pos] and, for a pool slot, below the pool's end (cs with
+// a chunk); out = acc / l, and 0 for a pad row (pos -1).
 //
 // What bounds it on this card: K13 at qwen2-7b's shard shapes (Sq = Sk =
 // 8192, H = 28, KVH = 4, D = 128) does 4 D flops per visible pair against
@@ -100,6 +108,26 @@
 // pair-bias tile from one item to the next. q, k, v are read through 5-D
 // tensor maps over (D, H, S, N, B), so any strides of the (B, N, H, S, D)
 // views are read in place.
+// PAGED: items of 128 query rows of one (sequence, kv head), longest first
+// (later row tiles, later positions); each bounds its own key range from its
+// rows' positions (paged_range: pool slots from the window floor of its
+// least position up to min(pool end, its greatest + 1), the chunk keys whose
+// positions its rows can see), and an item with no live row loads nothing
+// and writes its zeros. The producer gathers Q by cp.async (rows c G + g of
+// the (B, C, H, D) q, pad rows zero), loads a pool tile that lies wholly in
+// the live range by TMA from the (L, KVH, NB, bs, D) pool, page by page
+// through the block table (min(bs, BK) slots a box), and a boundary tile or
+// a tile of the chunk's own keys by cp.async with dead rows zero-filled
+// (never read: a NaN in a stale slot, trash block 0 or a pad chunk row cannot
+// reach p = 0 times V), the chunk keys' positions beside them. Consumers
+// fence the async proxy after each wait (cp.async writes through the generic
+// proxy). The pass masks pool tiles by per-row slot limits (only tiles at a
+// limit); a chunk tile's S product starts from each key's mask and ALiBi
+// bias (from the key positions the producer stages beside it), so the pass
+// holds no key position. ALiBi and softcap take their own instantiations.
+// The producer keeps 72 registers and each consumer 216, and a consumer
+// thread keeps its rows' data for the item in shared memory: at D 256 the
+// consumers have no register to spare.
 #pragma once
 
 #include <cmath>
@@ -140,9 +168,28 @@ struct Params {
   const float* b1;         // (B x N, Sk) mask bias, or null
   const float* b2;         // (B, H, Sq, Sk) pair bias, or null
   int N;                   // MSA rows a batch
+  // PAGED: q (B, C, H G, D), k and v the (L, KVH, NB, bs, D) pools read
+  // through the tensor maps, out (B, C, H G, D); here H = KVH and Sq = C G
+  const int* tables;       // (B, MB) page ids
+  const int* positions;    // (B, C), -1 padding
+  const bf16* chunk_k;     // (B, C, KVH, D) the chunk's own keys, or null
+  const bf16* chunk_v;
+  int C, G, NB, bs, MB, layer;
+  float softcap;           // 0: none
 };
 
-enum Mode { RING, FLASH, SPARSE, EVO };
+enum Mode { RING, FLASH, SPARSE, EVO, PAGED };
+
+// PAGED's producer gathers rows by cp.async (addresses through the block
+// table), which 24 registers cannot hold: it keeps 72 and gives each
+// consumer 216 (128 x 72 + 256 x 216 = the 64,512 a block holds at 168 a
+// thread; the consumers spilled at D 256 with 208)
+constexpr int PAGED_PRODUCER_REGS = 72, PAGED_CONSUMER_REGS = 216;
+// a PAGED consumer thread's row data in shared memory (it holds no spare
+// register at D 256): its rows' positions, their last visible pool slots,
+// the item's pool tiles [lo, hi) that every live row sees whole, and its
+// rows' ALiBi slopes (f32 bits)
+constexpr int PAGED_ROW_INTS = 8;
 
 // true unless every (row, col) of query tile [r0, r0 + BQ) x key tile
 // [c0, c0 + BK) is in bounds and visible without a test
@@ -174,6 +221,15 @@ __device__ __forceinline__ size_t row_index(int b, int r, int h, int S, int H, i
   return ((static_cast<size_t>(b) * S + r) * H + h) * D;
 }
 
+// where row r of item head h and batch b goes in out (PAGED: query row
+// r = c G + g of kv head h is head h G + g of chunk row c)
+template <int MODE>
+__device__ __forceinline__ size_t out_index(const Params& p, int b, int r, int h, int D) {
+  if (MODE == PAGED)
+    return ((static_cast<size_t>(b) * p.C + r / p.G) * p.H * p.G + h * p.G + r % p.G) * D;
+  return row_index(b, r, h, p.Sq, p.H, D);
+}
+
 // The block's Q (BQ rows), then a ring of K/V stages, EVO's pair-bias tiles,
 // and the key tile's segment ids (EVO: its mask bias). Every tile offset is
 // a multiple of 1024 bytes.
@@ -192,7 +248,11 @@ struct Layout {
   static constexpr size_t b2 = stages + STAGES * 2 * kv_tile;
   static constexpr size_t seg = b2 + STAGES * b2_tile;
   static constexpr size_t bars = seg + STAGES * BK * sizeof(int);
-  static constexpr size_t bytes = bars + (2 * STAGES + 2) * sizeof(uint64_t) + 1024;
+  // PAGED: each consumer thread's row data for the current item
+  static constexpr size_t rows = bars + (2 * STAGES + 2) * sizeof(uint64_t);
+  static constexpr size_t bytes =
+      rows + (MODE == PAGED ? hopper::CONSUMERS * hopper::WG * PAGED_ROW_INTS * sizeof(int) : 0) +
+      1024;
 };
 
 // One work item: BQ query rows of one (batch, head) and the key tiles
@@ -202,7 +262,67 @@ struct Layout {
 // tiles with the most stages first).
 struct Item {
   int r0, h, b, lo, hi;
+  // PAGED: tiles [lo, pool_hi) are pool tiles (slots j BK ..), the rest the
+  // chunk's rows ck_lo ..; live slots [slot_lo, slot_hi); the rows' least
+  // and greatest live position (pmax < 0: none) and the pool's end
+  int pool_hi, slot_lo, slot_hi, ck_lo, ck_hi, pmin, pmax, pool_end;
 };
+
+// PAGED: the item's key range from its rows' positions (see the header), by
+// one whole warp (every lane gets it)
+template <int BQ, int BK>
+__device__ __forceinline__ void paged_range(const Params& p, Item& it) {
+  constexpr unsigned ALL = 0xffffffffu;
+  const int lane = threadIdx.x % 32;
+  const int* pos = p.positions + static_cast<size_t>(it.b) * p.C;
+  const int c0 = it.r0 / p.G, c1 = (min(it.r0 + BQ, p.Sq) - 1) / p.G;
+  int pmin = 0x7fffffff, pmax = -1, cs = 0x7fffffff, cmax = -1;
+  for (int c = lane; c < p.C; c += 32) {
+    const int v = pos[c];
+    if (v >= 0) {
+      cs = min(cs, v);
+      cmax = max(cmax, v);
+      if (c >= c0 && c <= c1) {
+        pmin = min(pmin, v);
+        pmax = max(pmax, v);
+      }
+    }
+  }
+  for (int o = 16; o; o >>= 1) {
+    pmin = min(pmin, __shfl_xor_sync(ALL, pmin, o));
+    pmax = max(pmax, __shfl_xor_sync(ALL, pmax, o));
+    cs = min(cs, __shfl_xor_sync(ALL, cs, o));
+    cmax = max(cmax, __shfl_xor_sync(ALL, cmax, o));
+  }
+  it.pmin = pmin;
+  it.pmax = pmax;
+  it.lo = it.hi = it.pool_hi = it.slot_lo = it.slot_hi = it.ck_lo = it.ck_hi = 0;
+  it.pool_end = 0;
+  if (pmax < 0) return;  // padding only: dropped before any load
+  it.pool_end = min(p.MB * p.bs, p.chunk_k != nullptr ? cs : cmax + 1);
+  const int lo = p.window > 0 ? max(pmin - p.window + 1, 0) : 0;
+  const int hi = min(it.pool_end, pmax + 1);
+  it.slot_lo = lo;
+  it.slot_hi = hi;
+  it.lo = lo / BK;
+  it.pool_hi = lo < hi ? (hi + BK - 1) / BK : it.lo;
+  int klo = 0x7fffffff, khi = -1;
+  if (p.chunk_k != nullptr)
+    for (int c = lane; c < p.C; c += 32) {
+      const int v = pos[c];
+      if (v >= 0 && v <= pmax && v >= lo) {
+        klo = min(klo, c);
+        khi = max(khi, c);
+      }
+    }
+  for (int o = 16; o; o >>= 1) {
+    klo = min(klo, __shfl_xor_sync(ALL, klo, o));
+    khi = max(khi, __shfl_xor_sync(ALL, khi, o));
+  }
+  it.ck_lo = khi >= 0 ? klo : 0;
+  it.ck_hi = khi + 1;
+  it.hi = it.pool_hi + (it.ck_hi - it.ck_lo + BK - 1) / BK;
+}
 
 template <int BQ, int BK, Mode MODE>
 __device__ __forceinline__ Item item_at(const Params& p, int i) {
@@ -221,6 +341,12 @@ __device__ __forceinline__ Item item_at(const Params& p, int i) {
     it.r0 = rest % nq * BQ;
     it.h = rest / nq % p.H;
     it.b = rest / nq / p.H * p.N + i % p.N;
+  } else if constexpr (MODE == PAGED) {
+    it.r0 = (nq - 1 - i / hb) * BQ;
+    it.h = i % hb % p.H;
+    it.b = i % hb / p.H;
+    paged_range<BQ, BK>(p, it);
+    return it;
   } else {
     it.r0 = (nq - 1 - i / hb) * BQ;
     it.h = i % hb % p.H;
@@ -281,6 +407,104 @@ __device__ __forceinline__ void item_rows(const Params& p, __nv_bfloat16* dst,
     hopper::tma_rows<D>(dst, map, bar, rows, head, row0, b);
 }
 
+// byte offset of element (row r, column col; col a multiple of 8) in a
+// 128-byte-swizzled tile of ROWS rows (what a TMA box writes there)
+template <int ROWS>
+__device__ __forceinline__ uint32_t swizzled(int r, int col) {
+  return (col / 64) * (ROWS * 128) + r * 128 + ((((col % 64) / 8) ^ (r % 8)) * 16);
+}
+
+// PAGED: the item's Q rows r0 .. r0 + BQ - 1 (row r = c G + g of kv head h)
+// gathered by the producer warp's cp.async into the swizzled tile, pad rows
+// and rows past Sq zero; completes `bar` (count 1)
+template <int D, int BQ>
+__device__ __forceinline__ void paged_q(const Params& p, const Item& it, bf16* Qs, uint64_t* bar) {
+  using namespace hopper;
+  constexpr int CH = D / 8;  // 16-byte pieces a row
+  const int lane = threadIdx.x % 32;
+  const int* pos = p.positions + static_cast<size_t>(it.b) * p.C;
+  const uint32_t base = smem_addr(Qs);
+  for (int r = lane; r < BQ; r += 32) {  // a row a lane: its address once
+    const int row = it.r0 + r;
+    const bool live = row < p.Sq && pos[row / p.G] >= 0;
+    const bf16* src = p.q + (live ? ((static_cast<size_t>(it.b) * p.C + row / p.G) * p.H * p.G +
+                                     it.h * p.G + row % p.G) * D
+                                  : 0);
+#pragma unroll 2
+    for (int ch = 0; ch < CH; ++ch)
+      cp_async_16(base + swizzled<BQ>(r, ch * 8), src + ch * 8, live ? 16u : 0u);
+  }
+  cp_async_mbar_arrive(bar);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// PAGED: key tile j of the item into stage K (then V) of BK rows, by the
+// producer warp, completing `bar` (32 arrivals): a pool tile wholly inside
+// the live slots by TMA, page by page (boxes of min(bs, BK) slots); any
+// other tile by cp.async, dead rows zero-filled, with its keys' positions
+// in `kpos` (-1 dead) for the pass
+template <int D, int BK>
+__device__ __forceinline__ void paged_tile(const Params& p, const Item& it, int j, bf16* Ks,
+                                           int* kpos, uint64_t* bar, const CUtensorMap* tk,
+                                           const CUtensorMap* tv) {
+  using namespace hopper;
+  constexpr int CH = D / 8;
+  const int lane = threadIdx.x % 32;
+  const bool pool = j < it.pool_hi;
+  const int c0 = j * BK;
+  if (pool && c0 >= it.slot_lo && c0 + BK <= it.slot_hi) {
+    if (lane == 0) {
+      const int* bt = p.tables + static_cast<size_t>(it.b) * p.MB;
+      const int box = p.bs < BK ? p.bs : BK;
+      mbar_arrive_expect_tx(bar, 2 * BK * D * 2);
+      for (int k0 = 0; k0 < BK; k0 += box) {
+        const int slot = c0 + k0, page = bt[slot / p.bs];
+#pragma unroll 1
+        for (int cb = 0; cb < D / 64; ++cb) {
+          tma_load_5d(Ks + cb * BK * 64 + k0 * 64, tk, bar, cb * 64, slot % p.bs, page, it.h,
+                      p.layer);
+          tma_load_5d(Ks + BK * D + cb * BK * 64 + k0 * 64, tv, bar, cb * 64, slot % p.bs, page,
+                      it.h, p.layer);
+        }
+      }
+    } else {
+      mbar_arrive(bar);
+    }
+    return;
+  }
+  const int* pos = p.positions + static_cast<size_t>(it.b) * p.C;
+  const int* bt = p.tables + static_cast<size_t>(it.b) * p.MB;
+  const size_t head = (static_cast<size_t>(p.layer) * p.KVH + it.h) * p.NB;
+  const int ck0 = it.ck_lo + (j - it.pool_hi) * BK;
+  if (!pool)
+    for (int r = lane; r < BK; r += 32) kpos[r] = ck0 + r < it.ck_hi ? pos[ck0 + r] : -1;
+  const uint32_t kt = smem_addr(Ks), vt = kt + BK * D * 2;
+  for (int r = lane; r < BK; r += 32) {  // a row a lane: its address once
+    bool live;
+    size_t off = 0;
+    if (pool) {
+      const int slot = c0 + r;
+      live = slot >= it.slot_lo && slot < it.slot_hi;
+      if (live) off = ((head + bt[slot / p.bs]) * p.bs + slot % p.bs) * D;
+    } else {
+      const int c = ck0 + r;
+      live = c < it.ck_hi && pos[c] >= 0;
+      if (live) off = ((static_cast<size_t>(it.b) * p.C + c) * p.KVH + it.h) * D;
+    }
+    const bf16* ksrc = (pool ? p.k : p.chunk_k) + off;
+    const bf16* vsrc = (pool ? p.v : p.chunk_v) + off;
+#pragma unroll 2
+    for (int ch = 0; ch < CH; ++ch) {
+      const uint32_t dst = swizzled<BK>(r, ch * 8);
+      cp_async_16(kt + dst, ksrc + ch * 8, live ? 16u : 0u);
+      cp_async_16(vt + dst, vsrc + ch * 8, live ? 16u : 0u);
+    }
+  }
+  cp_async_mbar_arrive(bar);
+  mbar_arrive(bar);
+}
+
 // The forward; the __global__ kernels of ring_flash.cu, flash_attention.cu,
 // sparse_flash.cu and evoformer_flash.cu are this function for their mode
 // (tb: EVO's pair-bias map). Persistent: each block takes one item a round
@@ -318,7 +542,7 @@ __device__ __forceinline__ void forward(const Params& p, const CUtensorMap* tq,
 
   const int wg = threadIdx.x / WG;
   if (wg == CONSUMERS) {  // ------------------------------------- producer
-    regs_dec<PRODUCER_REGS>();
+    regs_dec<MODE == PAGED ? PAGED_PRODUCER_REGS : PRODUCER_REGS>();
     if (threadIdx.x % WG >= 32) return;
     const int lane = threadIdx.x % 32;
     StageRing<SM::STAGES> ring;
@@ -329,7 +553,9 @@ __device__ __forceinline__ void forward(const Params& p, const CUtensorMap* tq,
       if (it.lo >= it.hi) continue;  // no key to load (RING: the carry stays)
       const int kh = it.h / (p.H / p.KVH);
       mbar_wait(q_empty, q_phase ^ 1);
-      if (lane == 0) {
+      if constexpr (MODE == PAGED) {
+        paged_q<D, BQ>(p, it, Qs, q_full);
+      } else if (lane == 0) {
         mbar_arrive_expect_tx(q_full, 2 * BQ * D);
         item_rows<D, MODE>(p, Qs, tq, q_full, BQ, it.h, it.r0, it.b);
       }
@@ -388,6 +614,10 @@ __device__ __forceinline__ void forward(const Params& p, const CUtensorMap* tq,
           } else {
             mbar_arrive(&full[ring.s]);
           }
+        } else if constexpr (MODE == PAGED) {
+          paged_tile<D, BK>(p, it, j,
+                            reinterpret_cast<bf16*>(smem + SM::stages + ring.s * 2 * SM::kv_tile),
+                            ksegs + ring.s * BK, &full[ring.s], tk, tv);
         } else {
           int* kseg = ksegs + ring.s * BK;
           for (int c = lane; c < BK; c += 32)
@@ -403,8 +633,9 @@ __device__ __forceinline__ void forward(const Params& p, const CUtensorMap* tq,
         }
       }
     }
+    if constexpr (MODE == PAGED) cp_async_wait_all();
   } else {  // ---------------------------------------------------- consumers
-    regs_inc<CONSUMER_REGS>();
+    regs_inc<MODE == PAGED ? PAGED_CONSUMER_REGS : CONSUMER_REGS>();
     const int t = threadIdx.x % WG, lane = t % 32;
     const uint32_t q_tile = smem_addr(Qs) + wg * WG_ROWS * 128;
     const int own = 1 + wg, other = 2 - wg;  // the pass turns' named barriers
@@ -452,10 +683,30 @@ __device__ __forceinline__ void forward(const Params& p, const CUtensorMap* tq,
         }
       const float slope =
           (MODE == RING || MODE == FLASH) && p.slopes != nullptr ? p.slopes[h] : 0.f;
+      // PAGED: rows ra, ra + 8 are query rows c G + g of kv head h: their
+      // positions (-1: a pad row or past Sq) and last visible pool slots,
+      // and the pool tiles [lo, hi) that every live row of the item sees
+      // whole, in this thread's slot of shared memory
+      int* rowdata = reinterpret_cast<int*>(smem + SM::rows) + (wg * WG + t) * PAGED_ROW_INTS;
+      if constexpr (MODE == PAGED) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int r = ra + 8 * u;
+          const int pr = r < p.Sq ? p.positions[static_cast<size_t>(b) * p.C + r / p.G] : -1;
+          rowdata[u] = pr;
+          rowdata[2 + u] = min(pr, it.pool_end - 1);
+          const float slope = p.slopes != nullptr && r < p.Sq ? p.slopes[h * p.G + r % p.G] : 0.f;
+          rowdata[6 + u] = __float_as_int(slope);
+        }
+        const int first = max(it.slot_lo, p.window > 0 ? it.pmax - p.window + 1 : 0);
+        rowdata[4] = (first + BK - 1) / BK;
+        rowdata[5] = (min(it.pmin, it.pool_end - 1) + 1) / BK;
+      }
 
       if (it.lo < it.hi) {
         mbar_wait(q_full, q_phase);
         q_phase ^= 1;
+        if constexpr (MODE == PAGED) fence_proxy_async();  // Q came by cp.async
         if constexpr (MODE == EVO) {
           // this warpgroup's Q rows times bf16(scale), in place, before the
           // first product reads them through the async proxy
@@ -484,6 +735,7 @@ __device__ __forceinline__ void forward(const Params& p, const CUtensorMap* tq,
       // of a tile keep their state exactly (alpha = 1, p = 0).
       for (int j = it.lo; j < it.hi; ++j, ring.next()) {
         mbar_wait(&full[ring.s], ring.phase);
+        if constexpr (MODE == PAGED) fence_proxy_async();  // a tile by cp.async
         const int c0 = j * BK;
         const uint32_t k_tile = smem_addr(smem + SM::stages + ring.s * 2 * SM::kv_tile);
         const uint32_t v_tile = k_tile + SM::kv_tile;
@@ -506,12 +758,31 @@ __device__ __forceinline__ void forward(const Params& p, const CUtensorMap* tq,
         }
         // S = Q K^T over the whole key tile
         float s[BK / 2];  // written whole by the first product (scale-d 0)
+        // PAGED, a chunk tile: the product starts from each key's mask and
+        // ALiBi bias for this thread's rows (-inf where the row may not see
+        // the key, slope (key pos - pos) / scale where it may), so that no
+        // key position is held beside S and O in the pass (the consumers
+        // have 216 registers, not 240)
+        const bool chunk_tile = MODE == PAGED && j >= it.pool_hi;
+        if constexpr (MODE == PAGED) {
+          if (chunk_tile) {
+            const float inv_scale = 1.f / p.scale;
+#pragma unroll
+            for (int e = 0; e < BK / 2; ++e) {
+              const int u = (e / 2) % 2, pr = rowdata[u];
+              const int kp = kseg[8 * (e / 4) + e % 2 + 2 * (lane % 4)];
+              const bool vis = kp >= 0 && kp <= pr && (p.window <= 0 || kp > pr - p.window);
+              s[e] = vis ? __int_as_float(rowdata[6 + u]) * static_cast<float>(kp - pr) * inv_scale
+                         : -INFINITY;
+            }
+          }
+        }
         fence_regs(s);
         wgmma_fence();
 #pragma unroll
         for (int k = 0; k < D / 16; ++k)
           Wgmma<BK>::template ss<0>(s, desc_k_major(q_tile, BQ, k), desc_k_major(k_tile, BK, k),
-                                    k > 0);
+                                    k > 0 || chunk_tile);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(s);
@@ -642,8 +913,61 @@ __device__ __forceinline__ void forward(const Params& p, const CUtensorMap* tq,
         }
         // the instantiation this tile needs: masks only at a mask's edge,
         // segment ids and ALiBi only when given (all uniform over the block)
+        // PAGED: kind 0 every key visible to every live row, 1 a pool tile at a
+        // row's slot limit (slot in [pos - window + 1, min(pos, pool end - 1)]),
+        // 2 a chunk tile (mask and ALiBi came with the product); a pad row's
+        // logits stay finite (its q is 0) and its output is 0
+        auto paged_pass = [&](auto kind, auto alibi, auto capped) {
+          constexpr int KIND = decltype(kind)::value;
+          const int col0 = c0 + 2 * (lane % 4);  // this thread's first slot of a pool tile
+          int prow[2], hi_lim[2], lo_lim[2];
+          float pslope[2] = {0.f, 0.f};
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            prow[u] = rowdata[u];
+            hi_lim[u] = rowdata[2 + u] - col0;
+            lo_lim[u] = p.window > 0 ? prow[u] - p.window + 1 - col0 : -(1 << 30);
+            if constexpr (decltype(alibi)::value) pslope[u] = __int_as_float(rowdata[6 + u]);
+          }
+#pragma unroll
+          for (int e = 0; e < BK / 2; ++e) {
+            const int u = (e / 2) % 2, ce = 8 * (e / 4) + e % 2;  // ce: slot offset from col0
+            float x = s[e] * p.scale;
+            if constexpr (KIND == 2) {
+              if constexpr (decltype(capped)::value)
+                x = x == -INFINITY ? x : softcap_tanh(x, p.softcap);
+            } else {
+              if constexpr (decltype(alibi)::value)
+                x = fmaf(pslope[u], static_cast<float>(col0 + ce - prow[u]), x);
+              if constexpr (decltype(capped)::value) x = softcap_tanh(x, p.softcap);
+              if constexpr (KIND == 1) x = ce <= hi_lim[u] && ce >= lo_lim[u] ? x : -INFINITY;
+            }
+            s[e] = x;
+          }
+          softmax(std::integral_constant<bool, KIND != 0>{});
+        };
+        // block-uniform: a chunk tile, or a pool tile some live row does not see whole
+        auto paged_run = [&](auto kind) {
+          if (p.slopes != nullptr) {
+            if (p.softcap != 0.f)
+              paged_pass(kind, std::true_type{}, std::true_type{});
+            else
+              paged_pass(kind, std::true_type{}, std::false_type{});
+          } else if (p.softcap != 0.f) {
+            paged_pass(kind, std::false_type{}, std::true_type{});
+          } else {
+            paged_pass(kind, std::false_type{}, std::false_type{});
+          }
+        };
         auto run = [&](auto alibi) {
-          if constexpr (MODE == SPARSE) {
+          if constexpr (MODE == PAGED) {
+            if (j >= it.pool_hi)
+              paged_run(std::integral_constant<int, 2>{});
+            else if (j < rowdata[4] || j >= rowdata[5])
+              paged_run(std::integral_constant<int, 1>{});
+            else
+              paged_run(std::integral_constant<int, 0>{});
+          } else if constexpr (MODE == SPARSE) {
             if (dense_stage)
               softmax(std::false_type{});
             else
@@ -728,6 +1052,7 @@ __device__ __forceinline__ void forward(const Params& p, const CUtensorMap* tq,
         for (int u = 0; u < 2; ++u) {
           const int r = ra + 8 * u;
           inv[u] = l[u] > 0.f ? 1.f / l[u] : 0.f;
+          if (MODE == PAGED && rowdata[u] < 0) inv[u] = 0.f;  // a pad row outputs 0
           // a row with no visible key gets +inf, so the backward's exp(s - lse) is 0
           if (MODE == FLASH && r < p.Sq && lane % 4 == 0)
             p.lse_out[roff + r] = l[u] > 0.f ? m[u] + logf(l[u]) : INFINITY;
@@ -739,7 +1064,7 @@ __device__ __forceinline__ void forward(const Params& p, const CUtensorMap* tq,
             const int u = (e / 2) % 2, r = ra + 8 * u;
             const int d = n * NB + 8 * (e / 4) + 2 * (lane % 4);
             if (r < p.Sq)
-              *reinterpret_cast<__nv_bfloat162*>(p.out + row_index(b, r, h, p.Sq, p.H, D) + d) =
+              *reinterpret_cast<__nv_bfloat162*>(p.out + out_index<MODE>(p, b, r, h, D) + d) =
                   __floats2bfloat162_rn(o[n][e] * inv[u], o[n][e + 1] * inv[u]);
           }
       }

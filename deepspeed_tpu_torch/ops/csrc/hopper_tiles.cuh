@@ -105,6 +105,15 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// softcap tanh(x / softcap) from one ex2.approx: tanh y = sign(y) (1 - e) /
+// (1 + e) with e = 2^(-2 log2(e) |y|), exact to a few f32 ulps of softcap
+// and in a handful of registers (tanhf takes many more)
+__device__ __forceinline__ float softcap_tanh(float x, float softcap) {
+  const float y = x / softcap;
+  const float e = exp2_approx(-2.f * 1.4426950408889634f * fabsf(y));
+  return copysignf(softcap * __fdividef(1.f - e, 1.f + e), y);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);

@@ -88,11 +88,12 @@ def _kind_enum(source):
 def test_kind_enums_of_both_libraries_match_kernel_info():
     """Both libraries number fwd, dq and dkv alike, as both wrappers'
     kernel_info pass them; the shared forward header's modes are RING and
-    FLASH, then the block-sparse and Evoformer forwards' SPARSE and EVO."""
+    FLASH, then the block-sparse and Evoformer forwards' SPARSE and EVO, then
+    paged attention's PAGED."""
     assert _kind_enum("flash_attention.cu") == _kind_enum("ring_flash.cu") == FA._KINDS \
         == RF._KINDS == {"fwd": 0, "dq": 1, "dkv": 2}
     fwd = (CSRC / "flash_fwd_wgmma.cuh").read_text()
-    assert "enum Mode { RING, FLASH, SPARSE, EVO };" in fwd
+    assert "enum Mode { RING, FLASH, SPARSE, EVO, PAGED };" in fwd
     bwd = (CSRC / HEADER).read_text()
     for source, mode in (("flash_attention.cu", "FLASH"), ("ring_flash.cu", "RING")):
         text = (CSRC / source).read_text()
