@@ -21,7 +21,10 @@ and M = 4 and 2048, beside torch.matmul on the dequantized bf16 weight, and
 K2 (fused decode attention) on the main (B 4, 8192 live slots a sequence)
 and mixed cases and at B 1 and 16 on full caches, beside SDPA, all timed by
 the same code in both trees: "ms" is device time (the calls replayed from
-one CUDA graph), "event_ms" back-to-back calls by CUDA events; then K11 on the three layouts of the
+one CUDA graph), "event_ms" back-to-back calls by CUDA events; then K9 (the
+fp8 quantizer) on llama3-8b's stacked wi_gate leaf (bf16, group 256) in
+e4m3 and e5m2, rounding to nearest and stochastic, by CUDA events beside
+its byte bound, by the same code in both trees; then K11 on the three layouts of the
 public-ops slice (B 4, S 4096, 16 heads of 64, block 16) and K12 at
 (1, 512, 256, 4, 64), each beside SDPA with the same mask or summed bias,
 timed by the same code in both trees; then the tree's own
@@ -35,8 +38,8 @@ K5) beside SDPA's autograd backward, timed by the same code in both trees
 ``chip_smoke.train_path`` (phase 10: gpt2-xl at full width and depth, then
 its step profile). The children's JSON lines pass through; the last line
 is a summary by tree, in run order: each kernel's ms per step kind (K1:
-graph ms by serving step; K3, K4, K5: case gpt2xl_causal; K11 per layout;
-K12: main_path) with the
+graph ms by serving step; K3, K4, K5: case gpt2xl_causal; K9 per format and
+rounding; K11 per layout; K12: main_path) with the
 library call's ms beside it, and
 each train step's ms, tokens/s, MFU, peak memory and idle share. Exits 1
 without a card or when a child fails.
@@ -150,6 +153,18 @@ for name, lens in (("main", [8192] * 4), ("mixed", [8192, 8065, 4097, 1, 0]),
             bound_ms=cs.bound(*cs.decode_work(c))[0], card=smi)
     del c
     torch.cuda.empty_cache()
+from deepspeed_tpu_torch.ops import fp_quantizer as FQ
+w = torch.randn(*cs.WI_GATE, generator=g, device="cuda", dtype=torch.bfloat16).mul_(0.02)
+n_el = w.numel()
+for fmt in ("e4m3", "e5m2"):
+    for st in (False, True):
+        cs.emit("ops_kernel_time", kernel="quantize_fp8",
+                case=f"{fmt}_{'stochastic' if st else 'nearest'}",
+                ms=cs.cuda_ms(torch, lambda i: FQ.quantize_fp8(w, cs.FP8_GROUP, fmt, st, seed=5),
+                              reps=5, iters=5),
+                bound_ms=cs.bound(3 * n_el + 4 * (n_el // cs.FP8_GROUP), 0)[0], card=smi)
+del w
+torch.cuda.empty_cache()
 for name, cfg in cs.sparse_configs(16).items():
     c = cs.sparse_inputs(torch, b=cs.SPARSE_B, s=cs.SPARSE_S, h=16, kvh=16, d=64,
                          layout=cfg.make_layout(cs.SPARSE_S), causal=False, seed=4)

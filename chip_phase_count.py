@@ -7,6 +7,7 @@ streaming and wgmma routes (``ops/csrc/woq_matmul.cu``).
 
     python3 chip_phase_count.py        # everything
     python3 chip_phase_count.py woq    # K6 only (builds only its library)
+    python3 chip_phase_count.py fp8 [DIR ...]   # K9 only, here and in each tree DIR
 
 K6 first: the streaming route at M = 4 and the wgmma route at M = 2048 on
 llama3-8b's gate and down projections at int8, int4 and fp6 (per warp
@@ -439,12 +440,320 @@ def woq_counts(torch, op_builder):
         torch.cuda.empty_cache()
 
 
+# K9, the fp8 quantizer (ops/csrc/fp_quantizer.cu): clocks of each phase of
+# a group on the vector route, from lane 0 of every warp, and the loops of
+# the built kernel's SASS. Each design of the kernel has its own patch set;
+# FP8_DESIGNS names each by a line only its source holds.
+FP8_PHASES = ["loads", "absmax", "scale", "philox", "round", "store", "groups"]
+FP8_COMMON = [
+    ("namespace {\n", "namespace {\n__device__ unsigned long long g_fp8[7];\n"),
+]
+FP8_PATCHES = {
+    # PR 4's design: a warp per group, absmax sweep, reload, decode-based rounding
+    "pr4": FP8_COMMON + [
+        ("  const long long warps_total = static_cast<long long>(gridDim.x) * WARPS;\n",
+         "  const long long warps_total = static_cast<long long>(gridDim.x) * WARPS;\n"
+         "  unsigned long long pf[7] = {0, 0, 0, 0, 0, 0, 0};\n"),
+        ("    float amax = 0.f;\n",
+         "    long long t0 = clock64();\n    float amax = 0.f;\n"),
+        ("        const uint4 raw = reinterpret_cast<const uint4*>(xg)[c];\n"
+         "        const T* e = reinterpret_cast<const T*>(&raw);\n#pragma unroll\n"
+         "        for (int i = 0; i < VN; ++i) amax = fmaxf(amax, fabsf(to_f32(e[i])));\n",
+         "        uint4 raw = reinterpret_cast<const uint4*>(xg)[c];\n"
+         "        asm volatile(\"mov.b32 %0, %0;\" : \"+r\"(raw.x));\n"
+         "        long long tl = clock64();\n        pf[0] += tl - t0;\n"
+         "        const T* e = reinterpret_cast<const T*>(&raw);\n#pragma unroll\n"
+         "        for (int i = 0; i < VN; ++i) amax = fmaxf(amax, fabsf(to_f32(e[i])));\n"
+         "        t0 = clock64();\n        pf[1] += t0 - tl;\n"),
+        ("    const float s = __fdiv_rn(fmaxf(amax, 1e-12f), Fmt<E5M2>::FMAX);\n",
+         "    long long t2 = clock64();\n    pf[1] += t2 - t0;\n"
+         "    const float s = __fdiv_rn(fmaxf(amax, 1e-12f), Fmt<E5M2>::FMAX);\n"),
+        ("    if (lane == 0) scale[gi] = s;\n",
+         "    if (lane == 0) scale[gi] = s;\n    long long t3 = clock64();\n    pf[2] += t3 - t2;\n"),
+        ("        const uint4 raw = reinterpret_cast<const uint4*>(xg)[c];\n"
+         "        const T* e = reinterpret_cast<const T*>(&raw);\n"
+         "        const unsigned long long e0",
+         "        uint4 raw = reinterpret_cast<const uint4*>(xg)[c];\n"
+         "        asm volatile(\"mov.b32 %0, %0;\" : \"+r\"(raw.x));\n"
+         "        long long t4 = clock64();\n        pf[0] += t4 - t3;\n"
+         "        const T* e = reinterpret_cast<const T*>(&raw);\n"
+         "        const unsigned long long e0"),
+        ("          const uint4 r = stochastic ? philox(seed, (e0 >> 2) + j) : make_uint4(0, 0, 0, 0);\n",
+         "          uint4 r = stochastic ? philox(seed, (e0 >> 2) + j) : make_uint4(0, 0, 0, 0);\n"
+         "          asm volatile(\"mov.b32 %0, %0;\" : \"+r\"(r.x));\n"
+         "          long long t5 = clock64();\n          pf[3] += t5 - t4;\n"),
+        ("                code<E5M2>(to_f32(e[4 * j + i]), s, stochastic, word(r, i)));\n",
+         "                code<E5M2>(to_f32(e[4 * j + i]), s, stochastic, word(r, i)));\n"
+         "          asm volatile(\"mov.b32 %0, %0;\" : \"+r\"(*reinterpret_cast<uint32_t*>(out + 4 * j)));\n"
+         "          t4 = clock64();\n          pf[4] += t4 - t5;\n"),
+        ("          reinterpret_cast<uint2*>(qg)[c] = *reinterpret_cast<const uint2*>(out);\n"
+         "        } else {\n"
+         "          reinterpret_cast<uint32_t*>(qg)[c] = *reinterpret_cast<const uint32_t*>(out);\n"
+         "        }\n",
+         "          reinterpret_cast<uint2*>(qg)[c] = *reinterpret_cast<const uint2*>(out);\n"
+         "        } else {\n"
+         "          reinterpret_cast<uint32_t*>(qg)[c] = *reinterpret_cast<const uint32_t*>(out);\n"
+         "        }\n        t3 = clock64();\n        pf[5] += t3 - t4;\n"),
+        ("        qg[i] = static_cast<uint8_t>(code<E5M2>(to_f32(xg[i]), s, stochastic, r));\n"
+         "      }\n    }\n",
+         "        qg[i] = static_cast<uint8_t>(code<E5M2>(to_f32(xg[i]), s, stochastic, r));\n"
+         "      }\n    }\n    pf[6] += 1;\n"),
+        ("        qg[i] = static_cast<uint8_t>(code<E5M2>(to_f32(xg[i]), s, stochastic, r));\n"
+         "      }\n    }\n    pf[6] += 1;\n  }\n",
+         "        qg[i] = static_cast<uint8_t>(code<E5M2>(to_f32(xg[i]), s, stochastic, r));\n"
+         "      }\n    }\n    pf[6] += 1;\n  }\n  if (lane == 0)\n"
+         "    for (int k = 0; k < 7; ++k) atomicAdd(&g_fp8[k], pf[k]);\n"),
+    ],
+    # PR 12's design: route "regs" (groups in registers, the integer rule);
+    # lane 0's clocks per warp step over the groups the step covers
+    "regs": FP8_COMMON + [
+        ("  const Quot by_fmax(Fmt<E5M2>::FMAX);\n",
+         "  const Quot by_fmax(Fmt<E5M2>::FMAX);\n  unsigned long long pf[7] = {0, 0, 0, 0, 0, 0, 0};\n"),
+        ("    uint4 v[P];\n", "    uint4 v[P];\n    long long t0 = clock64();\n"),
+        ("    for (int p = 0; p < P; ++p) v[p] = gk < a.groups ? __ldcs(src + p * L) : make_uint4(0, 0, 0, 0);\n",
+         "    for (int p = 0; p < P; ++p) v[p] = gk < a.groups ? __ldcs(src + p * L) : make_uint4(0, 0, 0, 0);\n"
+         "#pragma unroll\n    for (int p = 0; p < P; ++p) asm volatile(\"mov.b32 %0, %0;\" : \"+r\"(v[p].x));\n"
+         "    long long t1 = clock64();\n    pf[0] += t1 - t0;\n"),
+        ("      m = fmaxf(m, __shfl_xor_sync(0xFFFFFFFFu, m, off & (L - 1)));\n",
+         "      m = fmaxf(m, __shfl_xor_sync(0xFFFFFFFFu, m, off & (L - 1)));\n"
+         "    asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(m));\n    pf[1] += clock64() - t1;\n"
+         "    pf[6] += g0 + per_row <= a.groups ? per_row : a.groups - g0;\n"),
+        ("    const float am = fmaxf(m, 1e-12f);\n",
+         "    long long ta = clock64();\n    const float am = fmaxf(m, 1e-12f);\n"),
+        ("    const Quot quot(isinf(am) ? __fdiv_rn(am, Fmt<E5M2>::FMAX) : by_fmax(am));\n",
+         "    Quot quot(isinf(am) ? __fdiv_rn(am, Fmt<E5M2>::FMAX) : by_fmax(am));\n"
+         "    asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(quot.r));\n    pf[2] += clock64() - ta;\n"),
+        ("      uint4 rw[VN / 4];\n", "      long long tp = clock64();\n      uint4 rw[VN / 4];\n"),
+        ("        rw[j] = ST ? philox(a, ctr_lo + j, ctr_hi) : make_uint4(0, 0, 0, 0);\n",
+         "        rw[j] = ST ? philox(a, ctr_lo + j, ctr_hi) : make_uint4(0, 0, 0, 0);\n"
+         "#pragma unroll\n      for (int j = 0; j < VN / 4; ++j) asm volatile(\"mov.b32 %0, %0;\" : \"+r\"(rw[j].x));\n"
+         "      pf[3] += clock64() - tp;\n"),
+        ("        float y[4];\n", "        long long ty = clock64();\n        float y[4];\n"),
+        ("        out[j] = codes4<E5M2, ST>(y, rw[j]);\n",
+         "        out[j] = codes4<E5M2, ST>(y, rw[j]);\n"
+         "        asm volatile(\"mov.b32 %0, %0;\" : \"+r\"(out[j]));\n"
+         "        pf[4] += clock64() - ty;\n"),
+        ("      if constexpr (VN == 8) {\n        __stcs(",
+         "      long long ts = clock64();\n      if constexpr (VN == 8) {\n        __stcs("),
+        ("        __stcs(reinterpret_cast<unsigned int*>(a.q + e0), out[0]);\n      }\n    }\n  }\n",
+         "        __stcs(reinterpret_cast<unsigned int*>(a.q + e0), out[0]);\n      }\n"
+         "      pf[5] += clock64() - ts;\n    }\n  }\n"
+         "  if (lane == 0)\n    for (int k = 0; k < 7; ++k) atomicAdd(&g_fp8[k], pf[k]);\n"),
+    ],
+}
+FP8_DESIGNS = {"pr4": "  if (v != a) {\n", "regs": "fp8_quant_regs"}
+FP8_READER = """
+extern "C" int ds_phase_count_fp8(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_fp8, sizeof g_fp8);
+  const unsigned long long zero[7] = {0, 0, 0, 0, 0, 0, 0};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_fp8, zero, sizeof zero);
+  return e;
+}
+"""
+
+
+def fp8_design(text):
+    for name, marker in FP8_DESIGNS.items():
+        if marker in text:
+            return name
+    print("chip_phase_count: FAILED: fp_quantizer.cu is no design this script knows",
+          file=sys.stderr)
+    sys.exit(1)
+
+
+def fp8_build(op_builder, csrc, tag, patched):
+    """fp_quantizer.cu of ``csrc`` built into its own directory under the
+    build directory, with the design's counters in when ``patched``;
+    returns (design, the loaded library, the .so's path), the library and
+    path None when a patch no longer fits."""
+    root = op_builder.BUILD_DIR / f"fp8_{tag}"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "csrc").mkdir(parents=True)
+    text = (Path(csrc) / "fp_quantizer.cu").read_text()
+    design = fp8_design(text)
+    if patched:
+        for old, new in FP8_PATCHES[design]:
+            if old not in text:
+                print(f"chip_phase_count: FAILED: fp_quantizer.cu ({design}) of {tag} no "
+                      f"longer has {old!r}", file=sys.stderr)
+                return design, None, None
+            text = text.replace(old, new, 1)
+        text += FP8_READER
+    (root / "csrc" / "fp_quantizer.cu").write_text(text)
+    so = root / "libfp_quantizer.so"
+    cmd = [op_builder.nvcc(), *op_builder.NVCC_FLAGS, "-o", str(so),
+           str(root / "csrc" / "fp_quantizer.cu")]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        print(f"chip_phase_count: FAILED: nvcc on {tag}:\n{out.stdout}{out.stderr}",
+              file=sys.stderr)
+        sys.exit(1)
+    return design, ctypes.CDLL(str(so)), so
+
+
+def sass_loops(op_builder, so):
+    """For each fp8_quant_* kernel instantiation in the library at ``so``:
+    its instructions by opcode, and each loop (a branch back to an earlier
+    address) with its length and opcodes, from ``cuobjdump --dump-sass``.
+    Opcodes keep their first modifier for IMAD, F2FP, F2F, MUFU and I2F."""
+    import collections
+    import re
+    out = subprocess.run([str(Path(op_builder.nvcc()).parent / "cuobjdump"), "--dump-sass",
+                          str(so)], capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        print(f"chip_phase_count: FAILED: cuobjdump: {out.stderr[-500:]}", file=sys.stderr)
+        sys.exit(1)
+    funcs, name = {}, None
+    for ln in out.stdout.splitlines():
+        if "Function :" in ln:
+            mangled = ln.split("Function :")[1].strip()
+            m = re.search(r"(fp8_quant_\w+?)I(f|13__nv_bfloat16|6__half)Li([01])E((?:Li\d+E|Lb[01]E)*)",
+                          mangled)
+            name = (f"{m.group(1)}<{ {'f': 'float', '6__half': 'half'}.get(m.group(2), 'bf16')}, "
+                    f"{'e5m2' if m.group(3) == '1' else 'e4m3'}"
+                    + "".join(f", {a}" for a in re.findall(r"L[ib](\d+)E", m.group(4))) + ">"
+                    ) if m else None
+            if name:
+                funcs[name] = {"ins": [], "labels": {}}
+            continue
+        if name is None:
+            continue
+        lab = re.match(r"\s*\.(L_x_\d+):", ln)
+        if lab:
+            funcs[name]["labels"][lab.group(1)] = len(funcs[name]["ins"])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_.]+)\s*([^;]*);", ln)
+        if m:
+            funcs[name]["ins"].append((int(m.group(1), 16), m.group(2), m.group(3)))
+
+    def op(mn):
+        parts = mn.split(".")
+        keep = parts[0] in ("IMAD", "F2FP", "F2F", "MUFU", "I2F") and len(parts) > 1
+        return ".".join(parts[:2]) if keep else parts[0]
+
+    report = {}
+    for name, f in funcs.items():
+        ins = f["ins"]
+        index = {addr: i for i, (addr, _, _) in enumerate(ins)}
+        loops = []
+        for i, (addr, mn, args) in enumerate(ins):
+            if not mn.startswith("BRA"):
+                continue
+            t = re.search(r"0x([0-9a-f]+)", args)
+            tgt = index.get(int(t.group(1), 16)) if t else None
+            if tgt is None:
+                lab = re.search(r"\.?(L_x_\d+)", args)
+                tgt = f["labels"].get(lab.group(1)) if lab else None
+            if tgt is not None and tgt <= i:
+                body = collections.Counter(op(m_) for _, m_, _ in ins[tgt:i + 1])
+                loops.append({"from": hex(ins[tgt][0]), "to": hex(addr), "instructions": i + 1 - tgt,
+                              "opcodes": dict(body.most_common())})
+        report[name] = {"instructions": len(ins),
+                        "opcodes": dict(collections.Counter(op(m_) for _, m_, _ in ins)
+                                        .most_common()),
+                        "loops": loops}
+    return report
+
+
+def fp8_call(torch, lib, x, fmt, stochastic, seed=5, group=256):
+    """One launch of ``ds_quantize_fp8`` from ``lib`` on x (bf16)."""
+    fn = lib.ds_quantize_fp8
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [
+        ctypes.c_ulonglong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    q = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    s = torch.empty(x.numel() // group, dtype=torch.float32, device=x.device)
+    err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), x.numel() // group, group, 1,
+             int(fmt == "e5m2"), int(stochastic), seed, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        print(f"chip_phase_count: FAILED: K9 launch, cudaError {err}", file=sys.stderr)
+        sys.exit(1)
+    return q, s
+
+
+def fp8_counts(torch, op_builder, trees):
+    """K9 of each tree in ``trees`` ({tag: csrc directory}) on llama3-8b's
+    stacked wi_gate leaf (bf16, group 256) in the four modes: the SASS
+    loops of the unpatched build and its time a launch ("fp8_time", CUDA
+    events over 5 back-to-back launches), then the clocks per group of each
+    phase (lane 0 of every warp, summed, over the groups counted) from the
+    patched build, with its own time; the two builds must give the same
+    bytes."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    w = torch.randn(32, 4096, 14336, generator=g, device="cuda", dtype=torch.bfloat16).mul_(0.02)
+    modes = [(fmt, st) for fmt in ("e4m3", "e5m2") for st in (False, True)]
+    failed = False
+
+    def ms(lib, fmt, st, calls):
+        fp8_call(torch, lib, w, fmt, st)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fp8_call(torch, lib, w, fmt, st)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / calls
+
+    for tag, csrc in trees.items():
+        design, plain_lib, so = fp8_build(op_builder, csrc, f"{tag}_sass", patched=False)
+        for name, rep in sass_loops(op_builder, so).items():
+            print(json.dumps({"phase": "fp8_sass", "tree": tag, "design": design,
+                              "kernel": name, **rep}), flush=True)
+        for fmt, st in modes:
+            print(json.dumps({"phase": "fp8_time", "tree": tag, "design": design, "fmt": fmt,
+                              "stochastic": st, "ms": ms(plain_lib, fmt, st, 5)}), flush=True)
+        _, lib, _ = fp8_build(op_builder, csrc, tag, patched=True)
+        if lib is None:
+            failed = True
+            continue
+        read = lib.ds_phase_count_fp8
+        read.argtypes = [ctypes.c_void_p]
+        read.restype = ctypes.c_int
+        buf = (ctypes.c_ulonglong * len(FP8_PHASES))()
+        for fmt, st in modes:
+            ref, got = fp8_call(torch, plain_lib, w, fmt, st), fp8_call(torch, lib, w, fmt, st)
+            same = bool(torch.equal(ref[0], got[0])) and bool(torch.equal(ref[1], got[1]))
+            del ref, got
+            torch.cuda.synchronize()
+            read(buf)
+            calls = 3
+            instrumented = ms(lib, fmt, st, calls)
+            if read(buf) != 0:
+                print("chip_phase_count: FAILED: reading the K9 counters", file=sys.stderr)
+                sys.exit(1)
+            v = dict(zip(FP8_PHASES, buf))
+            groups = max(v.pop("groups"), 1)
+            print(json.dumps({"phase": "phase_count", "kernel": "quantize_fp8", "tree": tag,
+                              "design": design, "fmt": fmt, "stochastic": st,
+                              "shape": [32, 4096, 14336], "group": 256,
+                              "clocks_per_group": {k: c / groups for k, c in v.items()},
+                              "groups_per_call": groups / (calls + 1),
+                              "instrumented_ms": instrumented,
+                              "patched_bytes_identical": same}), flush=True)
+        del lib, plain_lib
+    del w
+    torch.cuda.empty_cache()
+    if failed:      # a tree whose source the patches no longer fit: timed, not counted
+        sys.exit(1)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_phase_count: FAILED: no card", file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from deepspeed_tpu_torch.ops import op_builder
+    if sys.argv[1:2] == ["fp8"]:
+        trees = {"this": op_builder.CSRC}
+        for other in sys.argv[2:]:
+            trees[Path(other).name] = Path(other).resolve() / "deepspeed_tpu_torch/ops/csrc"
+        op_builder.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fp8_counts(torch, op_builder, trees)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
+                              "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+        print(smi.stdout.strip(), flush=True)
+        return
     import chip_smoke as cs
     from deepspeed_tpu_torch.ops import evoformer_flash as EF
     from deepspeed_tpu_torch.ops import flash_attention as FA

@@ -106,13 +106,16 @@ The v1 engine is then freed, and the public-ops slice runs:
      S = 512 with bf16 biases; the fp8 quantizer (K9) in e4m3 and e5m2,
      rounding to nearest and stochastic, from f32, bf16 and f16 (ties and a
      zero group included), codes and scales byte-identical to the plain
-     version, which draws the same Philox bits; and on llama3-8b's stacked
-     wi_gate leaf, every layer when rounding to nearest, the first and last
-     when stochastic;
+     version, which draws the same Philox bits, and stochastic codes also
+     to the float law: at group 256, at group 100 on an x one element off
+     16-byte alignment (route "runs"), at groups 8 to 2048; and on
+     llama3-8b's stacked wi_gate leaf, every layer when rounding to
+     nearest, the first and last when stochastic;
  20. ops_kernel_time: each kernel at the main path's shapes by CUDA events,
      beside its plain version, one library call (SDPA with the token mask
      for K11, SDPA with the summed biases for K12, none for K9) and the
-     card's bound;
+     card's bound (K9's: bytes, f32 operations, or the Philox multiplies at
+     the integer-multiply rate, the term that bounds named);
  21. ops_path: the public entry points with every count set to 0 before and
      read after. ``SparseSelfAttention`` at bert-large's attention width
      (16 heads of 64), bf16, B = 4, S = 4096, on the three layouts: forward
@@ -880,6 +883,9 @@ FRO_TOL = 1e-2             # relative Frobenius error of each flash output
 # f32 rounding stays below a tenth of it.
 ADAM_REL, ADAM_FLOOR = 1e-3, 1e-4
 F32_FLOPS = 67e12          # f32 outside the tensor cores, NVIDIA data sheet
+# 32-bit integer multiplies: 64 a clock on each of 132 SMs (CUDA C++ Programming
+# Guide, throughput of compute capability 9.0) at the 1,980 MHz boost clock
+INT32_MULS = 132 * 64 * 1.98e9
 
 
 def flash_case(torch, name, *, b, s, h, kvh, d, causal=True, window=0, alibi=False,
@@ -2012,6 +2018,7 @@ EVO_AF2 = (1, 128, 256, 8, 32)
 EVO_MAIN = (1, 512, 256, 4, 64)
 WI_GATE = (32, 4096, 14336)        # llama3-8b's stacked wi_gate leaf, bf16
 FP8_GROUP = 256
+FP8_RUNS_GROUP = 100                # no whole 16-byte vectors: K9's route "runs"
 FP8_MODES = [(fmt, st) for fmt in ("e4m3", "e5m2") for st in (False, True)]
 TILE = 128                         # the sparse layout tables' tile
 
@@ -2117,8 +2124,10 @@ def evo_work(c):
 
 def fp8_probe(torch, dtype, seed=0):
     """(2048, 4096) in ``dtype``: rows at magnitudes spread over e^+-6, an
-    all-zero group, and groups at scale exactly 1 holding every tie
-    between neighbouring e4m3 / e5m2 values that the dtype represents."""
+    all-zero group, groups at scale exactly 1 holding every tie between
+    neighbouring e4m3 / e5m2 values that the dtype represents, and a group
+    spanning the dtype's whole range, from its least subnormal to half its
+    largest value (K9 divides such tiny elements with __fdiv_rn)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(2048, 4096, generator=g, device="cuda") * torch.exp(
         torch.rand(2048, 1, generator=g, device="cuda") * 12 - 6)
@@ -2130,6 +2139,10 @@ def fp8_probe(torch, dtype, seed=0):
         x[row, :FP8_GROUP] = 0
         x[row, :mids.numel()] = mids
         x[row, FP8_GROUP - 1] = fmax                    # the group's absmax: scale 1
+    fi = torch.finfo(dtype)
+    span = torch.exp2(torch.linspace(math.log2(fi.tiny * fi.eps), math.log2(fi.max) - 1, FP8_GROUP,
+                                     device="cuda"))
+    x[11, :FP8_GROUP] = span * (1 - 2 * (torch.arange(FP8_GROUP, device="cuda") % 2))
     return x.to(dtype)
 
 
@@ -2138,12 +2151,86 @@ def fp8_diff(torch, q, s, pq, ps):
             int((s.reshape(-1).view(torch.int32) != ps.reshape(-1).view(torch.int32)).sum()))
 
 
+def fp8_held(torch, FQ, x, gs, fmt, st, seed, case, **extra):
+    """K9 on ``x`` once through ``quantize_fp8`` against its plain version
+    on the same inputs: codes and scales byte-identical and one launch; when
+    stochastic, the codes also byte-identical to the float law's."""
+    before = FQ.quantize_fp8.launches
+    q, s = FQ.quantize_fp8(x, gs, fmt, st, seed=seed)
+    torch.cuda.synchronize()
+    launched = FQ.quantize_fp8.launches - before
+    pq, ps = FQ.quantize_fp8_plain(x, gs, fmt, st, seed)
+    diff_q, diff_s = fp8_diff(torch, q, s, pq, ps)
+    del pq
+    row = dict(differing_q_bytes=diff_q, differing_scales=diff_s, launches=launched)
+    if st:
+        lq, _ = FQ.quantize_fp8_plain(x, gs, fmt, st, seed, law=True)
+        row["differing_law_bytes"] = fp8_diff(torch, q, s, lq, ps)[0]
+        del lq
+    ok = launched == 1 and not any(v for k, v in row.items() if k != "launches")
+    emit("ops_kernel_check", kernel="quantize_fp8",
+         case=f"{case}_{fmt}_{'stochastic' if st else 'nearest'}", dtype=str(x.dtype),
+         shape=list(x.shape), group_size=gs, **extra, **row, within=ok)
+    if not ok:
+        fail(f"quantize_fp8 {case} {x.dtype} {fmt} stochastic={st}: {row}")
+
+
+def fp8_kernel_check(torch):
+    """K9 against its plain version on the card, bytes compared: the probe
+    in f32, bf16 and f16 at group 256 (route "regs"); a group of 100 (no
+    whole vectors) on an x one element off a 16-byte boundary (route
+    "runs"), in the three dtypes; groups of 8, 64, 1024 and 2048 bf16 and
+    1024 f32 (route "regs" from one lane a group to 8 vectors a lane over
+    32 lanes); each in the four modes, stochastic codes also against the
+    float law; then llama3-8b's stacked wi_gate leaf, every layer when
+    rounding to nearest, the first and last layers (global Philox counters)
+    when stochastic. Returns the worst error (0: every byte agrees)."""
+    from deepspeed_tpu_torch.ops import fp_quantizer as FQ
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x = fp8_probe(torch, dtype)
+        for fmt, st in FP8_MODES:
+            fp8_held(torch, FQ, x, FP8_GROUP, fmt, st, 11, "probe")
+        flat = x.reshape(-1)
+        runs = flat[1:1 + FP8_RUNS_GROUP * 8192]        # one element past 16-byte alignment
+        for fmt, st in FP8_MODES:
+            fp8_held(torch, FQ, runs, FP8_RUNS_GROUP, fmt, st, 12, "runs_offset1",
+                     address_mod16=runs.data_ptr() % 16)
+        for gs in {torch.bfloat16: (8, 64, 1024, 2048), torch.float32: (1024,)}.get(dtype, ()):
+            for fmt, st in FP8_MODES:
+                fp8_held(torch, FQ, flat[:1 << 21], gs, fmt, st, 13, f"regs_group{gs}")
+        del x, flat, runs
+    g = torch.Generator(device="cuda").manual_seed(3)
+    w = torch.randn(*WI_GATE, generator=g, device="cuda", dtype=torch.bfloat16).mul_(0.02)
+    per_layer = WI_GATE[1] * WI_GATE[2]
+    for fmt, st in FP8_MODES:
+        q, s = FQ.quantize_fp8(w, FP8_GROUP, fmt, st, seed=5)
+        layers = [0, WI_GATE[0] - 1] if st else range(WI_GATE[0])
+        diff_q = diff_s = 0
+        for li in layers:
+            pq, ps = FQ.quantize_fp8_plain(w[li], FP8_GROUP, fmt, st, 5, index0=li * per_layer)
+            g0 = li * per_layer // FP8_GROUP
+            dq, ds = fp8_diff(torch, q[li], s[g0:g0 + per_layer // FP8_GROUP], pq, ps)
+            diff_q, diff_s = diff_q + dq, diff_s + ds
+            del pq, ps
+        ok = diff_q == diff_s == 0
+        emit("ops_kernel_check", kernel="quantize_fp8", case=f"wi_gate_{fmt}_"
+             f"{'stochastic' if st else 'nearest'}", dtype="torch.bfloat16", shape=list(WI_GATE),
+             layers_compared=len(layers), differing_q_bytes=diff_q, differing_scales=diff_s,
+             within=ok)
+        if not ok:
+            fail(f"quantize_fp8 wi_gate {fmt} stochastic={st}: {diff_q} codes, {diff_s} scales differ")
+        del q, s
+        torch.cuda.empty_cache()
+    del w
+    torch.cuda.empty_cache()
+    return 0.0
+
+
 def ops_kernel_check(torch):
     """K11, K12 and K9 against their plain versions on the card. Returns
     the worst error of each kernel."""
     import numpy as np
     from deepspeed_tpu_torch.ops import evoformer_flash as EF
-    from deepspeed_tpu_torch.ops import fp_quantizer as FQ
     from deepspeed_tpu_torch.ops import sparse_flash as SF
     worst = {"sparse_flash_fwd": 0.0, "evoformer_flash_fwd": 0.0, "quantize_fp8": 0.0}
 
@@ -2251,51 +2338,7 @@ def ops_kernel_check(torch):
              extra=lambda got, ref: {"minus_inf_row_zero": bool((got[:, 1] == 0).all())})
     torch.cuda.empty_cache()
 
-    # K9: codes and scales byte-identical to the plain version, which draws
-    # the same Philox bits in stochastic mode
-    for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        x = fp8_probe(torch, dtype)
-        for fmt, st in FP8_MODES:
-            before = FQ.quantize_fp8.launches
-            q, s = FQ.quantize_fp8(x, FP8_GROUP, fmt, st, seed=11)
-            torch.cuda.synchronize()
-            launched = FQ.quantize_fp8.launches - before
-            diff_q, diff_s = fp8_diff(torch, q, s, *FQ.quantize_fp8_plain(x, FP8_GROUP, fmt, st, 11))
-            ok = diff_q == diff_s == 0 and launched == 1
-            emit("ops_kernel_check", kernel="quantize_fp8", case=f"probe_{fmt}_"
-                 f"{'stochastic' if st else 'nearest'}", dtype=str(dtype), shape=list(x.shape),
-                 differing_q_bytes=diff_q, differing_scales=diff_s, launches=launched, within=ok)
-            if not ok:
-                fail(f"quantize_fp8 {dtype} {fmt} stochastic={st}: {diff_q} codes, {diff_s} "
-                     f"scales differ ({launched} launches)")
-        del x
-    # the main path's leaf: every layer compared for both formats when
-    # rounding to nearest; the first and last layers (global Philox
-    # counters) when stochastic
-    g = torch.Generator(device="cuda").manual_seed(3)
-    w = torch.randn(*WI_GATE, generator=g, device="cuda", dtype=torch.bfloat16).mul_(0.02)
-    per_layer = WI_GATE[1] * WI_GATE[2]
-    for fmt, st in FP8_MODES:
-        q, s = FQ.quantize_fp8(w, FP8_GROUP, fmt, st, seed=5)
-        layers = [0, WI_GATE[0] - 1] if st else range(WI_GATE[0])
-        diff_q = diff_s = 0
-        for li in layers:
-            pq, ps = FQ.quantize_fp8_plain(w[li], FP8_GROUP, fmt, st, 5, index0=li * per_layer)
-            g0 = li * per_layer // FP8_GROUP
-            dq, ds = fp8_diff(torch, q[li], s[g0:g0 + per_layer // FP8_GROUP], pq, ps)
-            diff_q, diff_s = diff_q + dq, diff_s + ds
-            del pq, ps
-        ok = diff_q == diff_s == 0
-        emit("ops_kernel_check", kernel="quantize_fp8", case=f"wi_gate_{fmt}_"
-             f"{'stochastic' if st else 'nearest'}", dtype="torch.bfloat16", shape=list(WI_GATE),
-             layers_compared=len(layers), differing_q_bytes=diff_q, differing_scales=diff_s,
-             within=ok)
-        if not ok:
-            fail(f"quantize_fp8 wi_gate {fmt} stochastic={st}: {diff_q} codes, {diff_s} scales differ")
-        del q, s
-        torch.cuda.empty_cache()
-    del w
-    torch.cuda.empty_cache()
+    worst["quantize_fp8"] = fp8_kernel_check(torch)
     return worst
 
 
@@ -2305,7 +2348,6 @@ def ops_kernel_time(torch):
     card's bound. Returns the rows by kernel and case."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import evoformer_flash as EF
-    from deepspeed_tpu_torch.ops import fp_quantizer as FQ
     from deepspeed_tpu_torch.ops import sparse_flash as SF
     rows = {}
     h, d = 16, 64
@@ -2356,16 +2398,43 @@ def ops_kernel_time(torch):
     del c, qf, kf, vf, bias
     torch.cuda.empty_cache()
 
+    rows.update(fp8_kernel_time(torch))
+    return rows
+
+
+def fp8_work(n_el, stochastic):
+    """(bytes, f32 operations, 32-bit integer multiplies) of K9 on ``n_el``
+    bf16 elements at group FP8_GROUP: x read and the codes and scales
+    written once; absmax, divide and convert (4 f32 operations an element);
+    stochastic adds a quarter of a Philox4x32-10 call an element, whose ten
+    rounds take two 32 x 32 -> 64-bit products each (the low and the high
+    word: 4 multiplies), so 10 multiplies an element."""
+    return 2 * n_el + n_el + 4 * (n_el // FP8_GROUP), 4 * n_el, (10 * n_el if stochastic else 0)
+
+
+def fp8_bound(n_el, stochastic):
+    """K9's bound (ms), what bounds it ("bytes" or "operations") and the
+    term ("bytes", "f32 operations" or "integer multiplies"), with each
+    term's ms."""
+    nbytes, flops, muls = fp8_work(n_el, stochastic)
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "f32 operations": flops / F32_FLOPS * 1e3,
+             "integer multiplies": muls / INT32_MULS * 1e3}
+    term = max(terms, key=terms.get)
+    return terms[term], ("bytes" if term == "bytes" else "operations"), term, terms
+
+
+def fp8_kernel_time(torch):
+    """K9 on the wi_gate leaf in the four modes by CUDA events, beside its
+    plain version (one layer at a time) and its bound. Returns the rows by
+    (kernel, case)."""
+    from deepspeed_tpu_torch.ops import fp_quantizer as FQ
+    rows = {}
     g = torch.Generator(device="cuda").manual_seed(6)
     w = torch.randn(*WI_GATE, generator=g, device="cuda", dtype=torch.bfloat16).mul_(0.02)
     n_el, per_layer = w.numel(), WI_GATE[1] * WI_GATE[2]
     for fmt, st in FP8_MODES:
-        nbytes = 2 * n_el + n_el + 4 * (n_el // FP8_GROUP)
-        # f32-rate operations an element: absmax, divide and convert (4);
-        # stochastic adds a quarter of a Philox-10 (~100 integer operations
-        # for 4 words) and the neighbour choice (~10)
-        flops = (4 + (35 if st else 0)) * n_el
-        b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+        nbytes, flops, muls = fp8_work(n_el, st)
+        b_ms, b_by, b_term, terms = fp8_bound(n_el, st)
 
         def plain_leaf(i):
             for li in range(WI_GATE[0]):
@@ -2374,7 +2443,8 @@ def ops_kernel_time(torch):
         row = dict(ms=cuda_ms(torch, lambda i: FQ.quantize_fp8(w, FP8_GROUP, fmt, st, seed=5),
                               reps=5, iters=5),
                    plain_ms=cuda_ms(torch, plain_leaf, reps=1, iters=1),
-                   library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_term=b_term,
+                   bound_terms_ms=terms, bytes=nbytes, flops=flops, int_muls=muls)
         case = f"{fmt}_{'stochastic' if st else 'nearest'}"
         emit("ops_kernel_time", kernel="quantize_fp8", case=case, leaf="layers.mlp.wi_gate",
              shape=list(WI_GATE), library="none: no single PyTorch call computes it",

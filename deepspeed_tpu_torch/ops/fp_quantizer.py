@@ -11,11 +11,14 @@ on a CUDA tensor it launches the hand-written Hopper kernel
 ``quantize_fp8_plain``. Both compute the scale as the IEEE quotient
 ``max(absmax, 1e-12) / fmax`` and ``x / scale`` in f32, as the JAX function
 does. Stochastic rounding (the default, as in JAX) draws from Philox4x32-10
-keyed by ``seed`` at each element's index, on both devices, so the plain
-version and the kernel give the same bytes. The JAX function's CPU path
-ignores ``stochastic`` and rounds to nearest; the port follows the TPU
-kernel on every device (ROADMAP.md section C), and with
-``stochastic=False`` its codes are the JAX function's byte for byte.
+keyed by ``seed`` at each element's index, on both devices, and rounds by
+an integer rule on the bits of x / scale (``_stochastic_codes``), so the
+plain version and the kernel give the same bytes; the rule is exact, and
+the float law it computes stays as ``_stochastic_codes_law`` for the
+checks. The JAX function's CPU path ignores ``stochastic`` and rounds to
+nearest; the port follows the TPU kernel on every device (ROADMAP.md
+section C), and with ``stochastic=False`` its codes are the JAX function's
+byte for byte.
 """
 
 import ctypes
@@ -72,17 +75,20 @@ def philox_words(seed: int, index):
     return torch.stack(words, dim=-1).gather(-1, (index & 3)[..., None])[..., 0]
 
 
-def _stochastic_codes(y, r, fmt):
-    """fp8 bytes of f32 ``y``: the lower or upper fp8 neighbour of |y|
-    (saturated at fmax), the upper with probability (|y| - lo) / (hi - lo)
-    against u = (r >> 8) 2^-24, then y's sign."""
-    dtype, _, maxcode = _format(fmt)
+def _stochastic_codes_law(y, r, fmt):
+    """The law of stochastic rounding, in floats: fp8 bytes of f32 ``y``,
+    the lower or upper fp8 neighbour of |y| (saturated at fmax), the upper
+    with probability (|y| - lo) / (hi - lo) against u = (r >> 8) 2^-24,
+    then y's sign; NaN keeps its round-to-nearest code. Every step is exact
+    (neighbours differ by a power of two), so ``_stochastic_codes`` must
+    give the same bytes; the tests hold the two together."""
+    dtype, fmax, maxcode = _format(fmt)
 
     def decode(code):
         return code.to(torch.uint8).view(dtype).float()
 
     a = y.abs()
-    m = a.to(dtype).view(torch.uint8).long()
+    m = a.clamp(max=fmax).to(dtype).view(torch.uint8).long()   # nearest, saturated
     v = decode(m)
     lo = torch.where(v > a, m - 1, m)
     hi = torch.where(v < a, torch.clamp(m + 1, max=maxcode), m)
@@ -94,12 +100,49 @@ def _stochastic_codes(y, r, fmt):
     return torch.where(torch.isnan(y), rn, code).to(torch.uint8).view(dtype)
 
 
+# per format: D, the f32 significand bits below the fp8 mantissa; the bits
+# of the least normal fp8 value 2^EMIN; the f32 - fp8 exponent rebias in code
+# units (the kernel's Fmt)
+_SR = {"e4m3": (20, 121 << 23, 120 << 3), "e5m2": (21, 113 << 23, 112 << 2)}
+
+
+def _stochastic_codes(y, r, fmt):
+    """The bytes of ``_stochastic_codes_law`` from the bits of f32 ``y``
+    and the int64 words ``r`` in [0, 2^32), as the kernel computes them.
+    In the fp8 normal range the upper neighbour is taken when
+    (r >> 8) < t 2^(24 - D), t the D low significand bits of |y| (that is
+    r < (bits << (32 - D)) mod 2^32), and the code is the truncated one plus
+    that, saturated at the largest finite code. Below it the spacing is
+    2^(EMIN - mantissa bits): the code is k = sig >> sh plus
+    (r >> 8) < ceil(t 2^(24 - sh)), sig the significand, sh its bits below
+    the spacing and t the rest."""
+    dtype, _, maxcode = _format(fmt)
+    d, low, rebias = _SR[fmt]
+    yb = y.contiguous().view(torch.int32).long() & _MASK32
+    b = yb & 0x7FFFFFFF
+    up = (r < ((b << (32 - d)) & _MASK32)).long()
+    normal = torch.clamp((b >> d) - rebias + up, max=maxcode)
+    e = b >> 23
+    sig = (b & 0x7FFFFF) | ((e > 0).long() << 23)
+    # past 48 bits below the spacing, k = 0 and the threshold is (sig != 0)
+    sh = (d + (low >> 23) - e.clamp(min=1)).clamp(max=48)
+    k = sig >> sh
+    t = sig - (k << sh)
+    thr = ((t << 24) + (1 << sh) - 1) >> sh
+    small = k + ((r >> 8) < thr).long()
+    code = torch.where(b >= low, normal, small) | ((yb >> 24) & 0x80)
+    rn = y.to(dtype).view(torch.uint8).long()
+    return torch.where(b > 0x7F800000, rn, code).to(torch.uint8).view(dtype)
+
+
 def quantize_fp8_plain(x, group_size: int = 256, fmt: str = "e4m3", stochastic: bool = True,
-                       seed: int = 0, index0: int = 0):
+                       seed: int = 0, index0: int = 0, law: bool = False):
     """The plain version of K9 on any device: x (numel a multiple of
     ``group_size``) -> (q fp8 (G, group_size), scale (G, 1) f32).
     ``index0`` is the flat index of x's first element in the tensor the
-    kernel quantized (the Philox counter of stochastic rounding)."""
+    kernel quantized (the Philox counter of stochastic rounding); ``law``
+    rounds stochastically by the float law instead of the kernel's integer
+    rule (a check of the two, never the main path)."""
     dtype, fmax, _ = _format(fmt)
     flat = x.reshape(-1, group_size).float()
     # the divisor is a tensor on x's device: CUDA torch turns a division by
@@ -111,7 +154,8 @@ def quantize_fp8_plain(x, group_size: int = 256, fmt: str = "e4m3", stochastic: 
     if not stochastic:
         return y.to(dtype), scale
     index = torch.arange(index0, index0 + y.numel(), device=x.device).reshape(y.shape)
-    return _stochastic_codes(y, philox_words(seed, index), fmt), scale
+    codes = _stochastic_codes_law if law else _stochastic_codes
+    return codes(y, philox_words(seed, index), fmt), scale
 
 
 def quantize_fp8(x, group_size: int = 256, fmt: str = "e4m3", stochastic: bool = True,

@@ -12,7 +12,11 @@ every code one of the two fp8 neighbours of x / scale (found here from a
 sorted table of every finite fp8 value, not by the port's code), the mean
 over 256 seeds unbiased within 4 standard errors, a seed always giving the
 same bytes. The Philox generator it draws from is checked against the
-known-answer vectors of Random123, the reference implementation.
+known-answer vectors of Random123, the reference implementation. The
+kernel's integer rule for stochastic rounding (``_stochastic_codes``) is
+held byte for byte to the float law (``_stochastic_codes_law``) and to the
+neighbour a numpy table picks, at the words on either side of each
+threshold, over every f32 exponent and the range edges.
 """
 
 import ml_dtypes
@@ -158,3 +162,82 @@ def test_rejects_bad_arguments():
         tfp.quantize_fp8(torch.zeros(64), group_size=64, fmt="e3m4")
     with pytest.raises(ValueError):
         tfp.quantize_fp8(torch.zeros(64, device="meta"), group_size=64)
+
+
+def _edge_bits(fmt):
+    """f32 bit patterns (uint32) of y across every f32 exponent (0: zero and
+    the f32 subnormals; up to 254, far past fmax): each fp8 mantissa pattern
+    on top, then below it t = 0, 1, the middle and all ones of the D bits
+    under the fp8 mantissa, and two random significands; both signs; then
+    NaN, +-inf, +-0 and the magnitudes next to fmax."""
+    rng = np.random.default_rng(1)
+    mbits = {"e4m3": 3, "e5m2": 2}[fmt]
+    d = 23 - mbits
+    tops = np.arange(1 << mbits, dtype=np.uint64)
+    ts = np.array([0, 1, 1 << (d - 1), (1 << d) - 1], dtype=np.uint64)
+    mant = (tops[:, None] << np.uint64(d) | ts[None, :]).ravel()
+    exps = np.arange(255, dtype=np.uint64)
+    rand = rng.integers(0, 1 << 23, size=(255, 2), dtype=np.uint64)
+    bits = np.concatenate([(exps[:, None] << np.uint64(23) | mant[None, :]).ravel(),
+                           (exps[:, None] << np.uint64(23) | rand).ravel()])
+    fmax_bits = int(np.float32(FMTS[fmt][1]).view(np.uint32))
+    extra = [0x7FC00000, 0x7F800001, 0x7F800000, 0, fmax_bits, fmax_bits + 1, fmax_bits - 1,
+             fmax_bits + (1 << d), 0x00000001, 0x007FFFFF, 0x00800000]
+    bits = np.concatenate([bits, np.array(extra, dtype=np.uint64)])
+    bits = np.concatenate([bits, bits | np.uint64(0x80000000)])
+    return bits.astype(np.uint32)
+
+
+@pytest.mark.parametrize("fmt", list(FMTS))
+def test_stochastic_integer_rule_is_the_law(fmt):
+    """The kernel's integer rule (``_stochastic_codes``) gives the float
+    law's bytes, word for word, at every range edge: fp8 subnormals, f32
+    subnormals, saturation, +-0, +-inf and NaN, each y with the words whose
+    (r >> 8) sits just below and at the threshold ceil(up 2^24) (up from a
+    numpy table of the fp8 values, not the port's code) and random words;
+    for finite y the code is also the neighbour that threshold picks."""
+    rng = np.random.default_rng(2)
+    bits = _edge_bits(fmt)
+    y = bits.view(np.float32)
+    fin = np.isfinite(y)
+    grid = _grid(fmt)
+    a = np.minimum(np.abs(y[fin]).astype(np.float64), grid[-1])
+    hi_i = np.searchsorted(grid, a)
+    lo = grid[np.where(grid[np.minimum(hi_i, len(grid) - 1)] == a, hi_i, hi_i - 1)]
+    hi = grid[np.minimum(hi_i, len(grid) - 1)]
+    up = np.where(hi > lo, (a - lo) / np.where(hi > lo, hi - lo, 1.0), 0.0)
+    thr = np.zeros(len(y), dtype=np.int64)
+    thr[fin] = np.ceil(up * 2.0 ** 24).astype(np.int64)      # u < up  <=>  (r >> 8) < thr
+    words = [np.clip(thr + dt, 0, (1 << 24) - 1) << 8 | rng.integers(0, 256, len(y))
+             for dt in (-1, 0)] + [rng.integers(0, 1 << 32, len(y)) for _ in range(2)]
+    yy = np.tile(y, len(words))
+    r = np.concatenate(words)
+    yt, rt = torch.from_numpy(yy), torch.from_numpy(r)
+    got = tfp._stochastic_codes(yt, rt, fmt).view(torch.uint8).numpy()
+    law = tfp._stochastic_codes_law(yt, rt, fmt).view(torch.uint8).numpy()
+    np.testing.assert_array_equal(got, law)
+    fin4 = np.tile(fin, len(words))
+    take_hi = (r >> 8) < np.tile(thr, len(words))
+    mag = np.where(take_hi[fin4], np.tile(hi, len(words)), np.tile(lo, len(words)))
+    want = (mag.astype(FMTS[fmt][0]).view(np.uint8)
+            | np.where(np.signbit(yy[fin4]), 0x80, 0).astype(np.uint8))
+    np.testing.assert_array_equal(got[fin4], want)
+    # NaN keeps its round-to-nearest code
+    nan = np.isnan(yy)
+    assert nan.any()
+    np.testing.assert_array_equal(got[nan], yt[torch.from_numpy(nan)].to(
+        {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}[fmt]).view(torch.uint8).numpy())
+    # the edges are all there: fp8 subnormals rounded both ways, saturation
+    small = fin4 & (np.abs(yy) < grid[1 << {"e4m3": 3, "e5m2": 2}[fmt]]) & (np.abs(yy) > 0)
+    assert (take_hi & small).any() and (~take_hi & small).any()
+    assert (got[fin4 & (np.abs(yy) > grid[-1])] & 0x7F == (0x7E if fmt == "e4m3" else 0x7B)).all()
+
+
+@pytest.mark.parametrize("fmt", list(FMTS))
+def test_plain_version_rule_matches_law(fmt):
+    """``quantize_fp8_plain`` by the integer rule and by the law give the
+    same bytes on groups at spread magnitudes (ties and a zero group)."""
+    _, xt = _inputs(fmt, "float32")
+    q, s = tfp.quantize_fp8_plain(xt, GS, fmt, True, seed=4)
+    q_law, s_law = tfp.quantize_fp8_plain(xt, GS, fmt, True, seed=4, law=True)
+    assert torch.equal(q.view(torch.uint8), q_law.view(torch.uint8)) and torch.equal(s, s_law)
