@@ -34,18 +34,37 @@ Phases, each printing one JSON line:
      scaled_dot_product_attention), beside the card's bound for the same
      work; k1_crossover: both routes forced as the chunk width grows;
   5. main_path: ``InferenceEngineV2.serve()`` on llama3-8b at full width
-     with random weights: 8 greedy requests over 3 frame boundaries; every
-     request must complete, the kernel's launches must equal layers x
-     steps, and the KV pool must drain (after phase 7, phi2_path:
-     ``serve()`` on phi-2 at full width and depth, head dim 80 on K1's split
-     route, 4 greedy requests, K1 launches = layers x steps, the pool
-     drained);
+     and depth with random weights: 8 greedy requests over 3 frame
+     boundaries, eagerly (a runner built with ``cuda_graphs=False``), then
+     twice from CUDA graphs (the engine's default on the card: one captured
+     step a shape key, replayed once a step; the first run captures), then
+     from the graphs under torch.profiler; every request must complete
+     with the same tokens in the same retirement order in each run, K1's
+     launches (the wrapper's plus what the replays launched) must equal
+     layers x steps, and so must the K1 kernels the trace shows on the
+     card; captures, capture seconds and peak memory beside the eager
+     run's; the KV pool must drain. A sampled serve() follows: its steps
+     are never captured (they run eagerly by rule: any live temperature
+     > 0). (After phase 7,
+     phi2_path: ``serve()`` on phi-2 at full width and depth from graphs,
+     head dim 80 on K1's split route, 4 greedy requests, K1 launches =
+     layers x steps, the pool drained);
   6. reference_check: the paged forward (128-token chunks through the
-     kernel) against a dense causal forward written out in this script, on
-     a 300-token prompt: last-position logits within 5% of their range;
-  7. step_profile: one decode and one prefill step at the main path's
-     shapes, host wall time per step, the host's time to issue one, device
-     time by kernel class (torch.profiler), and the device's idle share.
+     kernel, replayed from the ``run`` graphs) against a dense causal
+     forward written out in this script, on a 300-token prompt:
+     last-position logits within 5% of their range;
+  7. step_profile (before the traced serve() run): one decode and one
+     prefill step at the main path's shapes, eager and replayed from a
+     CUDA graph: host wall time per step and the host's time to issue one
+     (taken before any trace of the process), device time by kernel class
+     (torch.profiler), the device's idle share, and layers K1 kernels a
+     step on the card; v2_api_path: ``generate()``, ``generate_compiled()``
+     (the main path's 8 prompts, 32 greedy new tokens) and a put / step /
+     query / flush drive of two prompts across a chunk boundary, eagerly
+     and from graphs, the same tokens both ways; generate_compiled()
+     token-identical to serve() of the same program (8 slots, one arrival,
+     12-step frames); the pool drained; tokens/s, first-token latency,
+     captures and peak memory.
 The serving engine is then freed, and the training slice runs:
   8. train_kernel_check: flash attention forward, dq and dk/dv (K3, K4, K5)
      against their plain versions at gpt2-xl and llama3-8b shapes and on
@@ -87,11 +106,14 @@ quantization slice runs:
      M = 4 to 16 on the gate projection;
  16. v1_main_path: ``init_inference(llama3-8b).generate()`` at full width
      and depth, 4 prompts of 8064 tokens, 128 greedy new tokens over an
-     8192-slot cache: K2 launches = layers x 127 decode steps; TTFT, decode
-     tokens/s, peak memory;
+     8192-slot cache, the decode step replayed from a CUDA graph, then on
+     an engine built with ``cuda_graphs=False``: the same tokens, 127 decode
+     steps and K2 launches = layers x 127 in both (run + replayed); TTFT,
+     decode tokens/s, captures, peak memory;
  17. v1_reference_check: the prefill's last logits against
      ``engine.forward`` (flash) and one decode step through K2 against the
-     masked einsum, within 5 % of the logit range; v1_step_profile;
+     masked einsum, within 5 % of the logit range; v1_step_profile: the
+     decode step eager and replayed (layers K2 kernels a step on the card);
  18. quant_path: ``quantize_model_params`` at bits 8 and 4 over llama3-8b
      (one K7/K8 launch per quantized leaf, every leaf within half a step),
      ``dequantize_model_params``, and ``QuantizedLinear`` at bits 8/4/6 on
@@ -565,14 +587,93 @@ def kernel_phases(torch):
 
 # ------------------------------------------------------------------ main path
 
+def serve_counted(torch, eng, arrivals, **kw):
+    """One ``eng.serve(arrivals, **kw)`` with every count set to 0 before:
+    the (uid, tokens) pairs in retirement order, frames and steps
+    dispatched, each request's first emission time (the host replay of a
+    frame is where a token becomes visible), seconds, and K1's launches:
+    the wrapper's (eager runs) plus the graph replays' (what each capture
+    recorded, once a replay), with the captures and their seconds."""
+    from deepspeed_tpu_torch.inference.v2 import DeviceSlotTable
+    count = {"steps": 0, "frames": 0}
+    first_tok = {}
+    dispatch, absorb = DeviceSlotTable.dispatch_frame, DeviceSlotTable.absorb
+
+    def counting_dispatch(self, runner, params, kv, width, steps, greedy):
+        count["steps"] += steps
+        count["frames"] += 1
+        return dispatch(self, runner, params, kv, width, steps, greedy)
+
+    def timed_absorb(self, *a, **kw_):
+        emissions, finished = absorb(self, *a, **kw_)
+        now = time.perf_counter()
+        for uid in emissions:
+            first_tok.setdefault(uid, now)
+        return emissions, finished
+
+    graphs = eng.runner.graphs
+    g0 = graphs.stats() if graphs is not None else None
+    DeviceSlotTable.dispatch_frame = counting_dispatch
+    DeviceSlotTable.absorb = timed_absorb
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        got = list(eng.serve(arrivals, **kw))
+        torch.cuda.synchronize()
+    finally:
+        DeviceSlotTable.dispatch_frame = dispatch
+        DeviceSlotTable.absorb = absorb
+    out = dict(got=got, steps=count["steps"], frames=count["frames"], first_tok=first_tok,
+               serve_s=time.perf_counter() - t0, counts=read_counts(),
+               prefill_tokens=eng.serve_counters["prefill_tokens"],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               captures=0, capture_s=0.0, replays=0, replayed=0)
+    if graphs is not None:
+        g1 = graphs.stats()
+        out.update(captures=g1["captures"] - g0["captures"],
+                   capture_s=g1["capture_s"] - g0["capture_s"],
+                   replays=g1["replays"] - g0["replays"],
+                   replayed=(g1["replayed_launches"].get("paged_attention", 0)
+                             - g0["replayed_launches"].get("paged_attention", 0)))
+    out["launches"] = out["counts"]["paged_attention"] + out["replayed"]
+    return out
+
+
+K1_KERNELS = ("paged_split", "paged_fwd_wgmma")
+
+
+def device_kernel_count(torch, prof, names):
+    """Kernels whose name holds one of ``names`` in a torch.profiler trace,
+    and every device kernel of the trace."""
+    ours = every = 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        every += 1
+        ours += any(n in ev.name for n in names)
+    return ours, every
+
+
 def main_path(torch, smi):
     """Phase 5: serve 8 greedy requests through InferenceEngineV2.serve() on
-    llama3-8b at full width (random weights from seed 0)."""
-    from deepspeed_tpu_torch.inference.v2 import (DeviceSlotTable,
-                                                  InferenceEngineV2,
-                                                  RaggedInferenceEngineConfig)
+    llama3-8b at full width and depth (random weights from seed 0): first
+    eagerly (a runner built with ``cuda_graphs=False``), then from CUDA
+    graphs (the engine's default on the card) twice, the first run
+    capturing them, then once more from the captured graphs under
+    torch.profiler. The tokens and the
+    retirement order must be identical; K1's launches must equal layers x
+    steps in each run, counted as the wrapper's launches plus what the
+    replays launched, and in the traced run as K1 kernels on the device.
+    reference_check and step_profile run before the traced run (no host
+    time is taken after a trace: ``profile_modes``), a sampled serve()
+    after it, then v2_api_path, all on the same engine."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.inference.v2.model_runner import PagedModelRunner
     from deepspeed_tpu_torch.models import build_model
-    from deepspeed_tpu_torch.ops.paged_attention import paged_ragged_attention
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -584,6 +685,9 @@ def main_path(torch, smi):
     eng = InferenceEngineV2(model, config, max_seq_len=2048)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    graph_runner = eng.runner
+    eager_runner = PagedModelRunner(eng.model, BS, eng.max_blocks_per_seq, eng.device,
+                                    cuda_graphs=False)
 
     g = torch.Generator().manual_seed(0)
     lens = [64, 1500, 333, 900, 128, 1200, 77, 640]
@@ -602,38 +706,27 @@ def main_path(torch, smi):
                              if u == eos_uid else (u, prompts[u]))
             yield batch
 
-    # frames and steps dispatched, and each request's first emission (the
-    # host replay of a frame is where a token becomes visible)
-    steps = {"n": 0, "frames": 0}
-    first_tok = {}
-    run_frame_loop = eng.runner.frame_loop
-    absorb = DeviceSlotTable.absorb
+    runs = {}
+    for mode, runner in (("eager", eager_runner), ("graph_first", graph_runner),
+                         ("graph", graph_runner)):
+        eng.runner = runner
+        runs[mode] = serve_counted(torch, eng, arrivals(), max_new_tokens=32)
+        runs[mode]["ttft_first_request_s"] = runs[mode]["first_tok"][0] - arrival_t[0]
+    eng.runner = graph_runner
+    reference_check(torch, eng, prompts[1][:300])
+    step_profile(torch, eng, eager_runner, smi)      # its host times precede any trace
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        runs["traced"] = serve_counted(torch, eng, arrivals(), max_new_tokens=32)
+    on_card, every_kernel = device_kernel_count(torch, prof, K1_KERNELS)
+    del prof
+    # sampled rows: their steps run eagerly, never captured
+    sampled = serve_counted(torch, eng, iter([[(0, prompts[0], 8, 0.8), (6, prompts[6], 8, 0.8)]]),
+                            max_new_tokens=8, rng=1)
+    if sampled["captures"] or sorted(len(t) for _, t in sampled["got"]) != [8, 8]:
+        fail(f"main path: sampled serve() made {sampled['captures']} captures, tokens "
+             f"{[len(t) for _, t in sampled['got']]}")
 
-    def counting_frame_loop(*a, **kw):
-        steps["n"] += kw["steps"]
-        steps["frames"] += 1
-        return run_frame_loop(*a, **kw)
-
-    def timed_absorb(self, *a, **kw):
-        emissions, finished = absorb(self, *a, **kw)
-        now = time.perf_counter()
-        for uid in emissions:
-            first_tok.setdefault(uid, now)
-        return emissions, finished
-
-    eng.runner.frame_loop = counting_frame_loop
-    DeviceSlotTable.absorb = timed_absorb
-    paged_ragged_attention.launches = 0
-    t_serve = time.perf_counter()
-    try:
-        got = dict(eng.serve(arrivals(), max_new_tokens=32))
-        torch.cuda.synchronize()
-    finally:
-        DeviceSlotTable.absorb = absorb
-        eng.runner.frame_loop = run_frame_loop
-    serve_s = time.perf_counter() - t_serve
-    launches = paged_ragged_attention.launches
-
+    got = dict(runs["graph"]["got"])
     if set(got) != set(prompts):
         fail(f"main path: completed {sorted(got)}, expected {sorted(prompts)}")
     for uid, toks in got.items():
@@ -644,34 +737,172 @@ def main_path(torch, smi):
             want = toks.tolist().index(eos_id) + 1
         if len(toks) != want:
             fail(f"main path: uid {uid} emitted {len(toks)} tokens, expected {want}")
-    if launches != cfg.num_layers * steps["n"]:
-        fail(f"main path: {launches} paged attention launches, expected "
-             f"{cfg.num_layers} layers x {steps['n']} steps")
+    for mode in ("eager", "graph_first", "traced"):
+        other = runs[mode]["got"]
+        if [u for u, _ in other] != [u for u, _ in runs["graph"]["got"]] or any(
+                not np_equal(a, b) for (_, a), (_, b) in zip(other, runs["graph"]["got"])):
+            fail(f"main path: the {mode} run's tokens or retirement order differ from "
+                 "the graph run's")
+    for mode, r in runs.items():
+        if r["launches"] != cfg.num_layers * r["steps"]:
+            fail(f"main path ({mode}): {r['launches']} paged attention launches "
+                 f"({r['counts']['paged_attention']} run + {r['replayed']} replayed), "
+                 f"expected {cfg.num_layers} layers x {r['steps']} steps")
+    if runs["traced"]["captures"] or on_card != cfg.num_layers * runs["traced"]["steps"]:
+        fail(f"main path (traced): {on_card} K1 kernels on the card of {every_kernel}, "
+             f"{runs['traced']['captures']} captures; expected "
+             f"{cfg.num_layers} x {runs['traced']['steps']} replayed")
     if eng.kv.free_blocks != eng.kv.num_blocks - 1 or eng.state.seqs:
         fail(f"main path: pool did not drain ({eng.kv.free_blocks} of "
              f"{eng.kv.num_blocks - 1} blocks free)")
     n_tok = sum(len(t) for t in got.values())
+    by_mode = {mode: {"serve_s": r["serve_s"], "tokens_per_s": n_tok / r["serve_s"],
+                      "ttft_first_request_s": r.get("ttft_first_request_s"),
+                      "frames": r["frames"], "steps": r["steps"],
+                      "paged_attention_launches": r["launches"],
+                      "launches_run": r["counts"]["paged_attention"],
+                      "launches_replayed": r["replayed"], "captures": r["captures"],
+                      "capture_s": r["capture_s"], "replays": r["replays"],
+                      "peak_memory_gb": r["peak_memory_gb"]}
+               for mode, r in runs.items()}
+    r = runs["graph"]
     emit("main_path", model="llama3-8b", layers=cfg.num_layers,
          hidden=cfg.hidden_size, requests=len(got), tokens=n_tok,
-         prompt_tokens=sum(lens), frames=steps["frames"], steps=steps["n"],
-         paged_attention_launches=launches,
-         launches_per_step=launches / steps["n"],
-         serve_s=serve_s, tokens_per_s=n_tok / serve_s,
-         ttft_first_request_s=first_tok[0] - arrival_t[0],
-         prefill_tokens=eng.serve_counters["prefill_tokens"],
-         engine_build_s=build_s,
-         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-         kv_blocks=eng.kv.num_blocks, card=smi)
-    reference_check(torch, eng, prompts[1][:300])
-    step_profile(torch, eng, smi)
-    return launches
+         prompt_tokens=sum(lens), frames=r["frames"], steps=r["steps"],
+         paged_attention_launches=r["launches"], launches_per_step=r["launches"] / r["steps"],
+         serve_s=r["serve_s"], tokens_per_s=n_tok / r["serve_s"],
+         ttft_first_request_s=r["ttft_first_request_s"],
+         prefill_tokens=r["prefill_tokens"],
+         k1_kernels_on_card_traced=on_card, kernels_on_card_traced=every_kernel,
+         tokens_identical_graph_eager=True, by_mode=by_mode,
+         sampled_steps="eager by rule (any live temperature > 0); greedy steps replayed",
+         sampled_run={"steps": sampled["steps"], "captures": sampled["captures"],
+                       "k1_launches_run": sampled["counts"]["paged_attention"],
+                       "serve_s": sampled["serve_s"]},
+         engine_build_s=build_s, kv_blocks=eng.kv.num_blocks, card=smi)
+    v2_api_path(torch, eng, eager_runner, prompts, smi)
+    return r["launches"]
+
+
+def np_equal(a, b):
+    return len(a) == len(b) and bool((a == b).all())
+
+
+def first_divergence(a, b):
+    """The first position where token lists a and b differ (None: equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+V2_DRIVE = ((100, 2), (101, 0))   # (uid, main-path prompt): 333 and 64 tokens
+
+
+def v2_api_calls(torch, eng, prompts):
+    """generate() and generate_compiled() on the main path's 8 prompts (32
+    greedy new tokens), then a put / step / query / flush drive of two
+    prompts across a chunk boundary (8 tokens each), on ``eng`` as its
+    runner stands. Returns ({call: tokens by uid}, {call: measurements},
+    the drive's pending counts after each step)."""
+    uids = sorted(prompts)
+    toks, rows = {}, {}
+    for name in ("generate", "generate_compiled"):
+        graphs = eng.runner.graphs
+        g0 = graphs.stats() if graphs is not None else None
+        step, first = eng.step, {}
+
+        def timed_step(*a, **kw):
+            out = step(*a, **kw)
+            if out:
+                first.setdefault("t", time.perf_counter())
+            return out
+
+        eng.step = timed_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            outs = getattr(eng, name)([prompts[u] for u in uids], max_new_tokens=32)
+        finally:
+            del eng.step
+        secs = time.perf_counter() - t0
+        toks[name] = {u: t.tolist() for u, t in zip(uids, outs)}
+        rows[name] = {"s": secs, "tokens_per_s": sum(len(t) for t in outs) / secs,
+                      # generate_compiled hands every token over at the end
+                      "first_token_s": first.get("t", t0 + secs) - t0,
+                      "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if graphs is not None:
+            g1 = graphs.stats()
+            rows[name].update(captures=g1["captures"] - g0["captures"],
+                              capture_s=g1["capture_s"] - g0["capture_s"],
+                              replays=g1["replays"] - g0["replays"])
+    eng.put([u for u, _ in V2_DRIVE], [prompts[src] for _, src in V2_DRIVE])
+    pending = [[eng.query(u)[0] for u, _ in V2_DRIVE]]
+    while any(len(eng.query(u)[1]) < 8 for u, _ in V2_DRIVE):
+        eng.step()
+        pending.append([eng.query(u)[0] for u, _ in V2_DRIVE])
+    toks["step"] = {u: eng.query(u)[1][:8] for u, _ in V2_DRIVE}
+    eng.flush([u for u, _ in V2_DRIVE])
+    if eng.kv.free_blocks != eng.kv.num_blocks - 1 or eng.state.seqs:
+        fail(f"v2_api_path: pool did not drain ({eng.kv.free_blocks} of "
+             f"{eng.kv.num_blocks - 1} blocks free)")
+    return toks, rows, pending
+
+
+def v2_api_path(torch, eng, eager_runner, prompts, smi):
+    """Phase v2_api_path, on the main path's engine: ``v2_api_calls`` eagerly
+    (its runner built with ``cuda_graphs=False``), then from CUDA graphs;
+    the graph calls must give the eager calls' tokens, and the drive must
+    report pending counts 333 -> 205 -> 77 -> 0 and 64 -> 0.
+    generate_compiled() must give what serve() gives the same 8 prompts
+    arriving at once in 8 slots with frames as long as the prefill (12
+    steps of 128 tokens), which is its program: the same wide steps, then
+    the same narrow ones, over the same rows. The serve() run of the main
+    path has other steps (16 slots, three arrivals, an EOS row that
+    freezes and so changes K1's split of the others' pages), and
+    generate() and the drive decode at width 1 in other batches (another
+    K1 route, other GEMM shapes): bf16 rounding that differs flips the
+    near-tied argmaxes of random weights, so their agreement with the
+    serve() run is reported, not required (the CPU tests hold every call
+    token-identical to the JAX engine in f32)."""
+    uids = sorted(prompts)
+    wide = -(-max(len(p) for p in prompts.values()) // 128)
+    served = dict(eng.serve(iter([[(u, prompts[u]) for u in uids]]), max_new_tokens=32,
+                            frame_steps=wide, frame_slots=len(uids)))
+    graph_runner = eng.runner
+    eng.runner = eager_runner
+    try:
+        eager_toks, eager_rows, eager_pending = v2_api_calls(torch, eng, prompts)
+    finally:
+        eng.runner = graph_runner
+    toks, rows, pending = v2_api_calls(torch, eng, prompts)
+    if toks != eager_toks or pending != eager_pending:
+        fail("v2_api_path: the graph calls' tokens differ from the eager calls'")
+    firsts = [pending[i][0] for i in range(4)]
+    if firsts != [333, 205, 77, 0] or pending[1][1] != 0:
+        fail(f"v2_api_path: pending counts {pending[:4]}")
+    for u, t in toks["generate_compiled"].items():
+        if t != served[u].tolist():
+            fail(f"v2_api_path: generate_compiled() uid {u} first differs from serve() at "
+                 f"token {first_divergence(t, served[u].tolist())}")
+    drive_src = dict(V2_DRIVE)
+    agree = {name: {u: first_divergence(t, served[drive_src.get(u, u)].tolist()[:len(t)])
+                    for u, t in toks[name].items()}
+             for name in ("generate", "step")}
+    emit("v2_api_path", model="llama3-8b", prompts=len(uids), new_tokens=32,
+         graph_equals_eager=True, generate_compiled_equals_serve=True,
+         serve_frame_steps=wide, first_divergence_from_serve=agree,
+         step_drive_pending=pending[:5], step_drive_steps=len(pending) - 1,
+         graph_keys=len(eng.runner.graphs.keys()), graph=rows, eager=eager_rows, card=smi)
 
 
 def phi2_path(torch, smi):
     """Phase 5b: ``serve()`` on phi-2 at full width and depth (head dim 80:
-    K1's split route at decode and prefill), 4 greedy requests with every
-    count set to 0 before and read after: tokens in [0, vocab), K1 launches
-    = layers x steps, the pool drained."""
+    K1's split route at decode and prefill), 4 greedy requests from CUDA
+    graphs with every count set to 0 before and read after: tokens in
+    [0, vocab), K1 launches (run + replayed) = layers x steps, all on the
+    split route, the pool drained."""
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedInferenceEngineConfig
     from deepspeed_tpu_torch.models import build_model
     from deepspeed_tpu_torch.ops.paged_attention import paged_ragged_attention
@@ -684,41 +915,28 @@ def phi2_path(torch, smi):
     lens = [300, 37, 900, 128]
     prompts = {u: torch.randint(0, cfg.vocab_size, (n,), generator=g).numpy()
                for u, n in enumerate(lens)}
-    steps = {"n": 0}
-    run_frame_loop = eng.runner.frame_loop
-
-    def counting_frame_loop(*a, **kw):
-        steps["n"] += kw["steps"]
-        return run_frame_loop(*a, **kw)
-
-    eng.runner.frame_loop = counting_frame_loop
-    zero_counts()
     paged_ragged_attention.routes = {"split": 0, "wgmma": 0}
-    t0 = time.perf_counter()
-    try:
-        got = dict(eng.serve(iter([list(prompts.items())]), max_new_tokens=16))
-        torch.cuda.synchronize()
-    finally:
-        eng.runner.frame_loop = run_frame_loop
-    serve_s = time.perf_counter() - t0
-    counts = read_counts()
-    launches = counts["paged_attention"]
+    r = serve_counted(torch, eng, iter([list(prompts.items())]), max_new_tokens=16)
+    got = dict(r["got"])
+    launches = r["launches"]
     if set(got) != set(prompts) or any(len(t) != 16 for t in got.values()):
         fail(f"phi-2 path: completed {sorted(got)} with {[len(t) for t in got.values()]} tokens")
     if not all(((t >= 0) & (t < cfg.vocab_size)).all() for t in got.values()):
         fail("phi-2 path: tokens outside [0, vocab)")
-    if launches != cfg.num_layers * steps["n"] or paged_ragged_attention.routes["wgmma"]:
-        fail(f"phi-2 path: {launches} K1 launches ({paged_ragged_attention.routes}), expected "
-             f"{cfg.num_layers} layers x {steps['n']} steps on the split route")
+    if launches != cfg.num_layers * r["steps"] or paged_ragged_attention.routes["wgmma"]:
+        fail(f"phi-2 path: {launches} K1 launches ({paged_ragged_attention.routes} run, "
+             f"{r['replayed']} replayed), expected {cfg.num_layers} layers x {r['steps']} "
+             "steps on the split route")
     if eng.kv.free_blocks != eng.kv.num_blocks - 1 or eng.state.seqs:
         fail(f"phi-2 path: pool did not drain ({eng.kv.free_blocks} of "
              f"{eng.kv.num_blocks - 1} blocks free)")
     n_tok = sum(len(t) for t in got.values())
     emit("phi2_path", model="phi-2", layers=cfg.num_layers, hidden=cfg.hidden_size,
-         head_dim=cfg.dims_per_head, requests=len(got), tokens=n_tok, steps=steps["n"],
-         paged_attention_launches=launches, routes=dict(paged_ragged_attention.routes),
-         other_launches={k: v for k, v in counts.items() if v and k != "paged_attention"},
-         serve_s=serve_s, tokens_per_s=n_tok / serve_s, card=smi)
+         head_dim=cfg.dims_per_head, requests=len(got), tokens=n_tok, steps=r["steps"],
+         paged_attention_launches=launches, launches_replayed=r["replayed"],
+         routes_run=dict(paged_ragged_attention.routes), captures=r["captures"],
+         other_launches={k: v for k, v in r["counts"].items() if v and k != "paged_attention"},
+         serve_s=r["serve_s"], tokens_per_s=n_tok / r["serve_s"], card=smi)
     del eng, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -800,69 +1018,103 @@ def _kernel_class(name):
     return "other"
 
 
-def step_profile(torch, eng, smi):
+def host_rows(torch, step, reps=10):
+    """Host wall ms a step over ``reps`` synchronized steps, and the host's
+    ms to issue one with the card idle at its start (median of 3)."""
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    issue = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step()
+        issue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return dict(wall_ms=wall_ms, host_issue_ms=statistics.median(issue))
+
+
+def device_rows(torch, step, classify, wall_ms):
+    """Device ms by kernel class and by kernel name, and kernels by class,
+    a step, from a torch.profiler trace of 3 steps; the idle share is
+    1 - device busy / ``wall_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    by_class, by_name, count = {}, {}, {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us() / 3
+        cls = classify(ev.name)
+        by_class[cls] = by_class.get(cls, 0.0) + us
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + us
+        count[cls] = count.get(cls, 0) + 1
+    busy_ms = sum(by_class.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:6]
+    return dict(device_busy_ms=busy_ms, idle_share=max(0.0, 1 - busy_ms / wall_ms),
+                device_ms_by_class={k: v / 1e3 for k, v in by_class.items()},
+                kernels_a_step_by_class={k: v / 3 for k, v in count.items()},
+                top_kernels_ms=[(k[:80], v / 1e3) for k, v in top])
+
+
+def profile_modes(torch, steps, classify):
+    """``host_rows`` of every step, then ``device_rows`` of each. A
+    torch.profiler trace leaves CUPTI attached to the process, and every
+    CUDA-graph launch after it costs the host more for each node, so host
+    times are taken before the traces; tearing CUPTI down after a trace
+    (TEARDOWN_CUPTI=1) hides graph kernels from later traces."""
+    rows = {key: host_rows(torch, step) for key, step in steps.items()}
+    for key, step in steps.items():
+        rows[key].update(device_rows(torch, step, classify, rows[key]["wall_ms"]))
+    return rows
+
+
+def step_profile(torch, eng, eager_runner, smi):
     """Where a main-path step's time goes: one decode step (16 slots, the 8
     live rows at the kernel case's contexts) and one prefill step (8 rows of
-    a 128-token chunk at offsets 0..1792), each timed by the host clock over
-    synchronized steps and traced by torch.profiler for device time by
-    kernel class; the idle share is 1 - device busy / step wall time."""
-    from torch.profiler import ProfilerActivity, profile
+    a 128-token chunk at offsets 0..1792), each through the eager runner and
+    through the engine's runner replaying its CUDA graph (``run``'s key):
+    host wall time over synchronized steps and the host's time to issue one
+    (all four taken before any trace of this process: ``profile_modes``),
+    then device time by kernel class (torch.profiler), the device's idle
+    share (1 - device busy / step wall time), and K1 kernels a step."""
     kv, dev, cfg = eng.kv, eng.device, eng.model.cfg
     n_slots, mbw = 16, eng.max_blocks_per_seq
     g = torch.Generator().manual_seed(2)
     shapes = {"decode": ([99, 1999, 732, 1499, 256, 1023, 1898, 411], 1),
               "prefill": ([0, 256, 512, 768, 1024, 1280, 1536, 1792], 128)}
-    for name, (starts, c) in shapes.items():
-        owned = []
-        table = torch.zeros((n_slots, mbw), dtype=torch.int32)
-        pos = torch.full((n_slots, c), -1, dtype=torch.int32)
-        for i, s0 in enumerate(starts):
-            blk = kv.allocator.allocate(kv.blocks_for(s0 + c + 1))
-            owned += blk
-            table[i, :len(blk)] = torch.tensor(blk, dtype=torch.int32)
-            pos[i] = torch.arange(s0, s0 + c, dtype=torch.int32)
-        valid = (pos >= 0).sum(dim=1).to(torch.int32)
-        ids = torch.randint(0, cfg.vocab_size, (n_slots, c), generator=g, dtype=torch.int32)
-        args = [t.to(dev) for t in (ids, pos, table, valid)]
-
-        def step():
-            return eng.runner.run(eng.params, *args, kv.k, kv.v)
-
-        try:
-            step()
-            torch.cuda.synchronize()
-            reps = 10
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-            issue = []   # the host's time to enqueue one step, the card idle at its start
-            for _ in range(3):
-                t0 = time.perf_counter()
-                step()
-                issue.append((time.perf_counter() - t0) * 1e3)
-                torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(3):
-                    step()
-                torch.cuda.synchronize()
-        finally:
-            kv.allocator.free(owned)
-        by_class, by_name = {}, {}
-        for ev in prof.events():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = ev.time_range.elapsed_us() / 3
-            by_class[_kernel_class(ev.name)] = by_class.get(_kernel_class(ev.name), 0.0) + us
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + us
-        busy_ms = sum(by_class.values()) / 1e3
-        top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:6]
-        emit("step_profile", step=name, live_rows=len(starts), slots=n_slots, width=c,
-             wall_ms=wall_ms, host_issue_ms=statistics.median(issue), device_busy_ms=busy_ms,
-             idle_share=max(0.0, 1 - busy_ms / wall_ms),
-             device_ms_by_class={k: v / 1e3 for k, v in by_class.items()},
-             top_kernels_ms=[(k[:80], v / 1e3) for k, v in top], card=smi)
+    owned, steps = [], {}
+    try:
+        for name, (starts, c) in shapes.items():
+            table = torch.zeros((n_slots, mbw), dtype=torch.int32)
+            pos = torch.full((n_slots, c), -1, dtype=torch.int32)
+            for i, s0 in enumerate(starts):
+                blk = kv.allocator.allocate(kv.blocks_for(s0 + c + 1))
+                owned += blk
+                table[i, :len(blk)] = torch.tensor(blk, dtype=torch.int32)
+                pos[i] = torch.arange(s0, s0 + c, dtype=torch.int32)
+            valid = (pos >= 0).sum(dim=1).to(torch.int32)
+            ids = torch.randint(0, cfg.vocab_size, (n_slots, c), generator=g, dtype=torch.int32)
+            args = [t.to(dev) for t in (ids, pos, table, valid)]
+            for mode, runner in (("eager", eager_runner), ("graph", eng.runner)):
+                steps[name, mode] = (lambda r=runner, a=args: r.run(eng.params, *a, kv.k, kv.v))
+        rows = profile_modes(torch, steps, _kernel_class)
+    finally:
+        kv.allocator.free(owned)
+    for (name, mode), row in rows.items():
+        k1 = row["kernels_a_step_by_class"].get("paged_attention", 0)
+        if k1 != cfg.num_layers:
+            fail(f"step_profile {name} ({mode}): {k1} K1 kernels a step on the card, "
+                 f"expected {cfg.num_layers}")
+        starts, c = shapes[name]
+        emit("step_profile", step=name, mode=mode, live_rows=len(starts), slots=n_slots,
+             width=c, **row, card=smi)
 
 
 # ------------------------------------------------------------ training slice
@@ -1525,23 +1777,13 @@ def v1_kernel_phases(torch):
                                       for n in ("B1", "main", "B16")}}
 
 
-def v1_main_path(torch, smi):
-    """v1_main_path: init_inference(llama3-8b, bf16).generate() at full
-    width and depth, B = 4 prompts of 8064 random tokens (seed 0), 128
-    greedy new tokens over an 8192-slot cache; then the two reference
-    checks and a decode step's profile. Returns (K2 launches, engine)."""
-    import deepspeed_tpu_torch as dst
-    from deepspeed_tpu_torch.models import build_model
-
-    t0 = time.perf_counter()
-    eng = dst.init_inference(build_model(V1_MODEL), dtype="bfloat16")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    cfg = eng.model.cfg
-    g = torch.Generator().manual_seed(0)
-    ids = torch.randint(0, cfg.vocab_size, (V1_B, V1_PROMPT), generator=g, dtype=torch.int32)
-    # the first apply_decode is the prefill: note when it ends, its logits
-    # and the cache generate() fills in place
+def v1_generate_counted(torch, eng, ids):
+    """One greedy ``eng.generate(ids, V1_NEW)`` with every count set to 0
+    before. The first ``apply_decode`` is the prefill: when it ends, its
+    last logits and the cache it fills in place are kept. Returns the
+    output, those, the seconds, K2's launches (the wrapper's plus what the
+    graph replays launched), the decode steps run (eager calls past the
+    prefill, less captures, plus replays), captures and peak memory."""
     seen = {"calls": 0}
     apply_decode = eng.model.apply_decode
 
@@ -1554,7 +1796,10 @@ def v1_main_path(torch, smi):
         seen["calls"] += 1
         return out
 
+    graphs = eng.graphs
+    g0 = graphs.stats() if graphs is not None else None
     eng.model.apply_decode = watched
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t_start = time.perf_counter()
@@ -1565,29 +1810,84 @@ def v1_main_path(torch, smi):
         del eng.model.apply_decode
     t_end = time.perf_counter()
     counts = read_counts()
-    launches = counts["fused_decode_attention"]
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    r = dict(out=out, seen=seen, counts=counts, ttft_s=seen["prefill_end"] - t_start,
+             decode_s=t_end - seen["prefill_end"], generate_s=t_end - t_start,
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, captures=0,
+             capture_s=0.0, replays=0, replayed=0)
+    if graphs is not None:
+        g1 = graphs.stats()
+        r.update(captures=g1["captures"] - g0["captures"],
+                 capture_s=g1["capture_s"] - g0["capture_s"],
+                 replays=g1["replays"] - g0["replays"],
+                 replayed=(g1["replayed_launches"].get("fused_decode_attention", 0)
+                           - g0["replayed_launches"].get("fused_decode_attention", 0)))
+    r["launches"] = counts["fused_decode_attention"] + r["replayed"]
+    r["decode_steps"] = seen["calls"] - 1 - r["captures"] + r["replays"]
+    return r
+
+
+def v1_main_path(torch, smi):
+    """v1_main_path: init_inference(llama3-8b, bf16).generate() at full
+    width and depth, B = 4 prompts of 8064 random tokens (seed 0), 128
+    greedy new tokens over an 8192-slot cache: first on an engine built
+    with ``cuda_graphs=False``, then on one over the same weights with the
+    decode step replayed from a CUDA graph (the default on the card). Both
+    must give the same tokens, run 127 decode steps and launch K2 layers x
+    127 times (run + replayed); then the two reference checks and the
+    decode step's profile, eager and replayed. Returns (K2 launches of the
+    graph run, the engine)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import build_model
+
+    t0 = time.perf_counter()
+    eng = dst.init_inference(build_model(V1_MODEL), dtype="bfloat16")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eager = dst.init_inference(build_model(V1_MODEL), dtype="bfloat16",
+                               params=eng.module_params, cuda_graphs=False)
+    cfg = eng.model.cfg
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (V1_B, V1_PROMPT), generator=g, dtype=torch.int32)
+    runs = {"eager": v1_generate_counted(torch, eager, ids)}
+    del eager, runs["eager"]["seen"]["cache"]    # its cache goes before the graph run
+    runs["graph"] = v1_generate_counted(torch, eng, ids)
     want = cfg.num_layers * (V1_NEW - 1)
+    out = runs["graph"]["out"]
     new = out[:, V1_PROMPT:]
     ok = (tuple(out.shape) == (V1_B, V1_PROMPT + V1_NEW)
           and bool((out[:, :V1_PROMPT].cpu() == ids).all())
           and bool(((new >= 0) & (new < cfg.vocab_size)).all())
-          and launches == want and seen["calls"] == V1_NEW)
-    decode_s = t_end - seen["prefill_end"]
+          and bool(torch.equal(out, runs["eager"]["out"]))
+          and all(r["launches"] == want and r["decode_steps"] == V1_NEW - 1
+                  for r in runs.values()))
+    by_mode = {mode: {"ttft_s": r["ttft_s"], "decode_s": r["decode_s"],
+                      "decode_tokens_per_s": V1_B * (V1_NEW - 1) / r["decode_s"],
+                      "generate_s": r["generate_s"], "fused_decode_launches": r["launches"],
+                      "launches_run": r["counts"]["fused_decode_attention"],
+                      "launches_replayed": r["replayed"], "decode_steps": r["decode_steps"],
+                      "captures": r["captures"], "capture_s": r["capture_s"],
+                      "replays": r["replays"], "peak_memory_gb": r["peak_memory_gb"]}
+               for mode, r in runs.items()}
+    r = runs["graph"]
     emit("v1_main_path", model=V1_MODEL, layers=cfg.num_layers, hidden=cfg.hidden_size,
          batch=V1_B, prompt_tokens=V1_PROMPT, new_tokens=V1_NEW,
          cache_slots=V1_PROMPT + V1_NEW, dtype="bfloat16",
-         ttft_s=seen["prefill_end"] - t_start, decode_s=decode_s,
-         decode_tokens_per_s=V1_B * (V1_NEW - 1) / decode_s,
-         generate_s=t_end - t_start, fused_decode_launches=launches,
-         launches_expected=want, launches_by_kernel=counts, peak_memory_gb=peak, init_s=init_s,
+         ttft_s=r["ttft_s"], decode_s=r["decode_s"],
+         decode_tokens_per_s=V1_B * (V1_NEW - 1) / r["decode_s"],
+         generate_s=r["generate_s"], fused_decode_launches=r["launches"],
+         launches_expected=want, launches_by_kernel=r["counts"],
+         peak_memory_gb=r["peak_memory_gb"], init_s=init_s, by_mode=by_mode,
+         tokens_identical_graph_eager=bool(torch.equal(out, runs["eager"]["out"])),
+         sampled_steps="eager by rule (temperature > 0); greedy steps replayed",
          first_new_tokens=new[:, :8].tolist(), card=smi, within=ok)
     if not ok:
-        fail(f"v1 main path: shape {tuple(out.shape)}, launches {launches} (expected {want}), "
-             f"apply_decode calls {seen['calls']}")
-    v1_reference_checks(torch, eng, ids, out, seen)
-    v1_step_profile(torch, eng, out, seen["cache"], smi)
-    return launches, eng
+        fail(f"v1 main path: shape {tuple(out.shape)}, graph vs eager tokens "
+             f"{'equal' if torch.equal(out, runs['eager']['out']) else 'differ'}, "
+             f"launches {[x['launches'] for x in runs.values()]} (expected {want}), "
+             f"decode steps {[x['decode_steps'] for x in runs.values()]}")
+    v1_reference_checks(torch, eng, ids, out, r["seen"])
+    v1_step_profile(torch, eng, out, r["seen"]["cache"], smi)
+    return r["launches"], eng
 
 
 def _within_span(torch, name, got, want, **extra):
@@ -1636,7 +1936,7 @@ def v1_reference_checks(torch, eng, ids, out, seen):
 
 def _v1_kernel_class(name):
     low = name.lower()
-    if "decode_partial" in low or "decode_combine" in low:
+    if "decode_kernel" in low:
         return "fused_decode_attention"
     if any(s in low for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")):
         return "gemm"
@@ -1644,43 +1944,37 @@ def _v1_kernel_class(name):
 
 
 def v1_step_profile(torch, eng, out, cache, smi):
-    """One decode step of the main path (B = 4 at cache_len 8191): host
-    wall time over synchronized steps and device time by kernel class
-    (torch.profiler); the idle share is 1 - device busy / wall."""
-    from torch.profiler import ProfilerActivity, profile
+    """One decode step of the main path (B = 4 at cache_len 8191), eager
+    (``apply_decode``) and replayed from the generate() call's CUDA graph
+    (its state set back to cache_len 8191 and output row 0 before each
+    replay): host wall time over synchronized steps, the host's time to
+    issue one, device time by kernel class (torch.profiler), the idle share
+    (1 - device busy / wall), and K2 kernels a step on the card. The
+    earlier phases' traces have left CUPTI attached by now, which adds to
+    the host's cost of each graph node (``profile_modes``)."""
     cl = torch.full((V1_B,), V1_PROMPT + V1_NEW - 1, dtype=torch.int32, device="cuda")
     tok = out[:, -1:]
 
-    def step():
+    def eager_step():
         with torch.no_grad():
             return eng.model.apply_decode(eng.module_params, tok, cache, cl, last_only=True)
 
-    step()
-    torch.cuda.synchronize()
-    reps = 10
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-    by_class, by_name = {}, {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = ev.time_range.elapsed_us() / 3
-        cls = _v1_kernel_class(ev.name)
-        by_class[cls] = by_class.get(cls, 0.0) + us
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + us
-    busy_ms = sum(by_class.values()) / 1e3
-    top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:6]
-    emit("v1_step_profile", step="decode", batch=V1_B, cache_len=V1_PROMPT + V1_NEW,
-         wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=max(0.0, 1 - busy_ms / wall_ms),
-         device_ms_by_class={k: v / 1e3 for k, v in by_class.items()},
-         top_kernels_ms=[(k[:80], v / 1e3) for k, v in top], card=smi)
+    st = eng._decode_set
+    key = ("decode", V1_B, V1_PROMPT + V1_NEW, True, False)
+
+    def graph_step():
+        st.cache_len.fill_(V1_PROMPT + V1_NEW - 1)
+        st.rows.at.zero_()
+        eng.graphs.run(key, None)
+
+    rows = profile_modes(torch, {"eager": eager_step, "graph": graph_step}, _v1_kernel_class)
+    for mode, row in rows.items():
+        k2 = row["kernels_a_step_by_class"].get("fused_decode_attention", 0)
+        if k2 != eng.model.cfg.num_layers:
+            fail(f"v1_step_profile ({mode}): {k2} K2 kernels a step on the card, "
+                 f"expected {eng.model.cfg.num_layers}")
+        emit("v1_step_profile", step="decode", mode=mode, batch=V1_B,
+             cache_len=V1_PROMPT + V1_NEW, **row, card=smi)
 
 
 def quant_kernel_phases(torch):

@@ -47,12 +47,15 @@ def initialize(args=None,
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
-def init_inference(model=None, config=None, *, params=None, device=None, **kwargs):
+def init_inference(model=None, config=None, *, params=None, device=None, cuda_graphs=None,
+                   **kwargs):
     """Initialize the v1 inference engine. Mirrors
     ``deepspeed_tpu.init_inference``: ``config`` is a dict (updated with
     ``kwargs``) or a ``DeepSpeedInferenceConfig``. The port adds ``params``
-    (port tensors, for example from ``module_inject.params_from_numpy``) and
-    ``device`` (None: the current CUDA device, raising without a GPU)."""
+    (port tensors, for example from ``module_inject.params_from_numpy``),
+    ``device`` (None: the current CUDA device, raising without a GPU) and
+    ``cuda_graphs`` (None: the decode step replayed from CUDA graphs on the
+    card; False: eager there too)."""
     from .inference.config import DeepSpeedInferenceConfig
     from .inference.engine import InferenceEngine
 
@@ -60,7 +63,8 @@ def init_inference(model=None, config=None, *, params=None, device=None, **kwarg
         config = {}
     if isinstance(config, dict):
         config = DeepSpeedInferenceConfig.from_dict({**config, **kwargs})
-    return InferenceEngine(model, config, params=params, device=device)
+    return InferenceEngine(model, config, params=params, device=device,
+                           cuda_graphs=cuda_graphs)
 
 
 def default_inference_config():

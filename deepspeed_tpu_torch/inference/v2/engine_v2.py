@@ -1,28 +1,35 @@
 """Continuous-batching inference engine (FastGen analog).
 
-Mirrors ``deepspeed_tpu/inference/v2/engine_v2.py`` for the FIFO,
-single-device, float-KV ``serve()`` path: paged KV (``kv_cache.py``),
-sequence tracking (``ragged_manager.py``) and Dynamic SplitFuse frames
-(``model_runner.py``). ``RaggedInferenceEngineConfig`` keeps every field and
-default of the JAX config; the fields of paths not ported yet (tensor
-parallelism, the KV hierarchy, quantized weights/KV, disaggregated roles,
-the repair policy) raise ``NotImplementedError`` when set, as do
-``serve(scheduler=, faults=, resume_from=, speculate=True,
-yield_boundaries=True)`` and dict arrivals (ROADMAP.md lists them). The
-telemetry, trace, retry and watchdog fields are accepted and not acted on:
-``ServingTelemetry`` and the fault machinery are not ported yet.
+Mirrors ``deepspeed_tpu/inference/v2/engine_v2.py`` for the single-device,
+float-KV paths: the step API (``put``, ``step``, ``query``, ``flush``,
+``can_schedule``), ``generate`` (SplitFuse prefill through ``step``, then
+one ``decode_loop``), ``generate_compiled`` (one ``mixed_loop``) and the
+FIFO ``serve()``, over paged KV (``kv_cache.py``), sequence tracking
+(``ragged_manager.py``) and the runner's programs (``model_runner.py``). On
+the card every program runs from CUDA graphs, one captured step a shape
+key, unless the engine is built with ``cuda_graphs=False``; sampled steps
+run eagerly (``model_runner.py``). ``RaggedInferenceEngineConfig`` keeps
+every field and default of the JAX config; the fields of paths not ported
+yet (tensor parallelism, the KV hierarchy, quantized weights/KV,
+disaggregated roles, the repair policy) raise ``NotImplementedError`` when
+set, as do ``serve(scheduler=, faults=, resume_from=, speculate=True,
+yield_boundaries=True)``, dict arrivals, ``generate_compiled(speculate=
+True)``, ``serve_stats`` and ``cancel_request`` (ROADMAP.md lists them).
+The telemetry, trace, retry and watchdog fields are accepted and not acted
+on: ``ServingTelemetry`` and the fault machinery are not ported yet.
 """
 
 import collections
 import dataclasses
 import logging
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ...accelerator import get_device
 from ...models.transformer import CausalLM, build_model
+from ..sampling import sample_logits
 from .kv_cache import BlockedKVCache
 from .model_runner import PagedModelRunner
 from .ragged_manager import DeviceSlotTable, DSStateManager
@@ -31,6 +38,8 @@ from .telemetry import STAT_NAMES
 logger = logging.getLogger(__name__)
 
 _ROADMAP = "not ported to deepspeed_tpu_torch yet (ROADMAP.md, section A)"
+_TELEMETRY = ("reads ServingTelemetry and the request ledger, which are not ported "
+              "to deepspeed_tpu_torch yet (ROADMAP.md section A, item 6)")
 
 
 @dataclasses.dataclass
@@ -92,12 +101,15 @@ def _check_ported(c: RaggedInferenceEngineConfig) -> None:
 
 class InferenceEngineV2:
     def __init__(self, model, config: Optional[RaggedInferenceEngineConfig] = None,
-                 params=None, max_seq_len: Optional[int] = None, device=None):
+                 params=None, max_seq_len: Optional[int] = None, device=None,
+                 cuda_graphs=None):
         """``model``: a ``CausalLM`` (or a preset name / config for
         ``build_model``); ``params``: a params dict (random weights from
         seed 0 when omitted, stored in the serving dtype); ``device``:
         where the engine runs — the current CUDA device by default, which
-        raises when there is no GPU."""
+        raises when there is no GPU; ``cuda_graphs``: the runner's (None:
+        graphs on the card, the functional loops on the CPU; False: eager
+        on the card too)."""
         self._config = config or RaggedInferenceEngineConfig()
         c = self._config
         _check_ported(c)
@@ -126,16 +138,272 @@ class InferenceEngineV2:
         # block 0 is the trash block for padded writes: never allocate it
         self.kv.reserve_trash_block()
         self.state = DSStateManager(self.kv, c.max_tracked_sequences)
-        self.runner = PagedModelRunner(self.model, bs, max_blocks_per_seq, self.device)
+        self.runner = PagedModelRunner(self.model, bs, max_blocks_per_seq, self.device,
+                                       cuda_graphs=cuda_graphs)
         self.max_blocks_per_seq = max_blocks_per_seq
         # host stream the per-serve frame generators are seeded from
         self._rng = torch.Generator().manual_seed(0)
+        # the sampled tokens of step(), generate() and generate_compiled()
+        self._sample_rng = torch.Generator(device=self.device).manual_seed(0)
         # abnormal retirements (non-finite rows), newest last
         self.fault_log: collections.deque = collections.deque(maxlen=c.fault_log_max)
         # the in-frame counters of the last serve() run, by STAT_NAMES
         self.serve_counters: Dict[str, int] = {}
         logger.info(f"InferenceEngineV2: blocks={num_blocks}x{bs} "
                     f"chunk={c.prefill_chunk_size} device={self.device}")
+
+    # ------------------------------------------------------------------
+    # admission control, ingest and the Dynamic SplitFuse step
+    # ------------------------------------------------------------------
+
+    @property
+    def serve_stats(self) -> Dict:
+        """The serving telemetry view of the JAX engine (not ported)."""
+        raise NotImplementedError(f"serve_stats {_TELEMETRY}")
+
+    def cancel_request(self, uid: int) -> bool:
+        """Cancel an in-flight request through the ledger (not ported)."""
+        raise NotImplementedError(f"cancel_request {_TELEMETRY}")
+
+    def can_schedule(self, uids: List[int], lengths: List[int]) -> bool:
+        """Would these new sequences fit (blocks + tracking)?"""
+        blocks_needed = sum(self.kv.blocks_for(n + 1) for n in lengths)
+        if blocks_needed > self.kv.free_blocks:
+            return False
+        return len(self.state.seqs) + len(uids) <= self._config.max_tracked_sequences
+
+    def query(self, uid: int) -> Tuple[int, List[int]]:
+        """(#tokens still pending prefill, generated tokens so far)."""
+        seq = self.state.seqs.get(uid)
+        if seq is None:
+            return (0, [])
+        return (len(seq.pending), list(seq.generated))
+
+    def put(self, batch_uids: List[int], batch_tokens: List[np.ndarray]) -> None:
+        """Register prompt tokens for the given sequence uids."""
+        for uid, toks in zip(batch_uids, batch_tokens):
+            toks = np.asarray(toks).reshape(-1).tolist()
+            seq = self.state.get_or_create_sequence(uid)
+            if not self.state.ensure_capacity(seq, seq.seen_tokens + len(toks) + 1):
+                raise RuntimeError(f"uid={uid}: KV pool exhausted "
+                                   f"({self.kv.free_blocks} blocks free)")
+            seq.pending.extend(toks)
+            seq.done = False
+
+    def flush(self, uids: List[int]) -> None:
+        for uid in uids:
+            self.state.flush_sequence(uid)
+
+    def _schedule(self) -> Tuple[List, List]:
+        """Pick (prefill_seqs, decode_seqs) under the token budget: decode
+        tokens first (one each), the rest of the budget in prefill chunks."""
+        c = self._config
+        budget = c.max_tokens_per_step
+        decode = [s for s in self.state.seqs.values()
+                  if not s.in_prefill and not s.done and s.seen_tokens > 0]
+        decode = decode[:min(len(decode), c.max_ragged_batch_size, budget)]
+        budget -= len(decode)
+        prefill = []
+        for s in self.state.seqs.values():
+            if s.in_prefill and budget >= min(len(s.pending), c.prefill_chunk_size):
+                prefill.append(s)
+                budget -= min(len(s.pending), c.prefill_chunk_size)
+                if len(prefill) + len(decode) >= c.max_ragged_batch_size or budget <= 0:
+                    break
+        return prefill, decode
+
+    def _tensor(self, x):
+        return torch.from_numpy(x).to(self.device)
+
+    def _run_batch(self, seqs, chunk: int, take: Dict[int, int],
+                   greedy=True, temperature=0.0):
+        """Run one padded (B, chunk) forward over paged KV for ``seqs``.
+        The batch is padded to the next power of two, so the runner's keys
+        stay O(log) in the live batch size; pad rows take positions -1 (the
+        trash block takes their writes, the mask their reads) and their
+        tokens are never read."""
+        b = len(seqs)
+        bp = BlockedKVCache.bucket_width(b, max(b, self._config.max_ragged_batch_size))
+        ids = np.zeros((bp, chunk), np.int32)
+        positions = np.full((bp, chunk), -1, np.int32)
+        valid = np.zeros((bp,), np.int32)
+        tables = np.zeros((bp, self.max_blocks_per_seq), np.int32)
+        for i, s in enumerate(seqs):
+            n = take[s.uid]
+            toks = s.pending[:n] if s.in_prefill else s.generated[-1:]
+            ids[i, :n] = toks
+            positions[i, :n] = s.seen_tokens + np.arange(n)
+            valid[i] = n
+            tables[i] = self.state.block_table(s, self.max_blocks_per_seq)
+        logits, self.kv.k, self.kv.v = self.runner.run(
+            self.params, *(self._tensor(x) for x in (ids, positions, tables, valid)),
+            self.kv.k, self.kv.v)
+        toks = sample_logits(logits, self._sample_rng, greedy=greedy,
+                             temperature=temperature).cpu().numpy()
+        out = {}
+        for i, s in enumerate(seqs):
+            n = take[s.uid]
+            if s.in_prefill:
+                s.pending = s.pending[n:]
+                s.seen_tokens += n
+                if not s.pending:          # prompt fully consumed: first token
+                    s.generated.append(int(toks[i]))
+                    out[s.uid] = int(toks[i])
+            else:
+                s.seen_tokens += n
+                s.generated.append(int(toks[i]))
+                out[s.uid] = int(toks[i])
+        return out
+
+    def step(self, temperature: float = 0.0) -> Dict[int, int]:
+        """One SplitFuse iteration: {uid: newly generated token}."""
+        prefill, decode = self._schedule()
+        produced: Dict[int, int] = {}
+        c = self._config
+        if prefill:
+            take = {s.uid: min(len(s.pending), c.prefill_chunk_size) for s in prefill}
+            for s in prefill:   # capacity for the chunk + next token
+                self.state.ensure_capacity(s, s.seen_tokens + take[s.uid] + 1)
+            produced.update(self._run_batch(prefill, c.prefill_chunk_size, take,
+                                            greedy=temperature == 0.0,
+                                            temperature=temperature))
+        if decode:
+            ok = [s for s in decode if self.state.ensure_capacity(s, s.seen_tokens + 2)]
+            if ok:
+                produced.update(self._run_batch(ok, 1, {s.uid: 1 for s in ok},
+                                                greedy=temperature == 0.0,
+                                                temperature=temperature))
+        return produced
+
+    # ------------------------------------------------------------------
+    # batch generation
+    # ------------------------------------------------------------------
+
+    def generate(self, prompts: List[np.ndarray], max_new_tokens: int = 32,
+                 temperature: float = 0.0, eos_token_id: Optional[int] = None):
+        """Batch generation: SplitFuse prefill through ``step()``, then ONE
+        ``decode_loop`` (one graph replayed a step on the card), with no
+        host round-trip between tokens. EOS cuts each output on the host
+        after the loop; the loop runs the whole budget."""
+        uids = list(range(len(prompts)))
+        self.put(uids, prompts)
+        while any(self.state.seqs[u].in_prefill for u in uids):
+            self.step(temperature=temperature)
+        remaining = max_new_tokens - 1
+        if remaining > 0:
+            seqs = [self.state.seqs[u] for u in uids]
+            if not all(self.state.ensure_capacity(s, s.seen_tokens + remaining + 1)
+                       for s in seqs):
+                # the pool cannot cover the loop's budget up front: release
+                # what the all() above reserved beyond each row's next write
+                # and degrade to step(), which allocates per step
+                for s in seqs:
+                    keep = self.kv.blocks_for(s.seen_tokens + 1)
+                    if len(s.blocks) > keep:
+                        self.kv.allocator.free(s.blocks[keep:])
+                        del s.blocks[keep:]
+                logger.warning(
+                    "KV pool cannot cover the decode loop's budget "
+                    f"({self.kv.free_blocks} blocks free); degrading to the "
+                    "chunked step() loop for the remainder")
+                self._stepwise_decode(seqs, max_new_tokens, temperature)
+                return self._finalize(uids, max_new_tokens, eos_token_id)
+            last_ids = np.asarray([s.generated[-1] for s in seqs], np.int32)
+            lens = np.asarray([s.seen_tokens for s in seqs], np.int32)
+            toks, self.kv.k, self.kv.v = self.runner.decode_loop(
+                self.params, self._tensor(last_ids), self._tensor(lens),
+                self._tensor(self._block_tables(seqs)), self.kv.k, self.kv.v,
+                self._sample_rng, temperature, steps=remaining,
+                greedy=temperature == 0.0)
+            toks = toks.cpu().numpy()                      # (steps, B)
+            for i, s in enumerate(seqs):
+                s.generated.extend(int(t) for t in toks[:, i])
+                s.seen_tokens += remaining
+                s.done = True
+        return self._finalize(uids, max_new_tokens, eos_token_id)
+
+    def _stepwise_decode(self, seqs, max_new_tokens: int, temperature: float):
+        """Drive step() until every sequence reaches ``max_new_tokens`` or
+        the pool stops yielding progress (partial generations returned).
+        Finished rows release their blocks at once: in this path the pool
+        is too small, and a done row's pages let a straggler go on."""
+        while True:
+            for s in seqs:
+                if len(s.generated) >= max_new_tokens and not s.done:
+                    s.done = True
+                    if s.blocks:
+                        self.kv.allocator.free(s.blocks)
+                        s.blocks = []
+            if all(s.done for s in seqs):
+                return
+            if not self.step(temperature=temperature):
+                logger.warning("KV pool exhausted mid-decode; returning partial "
+                               f"generations ({self.kv.free_blocks} blocks free)")
+                return
+
+    def _finalize(self, uids, max_new_tokens: int, eos_token_id):
+        outs = []
+        for u in uids:
+            g = self.state.seqs[u].generated[:max_new_tokens]
+            if eos_token_id is not None and eos_token_id in g:
+                g = g[: g.index(eos_token_id) + 1]
+            outs.append(np.asarray(g))
+        self.flush(uids)
+        return outs
+
+    def _block_tables(self, seqs) -> np.ndarray:
+        """Block tables as wide as the pages this call can touch, padded to
+        a power of two (the key's table width)."""
+        need = max(len(s.blocks) for s in seqs)
+        mb = BlockedKVCache.bucket_width(need, self.max_blocks_per_seq)
+        return np.stack([self.state.block_table(s, mb) for s in seqs])
+
+    def generate_compiled(self, prompts: List[np.ndarray], max_new_tokens: int = 32,
+                          temperature: float = 0.0, eos_token_id: Optional[int] = None,
+                          speculate: Optional[bool] = None, gamma: Optional[int] = None):
+        """SplitFuse generation as ONE program (``mixed_loop``): chunked
+        prefill, staggered prefill-to-decode transitions and decode, with no
+        host round-trip between steps. Same outputs as ``generate`` for
+        static workloads. ``speculate`` (and ``gamma``, its draft length) is
+        not ported, nor is attaching a draft: ROADMAP.md section A, item 9."""
+        if speculate:
+            raise NotImplementedError("generate_compiled(speculate=True): speculative "
+                                      "decoding is not ported to deepspeed_tpu_torch yet "
+                                      "(ROADMAP.md section A, item 9)")
+        c = self._config
+        uids = list(range(len(prompts)))
+        self.put(uids, prompts)
+        seqs = [self.state.seqs[u] for u in uids]
+        for s in seqs:
+            if not self.state.ensure_capacity(s, len(s.pending) + max_new_tokens + 1):
+                raise RuntimeError("KV pool exhausted for compiled mixed loop")
+        b = len(seqs)
+        plens = np.asarray([len(s.pending) for s in seqs], np.int32)
+        pmax = int(plens.max())
+        prompts_p = np.zeros((b, pmax), np.int32)
+        for i, s in enumerate(seqs):
+            prompts_p[i, :plens[i]] = s.pending
+        chunk = c.prefill_chunk_size
+        toks, emit, self.kv.k, self.kv.v = self.runner.mixed_loop(
+            self.params, self._tensor(prompts_p), self._tensor(plens),
+            self._tensor(np.full((b,), max_new_tokens, np.int32)), self.kv.k, self.kv.v,
+            self._tensor(self._block_tables(seqs)), self._sample_rng, temperature,
+            chunk=chunk, wide_steps=-(-pmax // chunk),
+            narrow_steps=max(0, max_new_tokens - 1), greedy=temperature == 0.0)
+        toks = toks.cpu().numpy()
+        emit = emit.cpu().numpy()
+        outs = []
+        for i, s in enumerate(seqs):
+            g = [int(t) for t, e in zip(toks[:, i], emit[:, i]) if e][:max_new_tokens]
+            if eos_token_id is not None and eos_token_id in g:
+                g = g[: g.index(eos_token_id) + 1]
+            s.pending = []
+            s.generated.extend(g)
+            s.seen_tokens = int(plens[i]) + max_new_tokens
+            s.done = True
+            outs.append(np.asarray(g))
+        self.flush(uids)
+        return outs
 
     # ------------------------------------------------------------------
     # frame-based persistent serving loop (dynamic arrivals)

@@ -16,11 +16,27 @@ Weights are cast to the activation dtype at use (``.to(dt)``), as the JAX
 forward's ``.astype(dt)`` does, so weights stored in bf16 on the card give
 the same values as f32 weights cast per use, at half the memory.
 
-``frame_loop`` runs ``steps`` serving steps as a Python loop in place of
-``lax.scan``; its carry tensors are returned, and the pools are updated in
-place. Every step is device work only: nothing in the loop reads a value
-back to the host, so the card's queue stays full between frame boundaries.
+``frame_loop``, ``decode_loop`` and ``mixed_loop`` run their steps as a
+Python loop in place of ``lax.scan``; the carry tensors are returned, and
+the pools are updated in place. Every step is device work only: nothing in
+a loop reads a value back to the host.
+
+Step graphs (``cuda_graphs.py``), the default on the card: each program's
+step runs over static buffers that it updates in place, captured into a
+CUDA graph once per key and replayed, as the JAX programs are compiled once
+per shape bucket with their state donated. Keys: ("run", B, C, MB);
+("loop", B, MB, greedy); ("frame" or "mixed", width, greedy, B, prompt
+width, table width). The serving slot state (``DeviceSlotTable``) and the
+``mixed_loop`` state share one set of static buffers per (B, prompt width,
+table width); a slot table served here holds those buffers as its tensors.
+Sampled steps are never captured: they run eagerly on the same buffers, by
+the rule "any live temperature > 0" (``greedy=False``). The functional
+loops stay: they are the CPU's path and the card's with
+``cuda_graphs=False``.
 """
+
+import types
+import weakref
 
 import torch
 
@@ -28,16 +44,21 @@ from ...accelerator import get_device
 from ...models import layers as L
 from ...models.transformer import CausalLM, walk_layer_plan
 from ...ops.paged_attention import paged_ragged_attention
-from ..sampling import sample_logits_per_row
-from .telemetry import N_STATS
+from ..cuda_graphs import StepGraphs, StepRows
+from ..sampling import sample_logits, sample_logits_per_row
+from .ragged_manager import SLOT_CARRY, SLOT_STATE, slot_state
+from .telemetry import N_STATS, zero_stats
 
 
 class PagedModelRunner:
     def __init__(self, model: CausalLM, block_size: int, max_blocks_per_seq: int,
-                 device=None):
+                 device=None, cuda_graphs=None):
         """``device``: where the runner's constants live and its inputs are
         expected — the current CUDA device by default, which raises without
-        a GPU (pass ``device="cpu"`` for the CPU)."""
+        a GPU (pass ``device="cpu"`` for the CPU). ``cuda_graphs``: None
+        runs the step graphs on a CUDA device and the functional loops on
+        the CPU; False runs the functional loops on the card too; True on
+        the CPU runs the static-buffer steps eagerly (nothing to capture)."""
         if model.cfg.post_norm or model.cfg.mlm_head or not model.cfg.causal:
             raise NotImplementedError(
                 "the paged serving runner executes causal pre-norm decoder "
@@ -53,6 +74,15 @@ class PagedModelRunner:
         self._inv_freq = model.inv_freq(self.device)
         self._slopes = (L.alibi_slopes(self.cfg.num_heads, self.device)
                         if self.cfg.position == "alibi" else None)
+        # a constant, so that no step copies a host scalar to the card
+        self._embed_scale = (torch.tensor(self.cfg.embed_scale, dtype=self.cfg.act_dtype,
+                                          device=self.device)
+                             if self.cfg.embed_scale != 1.0 else None)
+        use = self.device.type == "cuda" if cuda_graphs is None else bool(cuda_graphs)
+        self.graphs = StepGraphs(self.device) if use else None
+        self._slot_sets = {}    # (B, prompt width, table width) -> static slot buffers
+        self._run_sets = {}     # run key -> static inputs and logits
+        self._loop_sets = {}    # (B, MB) -> static decode_loop state
 
     def _forward(self, params, ids, positions, block_tables, valid_counts,
                  kpool, vpool):
@@ -67,8 +97,8 @@ class PagedModelRunner:
         e, nh, kvh, d = cfg.hidden_size, cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
         emb = params["embed"]
         h = emb["tok"][ids].to(dt)
-        if cfg.embed_scale != 1.0:
-            h = h * torch.tensor(cfg.embed_scale, dtype=dt, device=h.device)
+        if self._embed_scale is not None:
+            h = h * self._embed_scale
         if cfg.position == "learned":
             n_pos = emb["pos"].shape[0]
             h = h + emb["pos"][(positions + cfg.position_offset).clamp(0, n_pos - 1)].to(dt)
@@ -80,6 +110,10 @@ class PagedModelRunner:
         page = (pos_safe // bs).clamp_max(block_tables.shape[1] - 1).long()
         blk = torch.where(is_pad, 0, torch.gather(block_tables, 1, page))
         off = pos_safe % bs
+
+        # one set of rotary sines and cosines serves every layer's q and k
+        sin_cos = (L.rope_sin_cos(pos_safe, self._inv_freq)
+                   if cfg.position == "rope" else None)
 
         windows = self.model._layer_windows()
         uniform_window = None
@@ -106,9 +140,9 @@ class PagedModelRunner:
                 k = L.apply_qk_norm(att["k_norm"], k, cfg)
             if cfg.position == "rope":
                 q = L.apply_rope(q, pos_safe, self._inv_freq,
-                                 interleaved=cfg.rope_interleaved)
+                                 interleaved=cfg.rope_interleaved, sin_cos=sin_cos)
                 k = L.apply_rope(k, pos_safe, self._inv_freq,
-                                 interleaved=cfg.rope_interleaved)
+                                 interleaved=cfg.rope_interleaved, sin_cos=sin_cos)
             k = k.to(kpool.dtype).contiguous()
             v = v.to(vpool.dtype).contiguous()
             out = paged_ragged_attention(
@@ -169,9 +203,128 @@ class PagedModelRunner:
         return logits.float()
 
     def run(self, params, ids, positions, block_tables, valid_counts, kpool, vpool):
-        """One ragged forward (the JAX ``run(chunk, ...)`` entry point)."""
-        return self._forward(params, ids, positions, block_tables,
-                             valid_counts, kpool, vpool)
+        """One ragged forward (the JAX ``run(chunk, ...)`` entry point).
+        With step graphs the inputs are copied into the static buffers of
+        key ("run", B, C, MB) and its step replayed; the logits come back as
+        a tensor of their own either way."""
+        if self.graphs is None:
+            return self._forward(params, ids, positions, block_tables,
+                                 valid_counts, kpool, vpool)
+        b, c = ids.shape
+        key = ("run", b, c, block_tables.shape[1])
+        st = self._run_sets.get(key)
+        if st is None:
+            zi = self._zeros_i32
+            st = self._run_sets[key] = types.SimpleNamespace(
+                ids=zi(b, c), positions=zi(b, c), tables=zi(b, key[3]), valid=zi(b),
+                logits=torch.zeros((b, self.cfg.vocab_size), dtype=torch.float32,
+                                   device=self.device))
+        for buf, t in ((st.ids, ids), (st.positions, positions),
+                       (st.tables, block_tables), (st.valid, valid_counts)):
+            buf.copy_(t)
+        self.graphs.bind(params, kpool, vpool)
+
+        def step():
+            st.logits.copy_(self._forward(params, st.ids, st.positions, st.tables,
+                                          st.valid, kpool, vpool)[0])
+
+        self.graphs.run(key, step)
+        return st.logits.clone(), kpool, vpool
+
+    def _zeros_i32(self, *shape):
+        return torch.zeros(shape, dtype=torch.int32, device=self.device)
+
+    def _decode_next(self, params, ids, lens, tables, kpool, vpool, rng,
+                     temperature, greedy):
+        """One ``decode_loop`` step: row i feeds ``ids[i]`` at position
+        ``lens[i]``; returns the next token of each row (B,) int32."""
+        logits, _, _ = self._forward(params, ids[:, None], lens[:, None], tables,
+                                     torch.ones_like(lens), kpool, vpool)
+        if greedy:
+            return logits.argmax(dim=-1).to(torch.int32)
+        return sample_logits(logits, rng, temperature=float(temperature))
+
+    def decode_loop(self, params, last_ids, seq_lens, block_tables, kpool, vpool,
+                    rng, temperature, *, steps, greedy):
+        """``steps`` greedy or sampled tokens per row over fixed block tables
+        (the JAX ``decode_loop``): row i feeds ``last_ids[i]`` at position
+        ``seq_lens[i]``, then each token it draws. The tables must already
+        cover ``seq_lens + steps`` slots. ``rng``: a ``torch.Generator`` on
+        the runner's device (sampled rows). Returns (tokens (steps, B) int32,
+        kpool, vpool)."""
+        b = last_ids.shape[0]
+        if self.graphs is None:
+            ids, lens, toks = last_ids, seq_lens, []
+            for _ in range(steps):
+                ids = self._decode_next(params, ids, lens, block_tables, kpool, vpool,
+                                        rng, temperature, greedy)
+                lens = lens + 1
+                toks.append(ids)
+            return _stack_rows(toks, b, torch.int32, last_ids.device), kpool, vpool
+        mb = block_tables.shape[1]
+        st = self._loop_sets.get((b, mb))
+        if st is None:
+            st = self._loop_sets[(b, mb)] = types.SimpleNamespace(
+                ids=self._zeros_i32(b), lens=self._zeros_i32(b), tables=self._zeros_i32(b, mb),
+                rows=StepRows(b, (torch.int32,), self.device))
+        st.ids.copy_(last_ids)
+        st.lens.copy_(seq_lens)
+        st.tables.copy_(block_tables)
+        self.graphs.bind(params, kpool, vpool)
+        key = ("loop", b, mb, greedy)
+
+        def one():
+            nxt = self._decode_next(params, st.ids, st.lens, st.tables, kpool, vpool,
+                                    rng, temperature, greedy)
+            st.rows.write(nxt)
+            st.ids.copy_(nxt)
+            st.lens.add_(1)
+
+        (toks,) = st.rows.loop(steps, lambda: self.graphs.run(key, one, capture=greedy))
+        return toks, kpool, vpool
+
+    def mixed_loop(self, params, prompts, prompt_lens, new_limits, kpool, vpool,
+                   block_tables, rng, temperature, *, chunk, wide_steps,
+                   narrow_steps, greedy):
+        """Dynamic SplitFuse over a static workload (the JAX ``mixed_loop``
+        without its tp branch): ``wide_steps`` steps at width ``chunk``,
+        then ``narrow_steps`` at width 1, both ``_serving_scan_body`` over
+        one carry. Rows carry no EOS and share one temperature; a row at its
+        ``new_limits`` freezes. prompts: (B, P_max) padded prompt ids.
+        Returns (tokens, emit (wide_steps + narrow_steps, B), kpool,
+        vpool)."""
+        b = prompts.shape[0]
+        dev = prompts.device
+        no_eos = torch.full((b,), -1, dtype=torch.int32, device=dev)
+        temps = torch.full((b,), float(temperature), dtype=torch.float32, device=dev)
+        passes = ((chunk, wide_steps), (1, narrow_steps))
+        if self.graphs is None:
+            zero = torch.zeros((b,), dtype=torch.int32, device=dev)
+            no = torch.zeros((b,), dtype=torch.bool, device=dev)
+            carry = (zero, zero, zero, no, no, no, zero_stats(dev), rng, kpool, vpool)
+            toks, emits = [], []
+            for width, n in passes:
+                body = _serving_scan_body(self._forward, params, prompts, prompt_lens,
+                                          new_limits, no_eos, temps, block_tables,
+                                          width, greedy)
+                for _ in range(n):
+                    carry, (t, em) = body(carry)
+                    toks.append(t)
+                    emits.append(em)
+            return (_stack_rows(toks, b, torch.int32, dev),
+                    _stack_rows(emits, b, torch.bool, dev), kpool, vpool)
+        st = self._claim_slots((b, prompts.shape[1], block_tables.shape[1]))
+        for name, t in (("prompts", prompts), ("prompt_lens", prompt_lens),
+                        ("limits", new_limits), ("eos_ids", no_eos), ("temps", temps),
+                        ("tables", block_tables)):
+            getattr(st, name).copy_(t)
+        for name in SLOT_CARRY:
+            getattr(st, name).zero_()
+        self.graphs.bind(params, kpool, vpool)
+        parts = [self._slot_steps(st, params, kpool, vpool, rng, "mixed", width, n, greedy)
+                 for width, n in passes]
+        return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]),
+                kpool, vpool)
 
     def frame_loop(self, params, prompts, prompt_lens, limits, eos_ids, temps,
                    tables, cached, produced, last_tok, done, poison, nonfinite,
@@ -192,6 +345,68 @@ class PagedModelRunner:
             toks.append(t)
             emits.append(em)
         return (torch.stack(toks), torch.stack(emits)) + carry
+
+    def frame_in_place(self, slots, params, kv, *, width, steps, greedy):
+        """One serving frame on the static buffers of ``slots``' shape (the
+        step-graph form of ``frame_loop``): the slot table's tensors become
+        those buffers, with their values, and are updated in place; so are
+        the pools. Returns (tokens, emit), each (steps, B)."""
+        shape = (slots.n_slots, slots.prompts.shape[1], slots.tables.shape[1])
+        st = self._claim_slots(shape, slots)
+        self.graphs.bind(params, kv.k, kv.v)
+        return self._slot_steps(st, params, kv.k, kv.v, slots.rng, "frame", width,
+                                steps, greedy)
+
+    def _claim_slots(self, shape, slots=None):
+        """The static slot buffers of ``shape`` (B, prompt width, table
+        width). A slot table that held them before gets copies of whatever
+        it still shares with them; ``slots``, if given, then holds them:
+        its values are copied in and its tensors are the buffers."""
+        st = self._slot_sets.get(shape)
+        if st is None:
+            st = self._slot_sets[shape] = types.SimpleNamespace(
+                shape=shape, owner=None,
+                rows=StepRows(shape[0], (torch.int32, torch.bool), self.device),
+                **slot_state(*shape, self.device))
+        if slots is not None and all(getattr(slots, n) is getattr(st, n) for n in SLOT_STATE):
+            return st
+        owner = st.owner() if st.owner is not None else None
+        if owner is not None:
+            for name in SLOT_STATE:
+                if getattr(owner, name) is getattr(st, name):
+                    setattr(owner, name, getattr(st, name).clone())
+        st.owner = None
+        if slots is not None:
+            for name in SLOT_STATE:
+                getattr(st, name).copy_(getattr(slots, name))
+                setattr(slots, name, getattr(st, name))
+            st.owner = weakref.ref(slots)
+        return st
+
+    def _slot_steps(self, st, params, kpool, vpool, rng, program, width, steps, greedy):
+        """``steps`` serving steps of program ``program`` on the static slot
+        buffers ``st``, each writing its carry back in place. Returns
+        (tokens, emit), each (steps, B)."""
+        key = (program, width, greedy) + st.shape
+
+        def one():
+            body = _serving_scan_body(self._forward, params, st.prompts, st.prompt_lens,
+                                      st.limits, st.eos_ids, st.temps, st.tables,
+                                      width, greedy)
+            carry, (tok, emit) = body(tuple(getattr(st, n) for n in SLOT_CARRY)
+                                      + (rng, kpool, vpool))
+            for name, new in zip(SLOT_CARRY, carry):
+                getattr(st, name).copy_(new)
+            st.rows.write(tok, emit)
+
+        return st.rows.loop(steps, lambda: self.graphs.run(key, one, capture=greedy))
+
+
+def _stack_rows(rows, b, dtype, device):
+    """(steps, B) from a list of (B,) rows; (0, B) for none."""
+    if rows:
+        return torch.stack(rows)
+    return torch.zeros((0, b), dtype=dtype, device=device)
 
 
 def _serving_scan_body(fwd, params, prompts, prompt_lens, limits, eos_ids,

@@ -25,9 +25,14 @@ class DSSequenceDescriptor:
     uid: int
     blocks: List[int] = dataclasses.field(default_factory=list)
     seen_tokens: int = 0            # tokens whose KV is in cache
+    pending: List[int] = dataclasses.field(default_factory=list)   # not yet prefilled
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     slot: int = -1                  # decode-slot index, -1 = not resident
+
+    @property
+    def in_prefill(self) -> bool:
+        return len(self.pending) > 0
 
 
 class DSStateManager:
@@ -78,11 +83,42 @@ class DSStateManager:
         return tbl
 
 
+# The device tensors of a slot table, in the frame's argument order; the
+# carry is the part a serving step writes back.
+SLOT_STATE = ("prompts", "prompt_lens", "limits", "eos_ids", "temps", "tables",
+              "cached", "produced", "last_tok", "done", "poison", "nonfinite",
+              "stats")
+SLOT_CARRY = SLOT_STATE[6:]
+
+
+def slot_state(n_slots: int, prompt_width: int, table_width: int, device) -> Dict:
+    """Fresh slot-state tensors by ``SLOT_STATE`` name, every slot free.
+    ``poison`` is the fault-injection flag and ``nonfinite`` the in-frame
+    finite-check latch."""
+    dev = torch.device(device)
+
+    def zi(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    return {"prompts": zi(n_slots, max(1, prompt_width)), "prompt_lens": zi(n_slots),
+            "limits": zi(n_slots),
+            "eos_ids": torch.full((n_slots,), -1, dtype=torch.int32, device=dev),
+            "temps": torch.zeros((n_slots,), dtype=torch.float32, device=dev),
+            "tables": zi(n_slots, max(1, table_width)), "cached": zi(n_slots),
+            "produced": zi(n_slots), "last_tok": zi(n_slots),
+            "done": torch.ones((n_slots,), dtype=torch.bool, device=dev),
+            "poison": torch.zeros((n_slots,), dtype=torch.bool, device=dev),
+            "nonfinite": torch.zeros((n_slots,), dtype=torch.bool, device=dev),
+            "stats": zero_stats(dev)}
+
+
 class DeviceSlotTable:
     """Fixed set of serving slots whose state is device-resident.
 
     ``PagedModelRunner.frame_loop`` reads these tensors and returns their
-    next values; between frames they stay on the device. The host mirrors
+    next values; a runner with step graphs instead makes them its static
+    buffers and updates them in place (``frame_in_place``). Between frames
+    they stay on the device. The host mirrors
     (``*_h`` numpy arrays, ``uid_of_slot``/``slot_of_uid``) exist so
     admission and retirement are decided without a device read:
     ``absorb`` replays the frame's emit mask with the in-frame arithmetic.
@@ -96,25 +132,9 @@ class DeviceSlotTable:
                  rng: torch.Generator, device):
         self.n_slots = n_slots
         self.device = torch.device(device)
-
-        def zi(*shape):
-            return torch.zeros(shape, dtype=torch.int32, device=self.device)
-
-        self.prompts = zi(n_slots, max(1, prompt_width))
-        self.prompt_lens = zi(n_slots)
-        self.limits = zi(n_slots)
-        self.eos_ids = torch.full((n_slots,), -1, dtype=torch.int32, device=self.device)
-        self.temps = torch.zeros((n_slots,), dtype=torch.float32, device=self.device)
-        self.tables = zi(n_slots, max(1, table_width))
-        self.cached = zi(n_slots)
-        self.produced = zi(n_slots)
-        self.last_tok = zi(n_slots)
-        self.done = torch.ones((n_slots,), dtype=torch.bool, device=self.device)
-        # fault-injection flag and the in-frame finite-check latch
-        self.poison = torch.zeros((n_slots,), dtype=torch.bool, device=self.device)
-        self.nonfinite = torch.zeros((n_slots,), dtype=torch.bool, device=self.device)
+        for name, t in slot_state(n_slots, prompt_width, table_width, self.device).items():
+            setattr(self, name, t)
         self.rng = rng
-        self.stats = zero_stats(self.device)
         # host mirrors: admission control only
         self.uid_of_slot = np.full((n_slots,), -1, np.int64)
         self.slot_of_uid: Dict[int, int] = {}
@@ -229,8 +249,13 @@ class DeviceSlotTable:
 
     def dispatch_frame(self, runner, params, kv, width: int, steps: int,
                        greedy: bool):
-        """Run one K-step frame and take its carry as the new state,
-        returning the (tokens, emit) DEVICE tensors; nothing is read back."""
+        """Run one K-step frame, returning the (tokens, emit) DEVICE tensors;
+        nothing is read back. A runner with step graphs runs it in place on
+        its static buffers; otherwise the functional loop's carry becomes the
+        new state."""
+        if runner.graphs is not None:
+            return runner.frame_in_place(self, params, kv, width=width,
+                                         steps=steps, greedy=greedy)
         (toks, emit, self.cached, self.produced, self.last_tok, self.done,
          self.poison, self.nonfinite, self.stats, self.rng, kv.k,
          kv.v) = runner.frame_loop(
@@ -246,12 +271,12 @@ class DeviceSlotTable:
         the one device-to-host copy a frame makes: (tokens (steps, B),
         emit (steps, B) bool, the finite-check latch (B,) bool, the
         in-frame counters' increment (N_STATS,) int64). The device counter
-        vector restarts at zero."""
+        vector restarts at zero, in place."""
         toks, emit = self.dispatch_frame(runner, params, kv, width, steps, greedy)
         n, b = toks.numel(), self.n_slots
         host = torch.cat([toks.flatten(), emit.flatten().to(torch.int32),
                           self.nonfinite.to(torch.int32), self.stats]).cpu().numpy()
-        self.stats = zero_stats(self.device)
+        self.stats.zero_()
         return (host[:n].reshape(toks.shape), host[n:2 * n].reshape(toks.shape) != 0,
                 host[2 * n:2 * n + b] != 0, host[2 * n + b:].astype(np.int64))
 

@@ -81,17 +81,24 @@ def rope_frequencies(cfg: TransformerConfig, device=None):
     return 1.0 / (cfg.rope_theta ** exps)        # (d/2,)
 
 
-def apply_rope(x, positions, inv_freq, *, interleaved=False):
+def rope_sin_cos(positions, inv_freq):
+    """The sines and cosines of rotary angles: positions (B, S) int ->
+    (sin, cos), each (B, S, 1, rd/2) f32."""
+    angles = positions[..., None].float() * inv_freq[None, None, :]  # (B, S, rd/2)
+    return torch.sin(angles)[:, :, None, :], torch.cos(angles)[:, :, None, :]
+
+
+def apply_rope(x, positions, inv_freq, *, interleaved=False, sin_cos=None):
     """x: (B, S, H, D); positions: (B, S) int.
 
     ``inv_freq`` has rd/2 entries where rd <= D is the rotary span (partial
     rotary); dims past rd pass through untouched. ``interleaved`` uses the
-    (x0,x1),(x2,x3)... pair layout (GPT-J/NeoX) instead of split halves."""
+    (x0,x1),(x2,x3)... pair layout (GPT-J/NeoX) instead of split halves.
+    ``sin_cos``: ``rope_sin_cos(positions, inv_freq)``, made once for every
+    layer of a step by a caller that has it."""
     rd = 2 * inv_freq.shape[0]
     rot = x[..., :rd].float()
-    angles = positions[..., None].float() * inv_freq[None, None, :]  # (B, S, rd/2)
-    sin = torch.sin(angles)[:, :, None, :]
-    cos = torch.cos(angles)[:, :, None, :]
+    sin, cos = sin_cos if sin_cos is not None else rope_sin_cos(positions, inv_freq)
     if interleaved:
         x1 = rot[..., 0::2]
         x2 = rot[..., 1::2]
@@ -125,13 +132,15 @@ def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
     return torch.tensor(s, dtype=torch.float32, device=device)
 
 
-def alibi_bias(num_heads: int, q_pos, k_pos) -> torch.Tensor:
+def alibi_bias(num_heads: int, q_pos, k_pos, slopes=None) -> torch.Tensor:
     """Additive attention bias slope_h * (k - q): (..., H, Sq, Sk) f32.
 
-    q_pos: (Sq,) or (B, Sq); k_pos: (Sk,). The relative form differs from
+    q_pos: (Sq,) or (B, Sq); k_pos: (Sk,); ``slopes``: the (H,) slopes on
+    k_pos's device, made here when omitted. The relative form differs from
     HF's per-key-position form by a per-row constant, which softmax
     cancels."""
-    slopes = alibi_slopes(num_heads, k_pos.device)                       # (H,)
+    if slopes is None:
+        slopes = alibi_slopes(num_heads, k_pos.device)                   # (H,)
     rel = (k_pos[None, :] - q_pos[..., :, None]).float()                  # (..., Sq, Sk)
     return slopes[:, None, None] * rel[..., None, :, :]
 
@@ -192,7 +201,7 @@ def apply_qk_norm(norm_params, x, cfg: TransformerConfig):
 
 def apply_attention(params, x, cfg: TransformerConfig, *, positions=None, inv_freq=None,
                     segment_ids=None, window=None, kv_cache=None, cache_len=None,
-                    attn_bias=None):
+                    attn_bias=None, sin_cos=None):
     """The JAX ``apply_attention``: x (B, S, E). q/k/v projections, biases,
     q/k norm and RoPE, attention, and the output projection. ``window``:
     this layer's sliding window (int, or a tensor; <= 0 is global); None
@@ -206,7 +215,8 @@ def apply_attention(params, x, cfg: TransformerConfig, *, positions=None, inv_fr
     where eligible). The cache is updated IN PLACE and the same tensors are
     returned, where JAX returns a new cache. ``attn_bias``: a precomputed
     (B, H, S, S_max) ALiBi bias, built here when an ALiBi model passes
-    none."""
+    none. ``sin_cos``: the rotary sines and cosines of ``positions``
+    (``rope_sin_cos``), when the caller made them once for every layer."""
     if window is None and cfg.sliding_window is not None and cfg.local_attention_every is None:
         window = cfg.sliding_window   # uniform window (Mistral)
     dt = cfg.act_dtype
@@ -225,8 +235,10 @@ def apply_attention(params, x, cfg: TransformerConfig, *, positions=None, inv_fr
     if cfg.position == "rope":
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
-        q = apply_rope(q, positions, inv_freq, interleaved=cfg.rope_interleaved)
-        k = apply_rope(k, positions, inv_freq, interleaved=cfg.rope_interleaved)
+        q = apply_rope(q, positions, inv_freq, interleaved=cfg.rope_interleaved,
+                       sin_cos=sin_cos)
+        k = apply_rope(k, positions, inv_freq, interleaved=cfg.rope_interleaved,
+                       sin_cos=sin_cos)
     if kv_cache is not None:
         ck, cv = kv_cache
         idx = cache_len.long()[:, None] + torch.arange(s, device=x.device)[None, :]   # (B, S)

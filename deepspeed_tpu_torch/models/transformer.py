@@ -113,6 +113,15 @@ class CausalLM:
                 "MoE and heterogeneous layer stacks are not ported yet "
                 "(ROADMAP.md section A, item 2)")
         self.cfg = cfg
+        self._slopes = {}   # ALiBi slopes by device
+
+    def alibi_slopes(self, device):
+        """The (H,) ALiBi slopes on ``device``, made once per device, so that
+        no decode step copies them to the card (a CUDA graph cannot)."""
+        device = torch.device(device)
+        if device not in self._slopes:
+            self._slopes[device] = L.alibi_slopes(self.cfg.num_heads, device)
+        return self._slopes[device]
 
     def inv_freq(self, device=None):
         """RoPE inverse frequencies (d/2,) f32, or None without rotary."""
@@ -315,8 +324,11 @@ class CausalLM:
         attn_bias = None
         if cfg.position == "alibi":
             attn_bias = L.alibi_bias(cfg.num_heads, positions,
-                                     torch.arange(cache["k"].shape[2], device=dev))
+                                     torch.arange(cache["k"].shape[2], device=dev),
+                                     slopes=self.alibi_slopes(dev))
         inv_freq = self.inv_freq(dev)
+        # one set of rotary sines and cosines serves every layer
+        sin_cos = L.rope_sin_cos(positions, inv_freq) if cfg.position == "rope" else None
         cache_len = cache_len.to(dev)
         windows = self._layer_windows() or [None] * cfg.num_layers
         for li, win in enumerate(windows):
@@ -326,7 +338,7 @@ class CausalLM:
                                             inv_freq=inv_freq,
                                             kv_cache=(cache["k"][li], cache["v"][li]),
                                             cache_len=cache_len, attn_bias=attn_bias,
-                                            window=win)
+                                            window=win, sin_cos=sin_cos)
             if cfg.sandwich_norm:
                 attn_out = L.apply_norm(lp["norm3"], attn_out, cfg)
             if cfg.parallel_block:

@@ -50,9 +50,13 @@ def _on_card(t) -> bool:
 def window_mask(q_pos, k_pos, window):
     """Sliding-window visibility: key k is visible to query q iff
     q - k < window; ``window`` may be a tensor, and window <= 0 means
-    global (the per-layer local/global sentinel)."""
+    global (the per-layer local/global sentinel). An int window makes no
+    tensor, so no step copies it to the card (a CUDA graph cannot)."""
+    dist = q_pos - k_pos
+    if isinstance(window, int):
+        return dist < window if window > 0 else torch.ones_like(dist, dtype=torch.bool)
     w = torch.as_tensor(window, dtype=torch.int32, device=q_pos.device)
-    return (q_pos - k_pos < w) | (w <= 0)
+    return (dist < w) | (w <= 0)
 
 
 def reference_attention(q, k, v, *, causal=True, bias=None, segment_ids=None, scale=None,

@@ -93,6 +93,7 @@ def grid_size(b, kvh, groups, sms):
 
 _SMS = {}
 _COUNTERS = {}
+_OUTGROWN = []   # counters a larger call replaced: a captured graph may hold one
 
 
 def _sm_count(device):
@@ -104,10 +105,14 @@ def _sm_count(device):
 def _counters(device, stream, n):
     """Arrival counters for the kernel's last-block merge, kept per (device,
     stream) and grown as needed (calls on one stream run in order): zero at
-    first, and every launch leaves them zero."""
+    first, and every launch leaves them zero. A buffer that a larger call
+    replaces is kept alive, since a CUDA graph captured over it goes on
+    launching on it."""
     key = (device, stream)
     cnt = _COUNTERS.get(key)
     if cnt is None or cnt.numel() < n:
+        if cnt is not None:
+            _OUTGROWN.append(cnt)
         cnt = _COUNTERS[key] = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
     return cnt
 

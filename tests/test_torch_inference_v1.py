@@ -136,6 +136,28 @@ def test_sample_logits_controls():
     assert sample_logits(logits, gen, top_k=3).dtype == torch.int32
 
 
+def test_static_decode_step_matches_eager_loop(engines):
+    """``cuda_graphs=True`` on the CPU runs the decode step the card
+    replays from a CUDA graph, eagerly on its static cache and state: the
+    eager loop's tokens with and without EOS, sampled tokens from the same
+    seed, and a second shape that replaces the static buffers."""
+    _, teng, greedy = engines
+    static = tds.init_inference(build_model("tiny"), dtype="float32", device="cpu",
+                                params=teng.module_params, cuda_graphs=True)
+    assert teng.graphs is None and static.graphs is not None
+    ids = _prompts()
+    calls = [dict(), dict(eos_token_id=int(greedy[0, 8 + 3])),
+             dict(temperature=0.8, top_k=10, seed=3), dict()]
+    for kw in calls:
+        np.testing.assert_array_equal(static.generate(ids, max_new_tokens=8, **kw).numpy(),
+                                      teng.generate(ids, max_new_tokens=8, **kw).numpy())
+    longer = _prompts(seed=4, b=3, s=11)
+    np.testing.assert_array_equal(static.generate(longer, max_new_tokens=5).numpy(),
+                                  teng.generate(longer, max_new_tokens=5).numpy())
+    assert [k[1:] for k in static.graphs.keys()] == [
+        (2, 16, True, False), (2, 16, True, True), (2, 16, False, False), (3, 16, True, False)]
+
+
 def test_sampled_generate_runs_and_is_seeded(engines):
     teng = engines[1]
     ids = _prompts()

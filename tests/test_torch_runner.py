@@ -112,3 +112,67 @@ def test_frame_loop_matches_jax(pair):
     for i, name in enumerate(names):
         np.testing.assert_array_equal(tout[i].numpy(), np.asarray(jout[i]), err_msg=name)
     assert np.asarray(jout[1]).sum() == 4 + 3 + 6        # every budget emitted
+
+
+def _runner(tr, static):
+    """The port runner, or one that runs the static-buffer steps (what the
+    card replays from CUDA graphs) eagerly on the CPU."""
+    if not static:
+        return tr
+    return PagedModelRunner(tr.model, BS, MB, device="cpu", cuda_graphs=True)
+
+
+def _committed(pool):
+    """Every block but trash block 0 (pad rows' writes land there)."""
+    return np.asarray(pool)[:, :, 1:]
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["functional", "static"])
+def test_decode_loop_matches_jax(pair, static):
+    """Six greedy decode steps from cached prefixes of 20, 7 and 3 tokens
+    over random pools: identical tokens, committed slots to 1e-5."""
+    (jr, jp), (tr, tp) = pair
+    tr = _runner(tr, static)
+    cfg = tr.cfg
+    last = np.random.default_rng(5).integers(0, cfg.vocab_size, (3,)).astype(np.int32)
+    lens = np.array([20, 7, 3], np.int32)
+    kp, vp = _pools(cfg, 6)
+    jt, jk, jv = jr.decode_loop(jp, jnp.asarray(last), jnp.asarray(lens), jnp.asarray(TABLES),
+                                jnp.asarray(kp), jnp.asarray(vp), jax.random.PRNGKey(0),
+                                jnp.float32(0.0), steps=6, greedy=True)
+    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    tt, tk2, tv2 = tr.decode_loop(tp, torch.from_numpy(last), torch.from_numpy(lens),
+                                  torch.from_numpy(TABLES), tk, tv, torch.Generator(), 0.0,
+                                  steps=6, greedy=True)
+    assert tk2 is tk and tv2 is tv
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_allclose(_committed(tk), _committed(jk), atol=1e-5)
+    np.testing.assert_allclose(_committed(tv), _committed(jv), atol=1e-5)
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["functional", "static"])
+def test_mixed_loop_matches_jax(pair, static):
+    """Prompts of 5, 12 and 3 tokens at chunk 8 (two wide steps; the short
+    rows decode inside them), limits 4, 3 and 6, then five narrow steps:
+    identical tokens and emit masks, committed slots to 1e-5."""
+    (jr, jp), (tr, tp) = pair
+    tr = _runner(tr, static)
+    cfg = tr.cfg
+    plens = np.array([5, 12, 3], np.int32)
+    prompts = np.random.default_rng(7).integers(0, cfg.vocab_size, (3, 12)).astype(np.int32)
+    limits = np.array([4, 3, 6], np.int32)
+    kp = np.zeros((cfg.num_layers, cfg.kv_heads, NB, BS, cfg.dims_per_head), np.float32)
+    kw = dict(chunk=8, wide_steps=2, narrow_steps=5, greedy=True)
+    jt, je, jk, jv = jr.mixed_loop(jp, jnp.asarray(prompts), jnp.asarray(plens),
+                                   jnp.asarray(limits), jnp.asarray(kp), jnp.asarray(kp),
+                                   jnp.asarray(TABLES), jax.random.PRNGKey(0),
+                                   jnp.float32(0.0), **kw)
+    tt, te, tk, tv = tr.mixed_loop(tp, torch.from_numpy(prompts), torch.from_numpy(plens),
+                                   torch.from_numpy(limits), torch.from_numpy(kp.copy()),
+                                   torch.from_numpy(kp.copy()), torch.from_numpy(TABLES),
+                                   torch.Generator(), 0.0, **kw)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+    assert te.numpy().sum(axis=0).tolist() == limits.tolist()     # every budget emitted
+    np.testing.assert_allclose(_committed(tk), _committed(jk), atol=1e-5)
+    np.testing.assert_allclose(_committed(tv), _committed(jv), atol=1e-5)
