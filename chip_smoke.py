@@ -26,9 +26,13 @@ Phases, each printing one JSON line:
      128-wide serving step, window / ALiBi / softcap cases, every compiled
      instantiation (D=64/80/96/256, pages of 16/32 slots, MHA, MQA,
      falcon-7b's 71 query heads on one kv head), a decode the plan splits
-     at bs 16, and NaN parked in stale slots, trash block 0 and pad chunk
-     rows;
-  4. kernel_time: K1 on the decode, prefill and mixed steps by CUDA events
+     at bs 16, NaN parked in stale slots, trash block 0 and pad chunk
+     rows, and the speculative widths (the draft's C = 2 re-feed, the
+     verify's C = 3 and 5) at llama3-8b's and the 1B draft's (D 64)
+     attention with NaN in every slot at or beyond each row's first chunk
+     position, each also replayed from a CUDA graph bit-identical;
+  4. kernel_time: K1 on the decode, prefill and mixed steps and at the
+     speculative widths (re-feed C 2, verify C 3 and 5) by CUDA events
      and by CUDA-graph replay (a replayed call must give the eager call's
      bits), its plain version and one PyTorch library call (pages gather +
      scaled_dot_product_attention), beside the card's bound for the same
@@ -65,7 +69,32 @@ Phases, each printing one JSON line:
      token-identical to serve() of the same program (8 slots, one arrival,
      12-step frames); the pool drained; tokens/s, first-token latency,
      captures and peak memory.
-The serving engine is then freed, and the training slice runs:
+The serving engine is then freed, and the quantized and speculative
+serving slice runs (before phi2_path):
+  quant_check: ``quantize_kv_lanes`` / ``dequantize_kv_lanes`` and the
+     weight quantizer's leaves on the card byte-identical to the CPU's
+     (random, all-zero and NaN/inf-lane rows; layer 0's wq and the stacked
+     wk of llama3-8b), and the page movers' round trip on an int8 pool;
+  quant_serve_path: llama3-8b at full width and depth with int8 KV pages,
+     int8 weights, and both, each serving the main path's 8 requests
+     eagerly, from graphs and traced: the same tokens both ways, budgets
+     met, the pool drained, K1 launches layers x steps on the float-KV
+     engine and 0 on the int8-KV ones (JAX's gather route), last-position
+     logits within 5 % of the range of the dense forward over the same
+     weights (and of the bf16 one for bf16 weights), int8 weights within 5 %
+     of bf16 at 2 layers (JAX's contract); param and block bytes, peak
+     memory, tokens/s, TTFT, a decode step by kernel class;
+  spec_path: the same requests with gamma 2 against a self-draft and a
+     draft at Llama-3.2-1B's widths (random, seed 1), eagerly, from graphs
+     and traced: the same tokens both ways, budgets met, both pools
+     drained, accepted <= drafted = gamma x verify row-steps, K1 launches
+     = target layers x (wide + verify steps) + draft layers x (wide +
+     gamma x verify steps) by wrapper count and trace; then
+     ``generate_compiled(speculate=True)`` eagerly and from graphs (the
+     same tokens) and a sampled serve (eager by rule); acceptance, tokens
+     per target forward, tokens/s and the verify step beside the plain
+     graph serve().
+The training slice follows:
   8. train_kernel_check: flash attention forward, dq and dk/dv (K3, K4, K5)
      against their plain versions at gpt2-xl and llama3-8b shapes and on
      every mask (window, ALiBi, segments, non-causal, an S that is no tile
@@ -371,21 +400,36 @@ K1_MAIN = {
 }
 
 
+# the speculative serving steps (16 slots, 8 live, 8 pad rows): the draft's
+# width-2 re-feed (positions cached - 1 and cached) and the target's verify
+# of gamma + 1 positions (gamma 2 and 4), with chunks that straddle a page
+# boundary and rows at short and long contexts
+K1_SPEC = {
+    "refeed_c2": dict(ctx=[127, 255, 1000, 40, 1791, 383, 2, 640] + [0] * 8, c=2,
+                      valid=[2] * 8 + [0] * 8, seed=30),
+    "verify_c3": dict(ctx=[126, 1023, 300, 1790, 5, 767, 1151, 1500] + [0] * 8, c=3,
+                      valid=[3] * 8 + [0] * 8, seed=31),
+    "verify_c5": dict(ctx=[124, 2046, 77, 509, 1277, 30, 1020, 894] + [0] * 8, c=5,
+                      valid=[5] * 7 + [2] + [0] * 8, seed=32),
+}
+DRAFT_DIMS = dict(h=32, kvh=8, d=64)     # Llama-3.2-1B's attention: the 1B draft
+
+
 def poison(torch, case):
-    """NaN where no live row may look: every slot of trash block 0, the
-    stale slots of each sequence's live page (from its chunk's first
-    position, which the chunk rides beside), the rest of the page its
-    chunk ends in, table padding pointed at block 0, and the chunk's pad
-    rows."""
+    """NaN where no live row may look: every slot of trash block 0, every
+    pool slot of a sequence at or beyond its chunk's first position (the
+    chunk rides beside the pool; in serving those slots hold rejected
+    speculation or nothing yet), table padding pointed at block 0, and the
+    chunk's pad rows."""
     bs = case["kpool"].shape[3]
     nan = float("nan")
     for pool in ("kpool", "vpool"):
         case[pool][:, :, 0] = nan
         for i, n in enumerate(case["ctx"]):
             end = n + case["valid"][i]
-            for slot in (n, end):
-                if slot // bs < case["block_tables"].shape[1]:
-                    case[pool][:, :, case["block_tables"][i, slot // bs], slot % bs:] = nan
+            for page in range(n // bs, min(-(-end // bs), case["block_tables"].shape[1])):
+                start = n % bs if page == n // bs else 0
+                case[pool][:, :, case["block_tables"][i, page], start:] = nan
     for i, n in enumerate(case["ctx"]):
         case["block_tables"][i, -(-(n + case["valid"][i]) // bs):] = 0
     for t in ("chunk_k", "chunk_v"):
@@ -429,7 +473,17 @@ def k1_check_cases(torch):
                          seed=18)),
         poison(torch, mk(torch, "nan_d80", ctx=[77, 0], c=16, valid=[16, 0], h=32, kvh=32, d=80,
                          bs=16, seed=19)),
-    ]
+    ] + k1_spec_cases(torch)
+
+
+def k1_spec_cases(torch):
+    """K1 at the speculative widths (C = 2, 3, 5) at llama3-8b's attention
+    and at the 1B draft's (D 64), with NaN parked in every pool slot at or
+    beyond each row's first chunk position (the rejected speculation a
+    step must never read), in trash block 0 and in the pad rows."""
+    return [poison(torch, make_case(torch, f"spec_{name}{tag}", **{**kw, **dims}))
+            for name, kw in K1_SPEC.items()
+            for tag, dims in (("", {}), ("_draft_d64", DRAFT_DIMS))]
 
 
 def check_k1(torch, case):
@@ -543,13 +597,21 @@ def kernel_phases(torch):
     for case in k1_check_cases(torch):
         err, routes[case["name"]] = check_k1(torch, case)
         worst = max(worst, err)
+        if case["name"].startswith("spec_"):
+            # the speculative steps replay from CUDA graphs: a replay of the
+            # case must give the eager call's bits, NaN slots and all
+            same = graph_bits(torch, lambda i, c=case: call(paged_ragged_attention, c))
+            emit("kernel_check_graph", kernel="paged_attention", case=case["name"],
+                 graph_bit_identical=same)
+            if not same:
+                fail(f"paged_attention {case['name']}: the graph replay differs from eager")
         del case
     torch.cuda.empty_cache()
 
     # timing: 8 layers of pool cycled, so a call finds its pages cold in L2
     # as each layer of a real step does
     shapes = {}
-    for name, kw in K1_MAIN.items():
+    for name, kw in list(K1_MAIN.items()) + list(K1_SPEC.items()):
         case = make_case(torch, name, layers=8, **kw)
         f32 = {k: case[k].float() for k in ("q", "kpool", "vpool", "chunk_k", "chunk_v")}
         plain_case = {**case, **f32}
@@ -559,7 +621,8 @@ def kernel_phases(torch):
         library = lambda i: library_call(torch, case, i % 8)           # noqa: E731
         row = dict(
             ms=cuda_ms(torch, kernel), graph_ms=graph_ms(torch, kernel),
-            graph_bit_identical=graph_bits(torch, kernel), route=routes[name],
+            graph_bit_identical=graph_bits(torch, kernel),
+            route=routes.get(name, routes.get(f"spec_{name}")),
             plain_ms=cuda_ms(torch, lambda i: call(
                 paged_ragged_attention_plain, plain_case, i % 8), reps=3, iters=5),
             library_ms=cuda_ms(torch, library), library_graph_ms=graph_ms(torch, library),
@@ -587,22 +650,66 @@ def kernel_phases(torch):
 
 # ------------------------------------------------------------------ main path
 
-def serve_counted(torch, eng, arrivals, **kw):
+def serve_counted(torch, eng, arrivals, time_narrow=False, trace=False, **kw):
     """One ``eng.serve(arrivals, **kw)`` with every count set to 0 before:
     the (uid, tokens) pairs in retirement order, frames and steps
-    dispatched, each request's first emission time (the host replay of a
-    frame is where a token becomes visible), seconds, and K1's launches:
-    the wrapper's (eager runs) plus the graph replays' (what each capture
-    recorded, once a replay), with the captures and their seconds."""
+    dispatched (wide and width-1 apart), each request's first emission
+    time (the host replay of a frame is where a token becomes visible),
+    seconds, and K1's launches: the wrapper's (eager runs) plus the graph
+    replays' (what each capture recorded, once a replay), with the
+    captures and their seconds. ``time_narrow`` times each width-1 frame
+    alone (a sync before it): wall and CUDA-event ms a step. ``trace``
+    runs each frame under its own torch.profiler session and adds the K1
+    kernels on the card and the device ms by kernel class. Sessions
+    dropped kernel records of graph replays near their start and end (1
+    to 195 of a frame's, or a whole step's), so each opens and closes on an
+    idle card: a sync and ``TRACE_SETTLE_S`` of waiting on both sides of
+    the frame."""
+    from torch.profiler import ProfilerActivity, profile
     from deepspeed_tpu_torch.inference.v2 import DeviceSlotTable
-    count = {"steps": 0, "frames": 0}
-    first_tok = {}
+    count = {"steps": 0, "frames": 0, "wide_steps": 0, "narrow_steps": 0}
+    first_tok, narrow, traced = {}, [], {"k1": 0, "by_class": {}, "short": []}
     dispatch, absorb = DeviceSlotTable.dispatch_frame, DeviceSlotTable.absorb
 
-    def counting_dispatch(self, runner, params, kv, width, steps, greedy):
+    def k1_launched():
+        return read_counts()["paged_attention"] + (
+            graphs.replayed.get("paged_attention", 0) if graphs is not None else 0)
+
+    def traced_dispatch(*args):
+        before = k1_launched()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_SETTLE_S)
+            out = dispatch(*args)
+            torch.cuda.synchronize()
+            time.sleep(TRACE_SETTLE_S)
+        by_class, k1 = trace_device_ms(torch, prof, _kernel_class)
+        if k1 != k1_launched() - before:
+            traced["short"].append((args[4], args[5], k1_launched() - before, k1))
+        traced["k1"] += k1
+        for cls, ms in by_class.items():
+            traced["by_class"][cls] = traced["by_class"].get(cls, 0.0) + ms
+        return out
+
+    def counting_dispatch(self, runner, params, kv, width, steps, greedy, draft=None):
         count["steps"] += steps
         count["frames"] += 1
-        return dispatch(self, runner, params, kv, width, steps, greedy)
+        count["wide_steps" if width > 1 else "narrow_steps"] += steps
+        if trace:
+            return traced_dispatch(self, runner, params, kv, width, steps, greedy, draft)
+        if width > 1 or not time_narrow:
+            return dispatch(self, runner, params, kv, width, steps, greedy, draft)
+        # a width-1 frame timed alone: host wall time to its end, and the
+        # card's time between events recorded around it
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = dispatch(self, runner, params, kv, width, steps, greedy, draft)
+        ev[1].record()
+        ev[1].synchronize()
+        narrow.append((steps, time.perf_counter() - t0, ev))
+        return out
 
     def timed_absorb(self, *a, **kw_):
         emissions, finished = absorb(self, *a, **kw_)
@@ -625,11 +732,20 @@ def serve_counted(torch, eng, arrivals, **kw):
     finally:
         DeviceSlotTable.dispatch_frame = dispatch
         DeviceSlotTable.absorb = absorb
+    narrow_steps = sum(n for n, _, _ in narrow)
     out = dict(got=got, steps=count["steps"], frames=count["frames"], first_tok=first_tok,
+               wide_steps=count["wide_steps"], narrow_steps=count["narrow_steps"],
+               narrow_step_wall_ms=(sum(w for _, w, _ in narrow) * 1e3 / narrow_steps
+                                    if narrow_steps else None),
+               narrow_step_event_ms=(sum(e[0].elapsed_time(e[1]) for _, _, e in narrow)
+                                     / narrow_steps if narrow_steps else None),
                serve_s=time.perf_counter() - t0, counts=read_counts(),
                prefill_tokens=eng.serve_counters["prefill_tokens"],
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-               captures=0, capture_s=0.0, replays=0, replayed=0)
+               captures=0, capture_s=0.0, replays=0, replayed=0,
+               k1_on_card=traced["k1"] if trace else None,
+               trace_short_frames=traced["short"] if trace else None,
+               device_ms_by_class=traced["by_class"] if trace else None)
     if graphs is not None:
         g1 = graphs.stats()
         out.update(captures=g1["captures"] - g0["captures"],
@@ -642,6 +758,7 @@ def serve_counted(torch, eng, arrivals, **kw):
 
 
 K1_KERNELS = ("paged_split", "paged_fwd_wgmma")
+TRACE_SETTLE_S = 0.5
 
 
 def device_kernel_count(torch, prof, names):
@@ -656,6 +773,31 @@ def device_kernel_count(torch, prof, names):
     return ours, every
 
 
+def main_workload(torch, vocab):
+    """The main path's requests: 8 prompts of 64 to 1500 tokens (seed 0),
+    uid 5 with an EOS id (its prompt's first token), arriving over 3 frame
+    boundaries. Returns (prompts, eos uid, eos id, arrivals(), the arrival
+    times arrivals() records by uid)."""
+    g = torch.Generator().manual_seed(0)
+    lens = [64, 1500, 333, 900, 128, 1200, 77, 640]
+    prompts = {u: torch.randint(0, vocab, (n,), generator=g).numpy()
+               for u, n in enumerate(lens)}
+    eos_uid, eos_id = 5, int(prompts[5][0])
+    schedule = {0: [0, 1, 2], 1: [3, 4, 5], 2: [6, 7]}
+    arrival_t = {}
+
+    def arrivals():
+        for k in range(3):
+            batch = []
+            for u in schedule[k]:
+                arrival_t[u] = time.perf_counter()
+                batch.append((u, prompts[u], None, None, eos_id)
+                             if u == eos_uid else (u, prompts[u]))
+            yield batch
+
+    return prompts, eos_uid, eos_id, arrivals, arrival_t
+
+
 def main_path(torch, smi):
     """Phase 5: serve 8 greedy requests through InferenceEngineV2.serve() on
     llama3-8b at full width and depth (random weights from seed 0): first
@@ -668,7 +810,8 @@ def main_path(torch, smi):
     replays launched, and in the traced run as K1 kernels on the device.
     reference_check and step_profile run before the traced run (no host
     time is taken after a trace: ``profile_modes``), a sampled serve()
-    after it, then v2_api_path, all on the same engine."""
+    after it, then v2_api_path, all on the same engine. Returns K1's
+    launches in the graph run and that run's tokens by uid."""
     from torch.profiler import ProfilerActivity, profile
 
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedInferenceEngineConfig
@@ -689,23 +832,8 @@ def main_path(torch, smi):
     eager_runner = PagedModelRunner(eng.model, BS, eng.max_blocks_per_seq, eng.device,
                                     cuda_graphs=False)
 
-    g = torch.Generator().manual_seed(0)
-    lens = [64, 1500, 333, 900, 128, 1200, 77, 640]
-    prompts = {u: torch.randint(0, cfg.vocab_size, (n,), generator=g).numpy()
-               for u, n in enumerate(lens)}
-    eos_uid, eos_id = 5, int(prompts[5][0])
-    schedule = {0: [0, 1, 2], 1: [3, 4, 5], 2: [6, 7]}
-    arrival_t = {}
-
-    def arrivals():
-        for k in range(3):
-            batch = []
-            for u in schedule[k]:
-                arrival_t[u] = time.perf_counter()
-                batch.append((u, prompts[u], None, None, eos_id)
-                             if u == eos_uid else (u, prompts[u]))
-            yield batch
-
+    prompts, eos_uid, eos_id, arrivals, arrival_t = main_workload(torch, cfg.vocab_size)
+    lens = [len(p) for p in prompts.values()]
     runs = {}
     for mode, runner in (("eager", eager_runner), ("graph_first", graph_runner),
                          ("graph", graph_runner)):
@@ -781,7 +909,7 @@ def main_path(torch, smi):
                        "serve_s": sampled["serve_s"]},
          engine_build_s=build_s, kv_blocks=eng.kv.num_blocks, card=smi)
     v2_api_path(torch, eng, eager_runner, prompts, smi)
-    return r["launches"]
+    return r["launches"], {u: t.tolist() for u, t in got.items()}
 
 
 def np_equal(a, b):
@@ -946,7 +1074,8 @@ def phi2_path(torch, smi):
 def dense_logits(torch, eng, ids):
     """Last-position logits of ``ids`` by a dense causal forward written
     out here (no pages, no kernel; f32 softmax over every earlier token),
-    with the engine's weights and dtype."""
+    with the engine's weights (int8 leaves dequantized by ``layers.dq``)
+    and dtype."""
     from deepspeed_tpu_torch.models import layers as L
     from deepspeed_tpu_torch.models.transformer import layer_slice
     cfg, p, dev = eng.model.cfg, eng.params, eng.device
@@ -960,26 +1089,26 @@ def dense_logits(torch, eng, ids):
     for li in range(cfg.num_layers):
         lp = layer_slice(p["layers"], li)
         a = L.apply_norm(lp["norm1"], x, cfg)
-        q = (a @ lp["attn"]["wq"].reshape(e, h * d)).view(1, s, h, d)
-        k = (a @ lp["attn"]["wk"].reshape(e, kvh * d)).view(1, s, kvh, d)
-        v = (a @ lp["attn"]["wv"].reshape(e, kvh * d)).view(1, s, kvh, d)
+        att = {n: L.dq(lp["attn"][n], dt) for n in ("wq", "wk", "wv", "wo")}
+        q = (a @ att["wq"].reshape(e, h * d)).view(1, s, h, d)
+        k = (a @ att["wk"].reshape(e, kvh * d)).view(1, s, kvh, d)
+        v = (a @ att["wv"].reshape(e, kvh * d)).view(1, s, kvh, d)
         q, k = L.apply_rope(q, pos, inv), L.apply_rope(k, pos, inv)
         k = k.repeat_interleave(h // kvh, dim=2)
         v = v.repeat_interleave(h // kvh, dim=2)
         sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d ** -0.5
         pr = sc.masked_fill(~causal, float("-inf")).softmax(dim=-1)
         o = torch.einsum("bhqk,bkhd->bqhd", pr.to(dt).float(), v.float()).to(dt)
-        x = x + (o.reshape(1, s, h * d) @ lp["attn"]["wo"].reshape(h * d, e))
+        x = x + (o.reshape(1, s, h * d) @ att["wo"].reshape(h * d, e))
         x = x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["norm2"], x, cfg), cfg)
     x = L.apply_norm(p["final_norm"], x, cfg)
-    return (x[0, -1] @ p["embed"]["lm_head"]).float()
+    return (x[0, -1] @ L.dq(p["embed"]["lm_head"], dt)).float()
 
 
-def reference_check(torch, eng, prompt):
-    """The paged path (the kernel, 128-token chunks reading earlier chunks
-    back from the pool) against ``dense_logits`` on one prompt: the last
-    position's logits must agree within 5% of their range (bf16 through
-    32 layers), and both must be finite."""
+def paged_logits(torch, eng, prompt):
+    """Last-position logits of ``prompt`` through the engine's paged
+    forward: 128-token chunks through ``runner.run``, each reading the
+    earlier chunks back from the pool."""
     kv, dev = eng.kv, eng.device
     n, chunk = len(prompt), eng._config.prefill_chunk_size
     ids = torch.as_tensor(prompt, dtype=torch.int32, device=dev)
@@ -997,8 +1126,17 @@ def reference_check(torch, eng, prompt):
             logits, _, _ = eng.runner.run(eng.params, cids, pos, table, valid, kv.k, kv.v)
     finally:
         kv.allocator.free(blocks)
-    paged = logits[0]
-    dense = dense_logits(torch, eng, ids.long())
+    return logits[0]
+
+
+def reference_check(torch, eng, prompt):
+    """The paged path (the kernel, 128-token chunks reading earlier chunks
+    back from the pool) against ``dense_logits`` on one prompt: the last
+    position's logits must agree within 5% of their range (bf16 through
+    32 layers), and both must be finite."""
+    paged = paged_logits(torch, eng, prompt)
+    n = len(prompt)
+    dense = dense_logits(torch, eng, torch.as_tensor(prompt, device=eng.device).long())
     err = float((paged - dense).abs().max())
     span = float(dense.max() - dense.min())
     ok = bool(torch.isfinite(paged).all() and torch.isfinite(dense).all()) \
@@ -1075,6 +1213,24 @@ def profile_modes(torch, steps, classify):
     return rows
 
 
+def step_inputs(torch, eng, starts, c, n_slots, g, owned):
+    """(ids, positions, tables, valid) on the card for one ``runner.run``
+    step: row i holds a chunk of ``c`` tokens at position ``starts[i]`` over
+    blocks it allocates (appended to ``owned``), the other slots pad rows."""
+    kv = eng.kv
+    table = torch.zeros((n_slots, eng.max_blocks_per_seq), dtype=torch.int32)
+    pos = torch.full((n_slots, c), -1, dtype=torch.int32)
+    for i, s0 in enumerate(starts):
+        blk = kv.allocator.allocate(kv.blocks_for(s0 + c + 1))
+        owned += blk
+        table[i, :len(blk)] = torch.tensor(blk, dtype=torch.int32)
+        pos[i] = torch.arange(s0, s0 + c, dtype=torch.int32)
+    valid = (pos >= 0).sum(dim=1).to(torch.int32)
+    ids = torch.randint(0, eng.model.cfg.vocab_size, (n_slots, c), generator=g,
+                        dtype=torch.int32)
+    return [t.to(eng.device) for t in (ids, pos, table, valid)]
+
+
 def step_profile(torch, eng, eager_runner, smi):
     """Where a main-path step's time goes: one decode step (16 slots, the 8
     live rows at the kernel case's contexts) and one prefill step (8 rows of
@@ -1084,24 +1240,15 @@ def step_profile(torch, eng, eager_runner, smi):
     (all four taken before any trace of this process: ``profile_modes``),
     then device time by kernel class (torch.profiler), the device's idle
     share (1 - device busy / step wall time), and K1 kernels a step."""
-    kv, dev, cfg = eng.kv, eng.device, eng.model.cfg
-    n_slots, mbw = 16, eng.max_blocks_per_seq
+    kv, cfg = eng.kv, eng.model.cfg
+    n_slots = 16
     g = torch.Generator().manual_seed(2)
     shapes = {"decode": ([99, 1999, 732, 1499, 256, 1023, 1898, 411], 1),
               "prefill": ([0, 256, 512, 768, 1024, 1280, 1536, 1792], 128)}
     owned, steps = [], {}
     try:
         for name, (starts, c) in shapes.items():
-            table = torch.zeros((n_slots, mbw), dtype=torch.int32)
-            pos = torch.full((n_slots, c), -1, dtype=torch.int32)
-            for i, s0 in enumerate(starts):
-                blk = kv.allocator.allocate(kv.blocks_for(s0 + c + 1))
-                owned += blk
-                table[i, :len(blk)] = torch.tensor(blk, dtype=torch.int32)
-                pos[i] = torch.arange(s0, s0 + c, dtype=torch.int32)
-            valid = (pos >= 0).sum(dim=1).to(torch.int32)
-            ids = torch.randint(0, cfg.vocab_size, (n_slots, c), generator=g, dtype=torch.int32)
-            args = [t.to(dev) for t in (ids, pos, table, valid)]
+            args = step_inputs(torch, eng, starts, c, n_slots, g, owned)
             for mode, runner in (("eager", eager_runner), ("graph", eng.runner)):
                 steps[name, mode] = (lambda r=runner, a=args: r.run(eng.params, *a, kv.k, kv.v))
         rows = profile_modes(torch, steps, _kernel_class)
@@ -1115,6 +1262,443 @@ def step_profile(torch, eng, eager_runner, smi):
         starts, c = shapes[name]
         emit("step_profile", step=name, mode=mode, live_rows=len(starts), slots=n_slots,
              width=c, **row, card=smi)
+
+
+# ------------------------------------------------ quantized and speculative
+
+def quant_check(torch, smi):
+    """Phase quant_check: the int8 KV page rows and the weight quantizer on
+    the card byte-identical to the same port functions on the CPU, and the
+    page movers' round trip on an int8 pool at llama3-8b's shapes.
+    Rows: random bf16 rows at llama3-8b's (KVH, D), all-zero rows, rows at
+    three magnitudes; lanes holding NaN and inf bit patterns read back 0.
+    Leaves: layer 0's ``wq`` (4096, 32, 128) and the stacked ``wk`` (32,
+    4096, 8, 128), random at the model's init scale. Movers: ``read_pages``
+    then ``scatter_pages`` into other blocks and ``copy_blocks`` give the
+    source pages byte for byte; a bf16 payload into the int8 pool raises."""
+    from deepspeed_tpu_torch.inference.v2.kv_cache import (BlockedKVCache,
+                                                           dequantize_kv_lanes,
+                                                           quantize_kv_lanes)
+    from deepspeed_tpu_torch.inference.v2.model_implementations.quantize import (
+        _quantize_leaf)
+    g = torch.Generator().manual_seed(40)
+    rows = torch.randn(64, BS, KVH, D, generator=g) * torch.tensor([1e-3, 1.0, 40.0]).repeat(
+        22)[:64, None, None, None]
+    rows[0, :5] = 0.0
+    rows = rows.to(torch.bfloat16)
+    cpu_q = quantize_kv_lanes(rows)
+    card_q = quantize_kv_lanes(rows.cuda()).cpu()
+    packed = cpu_q.clone()
+    for i, bad in enumerate((float("nan"), float("inf"), -float("inf"))):
+        packed[1, i, :, -4:] = torch.tensor([bad]).view(torch.int8)
+    deq_same = all(torch.equal(dequantize_kv_lanes(packed, dt),
+                               dequantize_kv_lanes(packed.cuda(), dt).cpu())
+                   for dt in (torch.bfloat16, torch.float32))
+    deq_zero = bool((dequantize_kv_lanes(packed.cuda(), torch.float32)[1, :3] == 0).all())
+    leaves = {}
+    for name, shape, red in (("wq_layer0", (4096, 32, 128), (0,)),
+                             ("wk_stacked", (32, 4096, 8, 128), (1,))):
+        w = (torch.randn(shape, generator=g) * 0.02).to(torch.bfloat16)
+        w[..., :1] = 0.0                        # all-zero channels: scale 0
+        cpu_l = _quantize_leaf(w, red)
+        card_l = _quantize_leaf(w.cuda(), red)
+        leaves[name] = all(torch.equal(cpu_l[k], card_l[k].cpu()) for k in ("q", "s"))
+        del w, cpu_l, card_l
+    kv = BlockedKVCache(32, KVH, D, num_blocks=9, block_size=BS, device="cuda", kv_dtype="int8")
+    for pool in (kv.k, kv.v):
+        pool.copy_(quantize_kv_lanes(torch.randn(pool.shape[:-1] + (D,), generator=g).cuda()))
+    src = kv.read_pages([3, 5, 7])
+    kv.scatter_pages(kv.k, kv.v, [2, 6, 8], *src)
+    moved = all(torch.equal(a, b) for a, b in zip(kv.read_pages([2, 6, 8]), src))
+    kv.copy_blocks(kv.k, kv.v, [2, 6], [1, 4])
+    copied = all(torch.equal(a, b) for a, b in zip(kv.read_pages([1, 4]), kv.read_pages([3, 5])))
+    try:
+        kv.scatter_pages(kv.k, kv.v, [1], *(t.to(torch.bfloat16) for t in src))
+        refused = False
+    except ValueError:
+        refused = True
+    ok = (torch.equal(cpu_q, card_q) and deq_same and deq_zero and all(leaves.values())
+          and moved and copied and refused)
+    emit("quant_check", kv_rows=list(rows.shape), kv_lanes_identical=torch.equal(cpu_q, card_q),
+         dequantize_identical=deq_same, nonfinite_lanes_read_zero=deq_zero,
+         leaves_identical=leaves, movers_round_trip=moved, copy_blocks_identical=copied,
+         mixed_dtype_scatter_refused=refused, pool_block_bytes=kv.block_bytes, card=smi)
+    if not ok:
+        fail("quant_check: the card's int8 rows, leaves or page moves differ from the CPU's")
+    del kv
+    torch.cuda.empty_cache()
+
+
+def trace_device_ms(torch, prof, classify):
+    """Device ms by kernel class over a torch.profiler trace, and the count
+    of K1 kernels in it."""
+    by_class, k1 = {}, 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        cls = classify(ev.name)
+        by_class[cls] = by_class.get(cls, 0.0) + ev.time_range.elapsed_us() / 1e3
+        k1 += any(n in ev.name for n in K1_KERNELS)
+    return by_class, k1
+
+
+def served_runs(torch, eng, eager_runner, arrivals, arrival_t, **kw):
+    """serve() eagerly (``eager_runner``), then twice from the engine's CUDA
+    graphs (the first run captures), then once more traced frame by frame.
+    Returns the runs by mode (``serve_counted``'s rows with the first
+    request's TTFT) and the traced run's device ms by class and K1 kernels
+    on the card."""
+    graph_runner, runs = eng.runner, {}
+    for mode, runner in (("eager", eager_runner), ("graph_first", graph_runner),
+                         ("graph", graph_runner)):
+        eng.runner = runner
+        try:
+            runs[mode] = serve_counted(torch, eng, arrivals(), time_narrow=mode == "graph", **kw)
+        finally:
+            eng.runner = graph_runner
+        runs[mode]["ttft_first_request_s"] = runs[mode]["first_tok"][0] - arrival_t[0]
+    runs["traced"] = serve_counted(torch, eng, arrivals(), trace=True, **kw)
+    return runs, (runs["traced"]["device_ms_by_class"], runs["traced"]["k1_on_card"])
+
+
+def same_serves(a, b):
+    return [u for u, _ in a] == [u for u, _ in b] and all(
+        np_equal(x, y) for (_, x), (_, y) in zip(a, b))
+
+
+def check_budgets(name, got, prompts, eos_uid, eos_id, vocab, budget=32):
+    """Every request completed with its full budget, or stopped at its EOS,
+    with tokens in [0, vocab)."""
+    got = dict(got)
+    if set(got) != set(prompts):
+        fail(f"{name}: completed {sorted(got)}, expected {sorted(prompts)}")
+    for uid, toks in got.items():
+        want = budget
+        if uid == eos_uid and eos_id in toks.tolist():
+            want = toks.tolist().index(eos_id) + 1
+        if len(toks) != want or not ((toks >= 0) & (toks < vocab)).all():
+            fail(f"{name}: uid {uid} emitted {len(toks)} tokens (expected {want}) or tokens "
+                 "outside [0, vocab)")
+
+
+def divergence_from(base, got):
+    """By uid: the first position where ``got``'s tokens leave ``base``'s."""
+    return {u: first_divergence(t.tolist(), base[u]) for u, t in dict(got).items() if u in base}
+
+
+def run_rows(runs, n_tok):
+    return {mode: {"serve_s": r["serve_s"], "tokens_per_s": n_tok / r["serve_s"],
+                   "ttft_first_request_s": r.get("ttft_first_request_s"), "frames": r["frames"],
+                   "wide_steps": r["wide_steps"], "narrow_steps": r["narrow_steps"],
+                   "paged_attention_launches": r["launches"],
+                   "launches_run": r["counts"]["paged_attention"],
+                   "launches_replayed": r["replayed"], "captures": r["captures"],
+                   "capture_s": r["capture_s"], "narrow_step_wall_ms": r["narrow_step_wall_ms"],
+                   "narrow_step_event_ms": r["narrow_step_event_ms"],
+                   "peak_memory_gb": r["peak_memory_gb"]}
+            for mode, r in runs.items()}
+
+
+QUANT_ENGINES = (("kv_int8", {"kv_dtype": "int8"}), ("weights_int8", {"weight_dtype": "int8"}),
+                 ("both_int8", {"weight_dtype": "int8", "kv_dtype": "int8"}))
+
+
+def serving_config(**over):
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineConfig
+    return RaggedInferenceEngineConfig(max_ragged_batch_size=16, kv_block_size=BS,
+                                       prefill_chunk_size=128, dtype="bfloat16", **over)
+
+
+def quant_serve_path(torch, smi, main_tokens):
+    """Phase quant_serve_path: llama3-8b at full width and depth (random
+    weights from seed 0, the main path's), three engines in turn: int8 KV
+    pages; int8 weights; both. Each serves the main path's 8 greedy
+    requests over 3 arrivals eagerly, from graphs (twice) and traced.
+    Gates: the same tokens and retirement order eager and from graphs;
+    every request complete and the pool drained; K1 launches layers x
+    steps on the float-KV engine and 0 on the int8-KV engines (the int8
+    pools take the gather route, JAX's own design for them), by wrapper
+    count and in the trace; the last-position logits of a 300-token prompt
+    through one paged forward within 5 % of the logit range of the dense
+    forward over the weights the engine serves (the int8 leaves
+    dequantized), and, for bf16 weights, of the bf16 dense forward; then
+    JAX's contract for int8 weights at 2 layers (``int8_weight_contract``).
+    At 32 layers of random weights int8 rounding alone moves the logits
+    beyond 5 % of the range from the bf16 forward's, so that distance is
+    reported, not gated. Reported: where each row's tokens first leave the
+    bf16 main path's (``main_tokens``), resident param bytes, block bytes
+    against bf16's, peak memory, tokens/s, TTFT, and a decode step's wall
+    and device ms by kernel class (after earlier traces: its host times
+    carry CUPTI's cost)."""
+    from types import SimpleNamespace
+
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.model_implementations import quantized_param_bytes
+    from deepspeed_tpu_torch.inference.v2.model_runner import PagedModelRunner
+    from deepspeed_tpu_torch.models import build_model
+    model = build_model("llama3-8b")
+    cfg = model.cfg
+    prompts, eos_uid, eos_id, arrivals, arrival_t = main_workload(torch, cfg.vocab_size)
+    ref_prompt = prompts[1][:300]
+    dense = None
+    bf16_block = 2 * cfg.num_layers * cfg.kv_heads * BS * cfg.dims_per_head * 2
+    for name, over in QUANT_ENGINES:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = InferenceEngineV2(model, serving_config(**over), max_seq_len=2048)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if dense is None:       # the bf16 weights of seed 0, before any is quantized
+            dense = dense_logits(torch, SimpleNamespace(model=eng.model, params=eng.params,
+                                                        device=eng.device),
+                                 torch.as_tensor(ref_prompt, device=eng.device).long())
+        eager_runner = PagedModelRunner(eng.model, BS, eng.max_blocks_per_seq, eng.device,
+                                        cuda_graphs=False)
+        runs, (by_class, on_card) = served_runs(torch, eng, eager_runner, arrivals, arrival_t,
+                                                max_new_tokens=32)
+        for mode in ("eager", "graph_first", "traced"):
+            if not same_serves(runs[mode]["got"], runs["graph"]["got"]):
+                fail(f"quant_serve_path {name}: the {mode} run's tokens or retirement order "
+                     "differ from the graph run's")
+        check_budgets(f"quant_serve_path {name}", runs["graph"]["got"], prompts, eos_uid,
+                      eos_id, cfg.vocab_size)
+        per_step = 0 if eng.kv.quantized else cfg.num_layers
+        for mode, r in runs.items():
+            if r["launches"] != per_step * r["steps"]:
+                fail(f"quant_serve_path {name} ({mode}): {r['launches']} K1 launches, "
+                     f"expected {per_step} x {r['steps']} steps")
+        if on_card != per_step * runs["traced"]["steps"]:
+            fail(f"quant_serve_path {name}: {on_card} K1 kernels on the card in the trace, "
+                 f"expected {per_step} x {runs['traced']['steps']}; frames traced short "
+                 f"(width, steps, launched, traced): {runs['traced']['trace_short_frames']}")
+        if eng.kv.free_blocks != eng.kv.num_blocks - 1 or eng.state.seqs:
+            fail(f"quant_serve_path {name}: pool did not drain")
+        paged = paged_logits(torch, eng, ref_prompt)
+        ids = torch.as_tensor(ref_prompt, device=eng.device).long()
+        own = dense_logits(torch, eng, ids) if "weight_dtype" in over else dense
+        logit_rows = {ref: logit_gap(torch, paged, want) for ref, want in
+                      (("bf16_dense", dense), ("dense_same_weights", own))}
+        # the paged path on the card against its dense form over the weights
+        # it serves, and, with bf16 weights, against the bf16 dense forward
+        within = logit_rows["dense_same_weights"]["within"] and (
+            "weight_dtype" in over or logit_rows["bf16_dense"]["within"])
+        owned = []
+        try:
+            args = step_inputs(torch, eng, [99, 1999, 732, 1499, 256, 1023, 1898, 411], 1, 16,
+                               torch.Generator().manual_seed(2), owned)
+            step = profile_modes(torch, {"decode": lambda: eng.runner.run(
+                eng.params, *args, eng.kv.k, eng.kv.v)}, _kernel_class)["decode"]
+        finally:
+            eng.kv.allocator.free(owned)
+        q_bytes, total = quantized_param_bytes(eng.params)
+        n_tok = sum(len(t) for _, t in runs["graph"]["got"])
+        emit("quant_serve_path", engine=name, model="llama3-8b", config=over,
+             layers=cfg.num_layers, requests=len(prompts), tokens=n_tok,
+             tokens_identical_graph_eager=True, k1_launches_per_step=per_step,
+             k1_kernels_on_card_traced=on_card, kv_route="gather + dequantize (JAX's int8 route)"
+             if eng.kv.quantized else "K1",
+             first_divergence_from_main_path=divergence_from(main_tokens, runs["graph"]["got"]),
+             logits=logit_rows, logits_within=within,
+             param_bytes=total, quantized_param_bytes=q_bytes,
+             param_bytes_vs_bf16=total / (2 * sum(p.numel() for p in _leaves(
+                 model.abstract_params()))),
+             block_bytes=eng.kv.block_bytes, block_bytes_vs_bf16=eng.kv.block_bytes / bf16_block,
+             by_mode=run_rows(runs, n_tok), traced_device_ms_by_class=by_class,
+             decode_step=step, engine_build_s=build_s, card=smi)
+        if not within:
+            fail(f"quant_serve_path {name}: paged logits beyond 5 % of the range: {logit_rows}")
+        del eng, eager_runner, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    int8_weight_contract(torch, ref_prompt, smi)
+
+
+def logit_gap(torch, got, want):
+    """``got``'s largest distance from ``want``, against 5 % of ``want``'s
+    range; both must be finite."""
+    err = float((got - want).abs().max())
+    span = float(want.max() - want.min())
+    return {"max_abs_err": err, "range": span, "tolerance": 0.05 * span,
+            "within": bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+            and err <= 0.05 * span, "argmax": int(got.argmax()), "ref_argmax": int(want.argmax())}
+
+
+def int8_weight_contract(torch, prompt, smi):
+    """JAX's contract for int8 weights (``tests/test_quantized_serving.py``:
+    one forward's logits within 5 % of the float forward's, on its
+    2-layer ``tiny``), at llama3-8b's widths and 2 layers: the dense
+    forward over int8 weights against the dense forward over bf16 weights
+    (random, seed 0). At 32 layers of random weights int8 rounding moves
+    the logits further (``quant_serve_path`` reports it)."""
+    from types import SimpleNamespace
+
+    from deepspeed_tpu_torch.inference.v2.model_implementations import quantize_params
+    from deepspeed_tpu_torch.models import build_model
+    model = build_model("llama3-8b", num_layers=2)
+    dev = torch.device("cuda")
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev,
+                        dtype=model.cfg.act_dtype)
+    ids = torch.as_tensor(prompt, device=dev).long()
+    bf16 = dense_logits(torch, SimpleNamespace(model=model, params=params, device=dev), ids)
+    quantized, _ = quantize_params(params, model.logical_axes())
+    int8 = dense_logits(torch, SimpleNamespace(model=model, params=quantized, device=dev), ids)
+    gap = logit_gap(torch, int8, bf16)
+    emit("int8_weight_contract", model="llama3-8b widths, 2 layers", prompt_tokens=len(prompt),
+         **gap, card=smi)
+    if not gap["within"]:
+        fail(f"int8_weight_contract: int8-weight logits {gap['max_abs_err']} from bf16's, "
+             f"> 5% of {gap['range']}")
+    del params, quantized
+    torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def draft_1b_config():
+    """Llama-3.2-1B's published widths (hidden 2048, 16 layers, 32 heads
+    over 8 kv heads, head dim 64, FFN 8192, vocab 128256, tied embeddings,
+    rope theta 500000, 131072 positions); its llama3 rope scaling is left
+    out (the one reduction)."""
+    from deepspeed_tpu_torch.models.config import get_config
+    return get_config("llama3-8b").replace(
+        hidden_size=2048, num_layers=16, num_heads=32, num_kv_heads=8,
+        intermediate_size=8192, tie_embeddings=True, rope_theta=500000.0,
+        max_seq_len=131072)
+
+
+def spec_path(torch, smi, main_tokens):
+    """Phase spec_path: the llama3-8b target serves the main path's 8
+    greedy requests over 3 arrivals with gamma 2, first without a draft
+    (graph runs: the baseline), then with (a) a self-draft (its own
+    params) and (b) a draft at Llama-3.2-1B's widths (random weights from
+    seed 1, so nearly every proposal is rejected), each eagerly, from
+    graphs and traced; then ``generate_compiled(speculate=True)`` on (a)
+    eagerly and from graphs, and a sampled serve on (a) (eager by rule).
+    Gates: the same tokens eager and from graphs; every request at its
+    budget or its EOS; both pools drained; accepted <= drafted = gamma x
+    verify row-steps; K1 launches = target layers x (wide + verify steps)
+    + draft layers x (wide + gamma x verify steps), by wrapper count and in
+    the trace; sampled rows complete. Reported: acceptance, tokens per
+    target forward, tokens/s, the verify step's wall and event ms beside
+    the baseline's decode step, and where each row first leaves the
+    baseline's tokens."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.model_runner import PagedModelRunner
+    from deepspeed_tpu_torch.models import build_model
+    gamma = 2
+    model = build_model("llama3-8b")
+    cfg = model.cfg
+    prompts, eos_uid, eos_id, arrivals, arrival_t = main_workload(torch, cfg.vocab_size)
+    eng = InferenceEngineV2(model, serving_config(speculate_gamma=gamma), max_seq_len=2048)
+    eager_runner = PagedModelRunner(eng.model, BS, eng.max_blocks_per_seq, eng.device,
+                                    cuda_graphs=False)
+    base = {}
+    for mode in ("graph_first", "graph"):
+        base[mode] = serve_counted(torch, eng, arrivals(), time_narrow=mode == "graph",
+                                   max_new_tokens=32)
+    if not same_serves(base["graph_first"]["got"], base["graph"]["got"]):
+        fail("spec_path: the baseline's two graph runs differ")
+    base_toks = {u: t.tolist() for u, t in base["graph"]["got"]}
+    n_base = sum(len(t) for t in base_toks.values())
+    total_launches = 0
+    for draft_name in ("self", "llama-3.2-1b"):
+        if draft_name == "self":
+            eng.attach_draft(eng.model, eng.params)
+        else:
+            eng.attach_draft(build_model(draft_1b_config()))
+        dcfg = eng.draft_model.cfg
+        runs, (by_class, on_card) = served_runs(torch, eng, eager_runner, arrivals, arrival_t,
+                                                max_new_tokens=32, gamma=gamma)
+        for mode in ("eager", "graph_first", "traced"):
+            if not same_serves(runs[mode]["got"], runs["graph"]["got"]):
+                fail(f"spec_path {draft_name}: the {mode} run's tokens or retirement order "
+                     "differ from the graph run's")
+        check_budgets(f"spec_path {draft_name}", runs["graph"]["got"], prompts, eos_uid,
+                      eos_id, cfg.vocab_size)
+        counters = dict(eng.serve_counters)
+        for mode, r in runs.items():
+            want = (cfg.num_layers * (r["wide_steps"] + r["narrow_steps"])
+                    + dcfg.num_layers * (r["wide_steps"] + gamma * r["narrow_steps"]))
+            if r["launches"] != want:
+                fail(f"spec_path {draft_name} ({mode}): {r['launches']} K1 launches, expected "
+                     f"{want} ({r['wide_steps']} wide, {r['narrow_steps']} verify steps)")
+        tr = runs["traced"]
+        if on_card != tr["launches"]:
+            fail(f"spec_path {draft_name}: {on_card} K1 kernels on the card in the trace, "
+                 f"expected {tr['launches']}; frames traced short ((width, steps, "
+                 f"launched, traced): {tr['trace_short_frames']}")
+        drafted, accepted = counters["drafted_tokens"], counters["accepted_draft_tokens"]
+        verify = counters["target_forwards"]
+        if drafted != gamma * verify or accepted > drafted:
+            fail(f"spec_path {draft_name}: drafted {drafted}, accepted {accepted}, "
+                 f"verify row-steps {verify}")
+        if (eng.kv.free_blocks != eng.kv.num_blocks - 1 or eng.state.seqs
+                or eng.draft_kv.allocator.free_blocks != eng.draft_kv.num_blocks):
+            fail(f"spec_path {draft_name}: a pool did not drain")
+        total_launches += runs["graph"]["launches"]
+        n_tok = sum(len(t) for _, t in runs["graph"]["got"])
+        extra = {}
+        if draft_name == "self":
+            extra = spec_calls(torch, eng, eager_runner, prompts, gamma, main_tokens)
+        emit("spec_path", draft=draft_name, model="llama3-8b", gamma=gamma,
+             draft_config={"layers": dcfg.num_layers, "hidden": dcfg.hidden_size,
+                           "heads": dcfg.num_heads, "kv_heads": dcfg.kv_heads,
+                           "head_dim": dcfg.dims_per_head, "ffn": dcfg.ffn_size,
+                           "vocab": dcfg.vocab_size, "tied": dcfg.tie_embeddings},
+             tokens=n_tok, tokens_identical_graph_eager=True, serve_counters=counters,
+             acceptance_rate=accepted / drafted if drafted else None,
+             tokens_per_target_forward=(verify + accepted) / verify if verify else None,
+             k1_kernels_on_card_traced=on_card,
+             first_divergence_from_nonspec=divergence_from(base_toks, runs["graph"]["got"]),
+             by_mode=run_rows(runs, n_tok), traced_device_ms_by_class=by_class,
+             traced_device_ms_a_step=sum(by_class.values()) / tr["steps"],
+             trace_short_frames=tr["trace_short_frames"],
+             nonspec_graph=run_rows({"graph": base["graph"]}, n_base)["graph"],
+             draft_pool_block_bytes=eng.draft_kv.block_bytes, **extra, card=smi)
+        del runs
+    del eng, eager_runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total_launches
+
+
+def spec_calls(torch, eng, eager_runner, prompts, gamma, main_tokens):
+    """``generate_compiled(speculate=True)`` on the 8 prompts (32 new
+    tokens) eagerly and from graphs (the same tokens), then a sampled
+    serve() of two rows (temperature 0.8, 8 tokens; its steps run eagerly
+    by rule): every row at its budget, no capture."""
+    uids = sorted(prompts)
+    outs, rows = {}, {}
+    graph_runner = eng.runner
+    for mode, runner in (("eager", eager_runner), ("graph", graph_runner)):
+        eng.runner = runner
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[mode] = [t.tolist() for t in eng.generate_compiled(
+                [prompts[u] for u in uids], max_new_tokens=32, speculate=True, gamma=gamma)]
+            rows[mode] = {"s": time.perf_counter() - t0}
+        finally:
+            eng.runner = graph_runner
+        rows[mode]["tokens_per_s"] = sum(len(t) for t in outs[mode]) / rows[mode]["s"]
+    if outs["eager"] != outs["graph"] or any(len(t) != 32 for t in outs["graph"]):
+        fail("spec_path: generate_compiled(speculate=True) differs eager and from graphs, or "
+             "a row fell short of 32 tokens")
+    sampled = serve_counted(torch, eng, iter([[(0, prompts[0], 8, 0.8), (6, prompts[6], 8, 0.8)]]),
+                            max_new_tokens=8, gamma=gamma, rng=1)
+    if sampled["captures"] or sorted(len(t) for _, t in sampled["got"]) != [8, 8]:
+        fail(f"spec_path: sampled serve() made {sampled['captures']} captures, tokens "
+             f"{[len(t) for _, t in sampled['got']]}")
+    return {"generate_compiled": rows, "generate_compiled_equal_eager_graph": True,
+            "generate_compiled_vs_nonspec_main_path": {
+                u: first_divergence(t, main_tokens[u]) for u, t in zip(uids, outs["graph"])
+                if u in main_tokens},
+            "sampled_run": {"steps": sampled["steps"], "captures": sampled["captures"],
+                            "serve_s": sampled["serve_s"], "tokens": [len(t) for _, t in
+                                                                      sampled["got"]]}}
 
 
 # ------------------------------------------------------------ training slice
@@ -3631,9 +4215,12 @@ def main():
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     entry = kernel_phases(torch)
-    entry["launches"] = main_path(torch, smi)
+    entry["launches"], main_tokens = main_path(torch, smi)
     gc.collect()                  # the serving engine is gone: its pools go back
     torch.cuda.empty_cache()
+    quant_check(torch, smi)
+    quant_serve_path(torch, smi, main_tokens)
+    entry["launches_spec_path"] = spec_path(torch, smi, main_tokens)
     phi2_path(torch, smi)
     entries = train_phases(torch, smi)
     gc.collect()

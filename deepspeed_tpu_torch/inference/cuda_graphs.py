@@ -3,13 +3,18 @@
 The JAX package compiles each serving and decode program once per shape
 bucket: ``jax.jit`` over a ``lax.scan`` with the state donated
 (``deepspeed_tpu/inference/v2/model_runner.py`` ``run``, ``decode_loop``,
-``mixed_loop``, ``frame_loop``; ``deepspeed_tpu/inference/engine.py``
-``generate``). The port writes each program's step over static buffers that
-the step updates in place, captures it once per key into a
+``mixed_loop``, ``frame_loop``, ``frame_loop_spec``, ``mixed_loop_spec``;
+``deepspeed_tpu/inference/engine.py`` ``generate``). The port writes each
+program's step over static buffers that the step updates in place,
+captures it once per key into a
 ``torch.cuda.CUDAGraph`` and replays it: a loop of ``steps`` steps is
 ``steps`` replays of one graph. A key is the jit's static shape arguments
 without the step count, so the captures follow the power-of-two buckets
-that bound JAX's recompiles, and every graph draws on one memory pool.
+that bound JAX's recompiles, and every graph draws on one memory pool. A
+speculative step's key adds gamma and the draft runner's tag; its graph
+holds the draft's forwards and the target's verify, and reads the draft's
+weights and pools too (``bind``), which a draft re-attach drops
+(``evict``).
 
 The first call of a key runs its step eagerly on the capture stream: that
 is the call's real step, and it loads the kernel libraries and makes K1's
@@ -67,11 +72,24 @@ class StepGraphs:
     def bind(self, *objs) -> None:
         """A graph reads the weights and pools it was captured over: a call
         over other objects drops every graph. The bound objects are held, so
-        no graph outlives what it reads."""
-        if self._binding is None or len(objs) != len(self._binding) or any(
-                a is not b for a, b in zip(objs, self._binding)):
+        no graph outlives what it reads. A call over a prefix of the bound
+        objects keeps them (a plain step of an engine whose speculative
+        steps also read the draft's weights and pools), and a call that
+        extends them keeps its graphs and holds the longer list."""
+        held = self._binding
+        n = 0 if held is None else min(len(objs), len(held))
+        if held is None or any(a is not b for a, b in zip(objs[:n], held[:n])):
             self.reset()
             self._binding = objs
+        elif len(objs) > len(held):
+            self._binding = objs
+
+    def evict(self, *programs) -> None:
+        """Drop the graphs of the given programs (the first entry of a key),
+        e.g. the speculative steps on a draft re-attach, as JAX's
+        ``PagedModelRunner.evict`` drops their compiled programs."""
+        for key in [k for k in self._graphs if k[0] in programs]:
+            del self._graphs[key]
 
     def reset(self) -> None:
         """Drop every graph and the objects they were bound to."""
@@ -130,12 +148,14 @@ class StepGraphs:
 
 class StepRows:
     """Per-step outputs of a loop over one captured step: each step writes
-    its (B,) values as row ``at`` of (OUT_ROWS, B) buffers and advances the
-    device counter ``at``; ``loop`` runs the steps in runs of OUT_ROWS and
-    copies the rows out."""
+    its row of values (shape ``row``: (B,), or (B, gamma + 1) for a
+    speculative step) as row ``at`` of (OUT_ROWS, *row) buffers and
+    advances the device counter ``at``; ``loop`` runs the steps in runs of
+    OUT_ROWS and copies the rows out."""
 
-    def __init__(self, b: int, dtypes, device):
-        self.bufs = [torch.zeros((OUT_ROWS, b), dtype=dt, device=device) for dt in dtypes]
+    def __init__(self, row, dtypes, device):
+        row = (row,) if isinstance(row, int) else tuple(row)
+        self.bufs = [torch.zeros((OUT_ROWS,) + row, dtype=dt, device=device) for dt in dtypes]
         self.at = torch.zeros((1,), dtype=torch.long, device=device)
 
     def write(self, *vals) -> None:
@@ -144,8 +164,8 @@ class StepRows:
         self.at.add_(1)
 
     def loop(self, steps: int, step):
-        """Call ``step()`` ``steps`` times; returns one (steps, B) tensor per
-        buffer."""
+        """Call ``step()`` ``steps`` times; returns one (steps, *row) tensor
+        per buffer."""
         outs = [torch.empty((steps,) + tuple(buf.shape[1:]), dtype=buf.dtype,
                             device=buf.device) for buf in self.bufs]
         for s0 in range(0, steps, OUT_ROWS):

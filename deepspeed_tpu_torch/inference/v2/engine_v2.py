@@ -1,21 +1,25 @@
 """Continuous-batching inference engine (FastGen analog).
 
-Mirrors ``deepspeed_tpu/inference/v2/engine_v2.py`` for the single-device,
-float-KV paths: the step API (``put``, ``step``, ``query``, ``flush``,
+Mirrors ``deepspeed_tpu/inference/v2/engine_v2.py`` for the single-device
+paths: the step API (``put``, ``step``, ``query``, ``flush``,
 ``can_schedule``), ``generate`` (SplitFuse prefill through ``step``, then
-one ``decode_loop``), ``generate_compiled`` (one ``mixed_loop``) and the
-FIFO ``serve()``, over paged KV (``kv_cache.py``), sequence tracking
-(``ragged_manager.py``) and the runner's programs (``model_runner.py``). On
-the card every program runs from CUDA graphs, one captured step a shape
+one ``decode_loop``), ``generate_compiled`` (one ``mixed_loop``, or
+``mixed_loop_spec`` with a draft) and the FIFO ``serve()``, over paged KV
+(``kv_cache.py``), sequence tracking (``ragged_manager.py``) and the
+runner's programs (``model_runner.py``). Quantized serving: int8 weight
+leaves (``weight_dtype="int8"``, ``model_implementations/quantize.py``)
+and int8 KV pages (``kv_dtype="int8"``). Speculative decoding:
+``attach_draft`` gives a draft model its own pools over the target's block
+tables, and ``serve()`` / ``generate_compiled()`` run draft/verify steps.
+On the card every program runs from CUDA graphs, one captured step a shape
 key, unless the engine is built with ``cuda_graphs=False``; sampled steps
 run eagerly (``model_runner.py``). ``RaggedInferenceEngineConfig`` keeps
 every field and default of the JAX config; the fields of paths not ported
-yet (tensor parallelism, the KV hierarchy, quantized weights/KV,
-disaggregated roles, the repair policy) raise ``NotImplementedError`` when
-set, as do ``serve(scheduler=, faults=, resume_from=, speculate=True,
-yield_boundaries=True)``, dict arrivals, ``generate_compiled(speculate=
-True)``, ``serve_stats`` and ``cancel_request`` (ROADMAP.md lists them).
-The telemetry, trace, retry and watchdog fields are accepted and not acted
+yet (tensor parallelism, the KV hierarchy, disaggregated roles, the repair
+policy) raise ``NotImplementedError`` when set, as do ``serve(scheduler=,
+faults=, resume_from=, yield_boundaries=True)``, dict arrivals,
+``serve_stats`` and ``cancel_request`` (ROADMAP.md lists them). The
+telemetry, trace, retry and watchdog fields are accepted and not acted
 on: ``ServingTelemetry`` and the fault machinery are not ported yet.
 """
 
@@ -29,8 +33,10 @@ import torch
 
 from ...accelerator import get_device
 from ...models.transformer import CausalLM, build_model
+from ...module_inject import as_inference_model
 from ..sampling import sample_logits
 from .kv_cache import BlockedKVCache
+from .model_implementations.quantize import quantize_params
 from .model_runner import PagedModelRunner
 from .ragged_manager import DeviceSlotTable, DSStateManager
 from .telemetry import STAT_NAMES
@@ -85,11 +91,19 @@ class RaggedInferenceEngineConfig:
     kv_dtype: Optional[str] = None
 
 
-def _check_ported(c: RaggedInferenceEngineConfig) -> None:
+def _check_config(c: RaggedInferenceEngineConfig) -> None:
+    """JAX's checks of the quantized-serving fields, with its messages,
+    then the fields of paths not ported yet."""
+    if c.weight_dtype not in (None, "int8"):
+        raise ValueError(f"weight_dtype={c.weight_dtype!r}: expected None or 'int8'")
+    if c.kv_dtype not in (None, "int8"):
+        raise ValueError(f"kv_dtype={c.kv_dtype!r}: expected None or 'int8'")
+    if c.tp_collective_payload not in ("int8", "fp8"):
+        raise ValueError(f"tp_collective_payload={c.tp_collective_payload!r}: "
+                         "expected 'int8' or 'fp8'")
     unported = {
         "tp": c.tp > 1, "prefix_cache": c.prefix_cache,
-        "kv_swap_dir": bool(c.kv_swap_dir), "kv_dtype": c.kv_dtype is not None,
-        "weight_dtype": c.weight_dtype is not None,
+        "kv_swap_dir": bool(c.kv_swap_dir),
         "role": c.role != "unified",
         "nonfinite_policy": c.nonfinite_policy != "quarantine",
     }
@@ -102,17 +116,19 @@ def _check_ported(c: RaggedInferenceEngineConfig) -> None:
 class InferenceEngineV2:
     def __init__(self, model, config: Optional[RaggedInferenceEngineConfig] = None,
                  params=None, max_seq_len: Optional[int] = None, device=None,
-                 cuda_graphs=None):
+                 cuda_graphs=None, draft_model=None, draft_params=None):
         """``model``: a ``CausalLM`` (or a preset name / config for
         ``build_model``); ``params``: a params dict (random weights from
-        seed 0 when omitted, stored in the serving dtype); ``device``:
-        where the engine runs — the current CUDA device by default, which
-        raises when there is no GPU; ``cuda_graphs``: the runner's (None:
-        graphs on the card, the functional loops on the CPU; False: eager
-        on the card too)."""
+        seed 0 when omitted, stored in the serving dtype), float or with
+        int8 leaves from ``quantize_params``; ``device``: where the engine
+        runs — the current CUDA device by default, which raises when there
+        is no GPU; ``cuda_graphs``: the runner's (None: graphs on the card,
+        the functional loops on the CPU; False: eager on the card too);
+        ``draft_model`` / ``draft_params``: attach a draft at once
+        (``attach_draft``)."""
         self._config = config or RaggedInferenceEngineConfig()
         c = self._config
-        _check_ported(c)
+        _check_config(c)
         self.device = get_device(device)
         self.model = model if isinstance(model, CausalLM) else build_model(model)
         if self.model.cfg.dtype != c.dtype:
@@ -124,6 +140,11 @@ class InferenceEngineV2:
             self.params = self.model.init(gen, device=self.device, dtype=cfg.act_dtype)
         else:
             self.params = _to_device(params, self.device)
+        if c.weight_dtype and not _is_quantized(self.params):
+            # the engine owns this tree: each float leaf goes as soon as its
+            # int8 form replaces it
+            self.params, _ = quantize_params(self.params, self.model.logical_axes(),
+                                             weight_dtype=c.weight_dtype, inplace=True)
 
         bs = c.kv_block_size
         max_blocks_per_seq = (self.max_seq_len + bs - 1) // bs
@@ -134,7 +155,8 @@ class InferenceEngineV2:
         num_blocks = c.num_kv_blocks or (conc * per_seq + 1)
         self.kv = BlockedKVCache(cfg.num_layers, cfg.kv_heads, cfg.dims_per_head,
                                  num_blocks=num_blocks, block_size=bs,
-                                 dtype=cfg.act_dtype, device=self.device)
+                                 dtype=cfg.act_dtype, device=self.device,
+                                 kv_dtype=c.kv_dtype)
         # block 0 is the trash block for padded writes: never allocate it
         self.kv.reserve_trash_block()
         self.state = DSStateManager(self.kv, c.max_tracked_sequences)
@@ -149,8 +171,88 @@ class InferenceEngineV2:
         self.fault_log: collections.deque = collections.deque(maxlen=c.fault_log_max)
         # the in-frame counters of the last serve() run, by STAT_NAMES
         self.serve_counters: Dict[str, int] = {}
+        self.draft_model = self.draft_params = self.draft_runner = self.draft_kv = None
+        if draft_model is not None:
+            self.attach_draft(draft_model, draft_params)
         logger.info(f"InferenceEngineV2: blocks={num_blocks}x{bs} "
                     f"chunk={c.prefill_chunk_size} device={self.device}")
+
+    def attach_draft(self, draft_model, draft_params=None) -> None:
+        """Attach a small draft model for speculative decoding (JAX
+        ``attach_draft`` without its tp branch). ``draft_model``: a port
+        ``CausalLM``, a preset name or a config. The draft gets its OWN
+        paged pools with the target's block count, block size and
+        ``kv_dtype``, addressed by the SAME per-slot block tables, so
+        admission reserves blocks once for both. ``draft_params=None`` draws
+        fresh weights from seed 1; pass the target's params for a self-draft
+        (the 100 %-acceptance bound). The draft is quantized under the
+        target's ``weight_dtype``. A re-attach drops the speculative graphs
+        captured over the previous draft."""
+        c = self._config
+        self.draft_model, converted = as_inference_model(draft_model, None)
+        if draft_params is not None:
+            converted = draft_params
+        if self.draft_model.cfg.dtype != c.dtype:
+            self.draft_model.cfg = self.draft_model.cfg.replace(dtype=c.dtype)
+        dcfg = self.draft_model.cfg
+        if dcfg.vocab_size != self.model.cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab_size={dcfg.vocab_size} must match the target's "
+                f"{self.model.cfg.vocab_size} — verification compares token "
+                "ids and distributions position-wise")
+        if c.prefill_chunk_size < 2:
+            raise ValueError(
+                "speculative serving needs prefill_chunk_size >= 2: width-1 "
+                "frames are reinterpreted as draft/verify steps")
+        if dcfg.max_seq_len < self.max_seq_len:
+            if dcfg.position == "learned":
+                raise ValueError(
+                    f"draft max_seq_len={dcfg.max_seq_len} < engine serving "
+                    f"length {self.max_seq_len}: the draft's learned position "
+                    "table cannot cover the contexts it must draft for")
+            logger.warning(
+                f"draft max_seq_len={dcfg.max_seq_len} < engine serving "
+                f"length {self.max_seq_len}; proposals beyond the draft's "
+                "trained context will likely be rejected (throughput, not "
+                "correctness, degrades)")
+        if converted is None:
+            gen = torch.Generator(device=self.device).manual_seed(1)
+            self.draft_params = self.draft_model.init(gen, device=self.device,
+                                                      dtype=dcfg.act_dtype)
+        else:
+            self.draft_params = _to_device(converted, self.device)
+        if c.weight_dtype and not _is_quantized(self.draft_params):
+            # a self-draft shares the target's float leaves: quantize a
+            # copy of the tree, never the caller's
+            self.draft_params, _ = quantize_params(
+                self.draft_params, self.draft_model.logical_axes(),
+                weight_dtype=c.weight_dtype, inplace=converted is None)
+        self.draft_kv = BlockedKVCache(dcfg.num_layers, dcfg.kv_heads, dcfg.dims_per_head,
+                                       num_blocks=self.kv.num_blocks,
+                                       block_size=c.kv_block_size, dtype=dcfg.act_dtype,
+                                       device=self.device, kv_dtype=c.kv_dtype)
+        # the draft's forward runs inside the target runner's programs; its
+        # own runner captures nothing
+        self.draft_runner = PagedModelRunner(self.draft_model, c.kv_block_size,
+                                             self.max_blocks_per_seq, self.device,
+                                             cuda_graphs=False)
+        if self.runner.graphs is not None:
+            self.runner.graphs.evict("spec_frame", "spec_mixed")
+        logger.info(f"InferenceEngineV2: draft attached (layers={dcfg.num_layers} "
+                    f"gamma={c.speculate_gamma})")
+
+    def _speculation(self, speculate, gamma, hint="") -> Tuple[bool, int]:
+        """(speculate, gamma) of a serve() or generate_compiled() call, with
+        JAX's checks and messages: speculation is on by default with a draft
+        attached."""
+        if speculate is None:
+            speculate = self.draft_model is not None
+        if speculate and self.draft_model is None:
+            raise ValueError("speculate=True but no draft model is attached" + hint)
+        gamma = int(gamma if gamma is not None else self._config.speculate_gamma)
+        if speculate and gamma < 1:
+            raise ValueError(f"speculate needs gamma >= 1, got {gamma}")
+        return bool(speculate), gamma
 
     # ------------------------------------------------------------------
     # admission control, ingest and the Dynamic SplitFuse step
@@ -364,12 +466,11 @@ class InferenceEngineV2:
         """SplitFuse generation as ONE program (``mixed_loop``): chunked
         prefill, staggered prefill-to-decode transitions and decode, with no
         host round-trip between steps. Same outputs as ``generate`` for
-        static workloads. ``speculate`` (and ``gamma``, its draft length) is
-        not ported, nor is attaching a draft: ROADMAP.md section A, item 9."""
-        if speculate:
-            raise NotImplementedError("generate_compiled(speculate=True): speculative "
-                                      "decoding is not ported to deepspeed_tpu_torch yet "
-                                      "(ROADMAP.md section A, item 9)")
+        static workloads. With a draft attached (or ``speculate=True``) the
+        narrow steps are draft/verify steps (``mixed_loop_spec``, ``gamma``
+        drafts a step): the same greedy outputs, fewer target forwards per
+        token."""
+        speculate, gamma = self._speculation(speculate, gamma)
         c = self._config
         uids = list(range(len(prompts)))
         self.put(uids, prompts)
@@ -384,17 +485,28 @@ class InferenceEngineV2:
         for i, s in enumerate(seqs):
             prompts_p[i, :plens[i]] = s.pending
         chunk = c.prefill_chunk_size
-        toks, emit, self.kv.k, self.kv.v = self.runner.mixed_loop(
-            self.params, self._tensor(prompts_p), self._tensor(plens),
-            self._tensor(np.full((b,), max_new_tokens, np.int32)), self.kv.k, self.kv.v,
-            self._tensor(self._block_tables(seqs)), self._sample_rng, temperature,
-            chunk=chunk, wide_steps=-(-pmax // chunk),
-            narrow_steps=max(0, max_new_tokens - 1), greedy=temperature == 0.0)
+        args = (self._tensor(prompts_p), self._tensor(plens),
+                self._tensor(np.full((b,), max_new_tokens, np.int32)))
+        loop = dict(chunk=chunk, wide_steps=-(-pmax // chunk),
+                    narrow_steps=max(0, max_new_tokens - 1), greedy=temperature == 0.0)
+        tables = self._tensor(self._block_tables(seqs))
+        if speculate:
+            (toks, emit, self.kv.k, self.kv.v, self.draft_kv.k,
+             self.draft_kv.v) = self.runner.mixed_loop_spec(
+                self.draft_runner, self.params, self.draft_params, *args, self.kv.k,
+                self.kv.v, self.draft_kv.k, self.draft_kv.v, tables, self._sample_rng,
+                temperature, gamma=gamma, **loop)
+        else:
+            toks, emit, self.kv.k, self.kv.v = self.runner.mixed_loop(
+                self.params, *args, self.kv.k, self.kv.v, tables, self._sample_rng,
+                temperature, **loop)
         toks = toks.cpu().numpy()
         emit = emit.cpu().numpy()
         outs = []
         for i, s in enumerate(seqs):
-            g = [int(t) for t, e in zip(toks[:, i], emit[:, i]) if e][:max_new_tokens]
+            # speculative emissions are (steps, gamma + 1) a row: read in order
+            g = [int(t) for t, e in zip(toks[:, i].reshape(-1), emit[:, i].reshape(-1))
+                 if e][:max_new_tokens]
             if eos_token_id is not None and eos_token_id in g:
                 g = g[: g.index(eos_token_id) + 1]
             s.pending = []
@@ -427,8 +539,9 @@ class InferenceEngineV2:
               temperature: float = 0.0, eos_token_id: Optional[int] = None,
               frame_steps: Optional[int] = None,
               frame_slots: Optional[int] = None,
-              speculate: Optional[bool] = None, rng=None, scheduler=None,
-              faults=None, resume_from=None, yield_boundaries: bool = False):
+              speculate: Optional[bool] = None, gamma: Optional[int] = None,
+              rng=None, scheduler=None, faults=None, resume_from=None,
+              yield_boundaries: bool = False):
         """Continuous batching with dynamic arrivals.
 
         Generator: yields ``(uid, generated_tokens)`` as sequences finish.
@@ -443,14 +556,20 @@ class InferenceEngineV2:
         the pool can't hold, FIFO), retire finished rows (EOS is detected
         in-frame; the host replays the emit mask), and grow the pow2 shape
         buckets. ``rng`` (an int seed or a ``torch.Generator`` on the
-        engine's device) makes sampled rows reproducible.
+        engine's device) makes sampled rows reproducible. With a draft
+        attached (or ``speculate=True``) the width-1 frames are draft/verify
+        frames of ``gamma`` drafts a step (default
+        ``config.speculate_gamma``); greedy rows give the tokens of plain
+        decoding.
         """
         unported = {"scheduler": scheduler is not None, "faults": faults is not None,
                     "resume_from": resume_from is not None,
-                    "speculate": bool(speculate), "yield_boundaries": yield_boundaries}
+                    "yield_boundaries": yield_boundaries}
         for name, on in unported.items():
             if on:
                 raise NotImplementedError(f"serve({name}=...): {_ROADMAP}")
+        speculate, gamma = self._speculation(
+            speculate, gamma, " (pass draft_model= at construction or call attach_draft())")
         c = self._config
         steps = frame_steps or c.frame_steps
         adaptive = c.adaptive_frame_steps and frame_steps is None
@@ -464,16 +583,18 @@ class InferenceEngineV2:
         slots = DeviceSlotTable(n_slots, prompt_width=c.prefill_chunk_size,
                                 table_width=1, rng=frame_rng, device=self.device)
         self.serve_counters = dict.fromkeys(STAT_NAMES, 0)
+        draft = ((self.draft_runner, self.draft_params, self.draft_kv, gamma)
+                 if speculate else None)
         return self._serve_guarded(slots, iter(arrivals), steps, max_new_tokens,
-                                   temperature, eos_token_id, adaptive)
+                                   temperature, eos_token_id, adaptive, draft)
 
     def _serve_guarded(self, slots, arrivals, steps, max_new_tokens,
-                       temperature, eos_token_id, adaptive):
+                       temperature, eos_token_id, adaptive, draft):
         pending = collections.deque()
         try:
             yield from self._serve_loop(slots, arrivals, pending, steps,
                                         max_new_tokens, temperature,
-                                        eos_token_id, adaptive)
+                                        eos_token_id, adaptive, draft)
         finally:
             # abandonment (break / close() / error) must not strand state:
             # release every slot-held and every deferred sequence
@@ -535,7 +656,7 @@ class InferenceEngineV2:
                            "non-finite logits")
 
     def _serve_loop(self, slots, arrivals, pending, steps, max_new_tokens,
-                    temperature, eos_token_id, adaptive):
+                    temperature, eos_token_id, adaptive, draft):
         c = self._config
         alpha = c.frame_steps_ewma_alpha
         ewma = 0.0
@@ -587,14 +708,15 @@ class InferenceEngineV2:
                 if exhausted and not pending:
                     return
                 continue         # arrival gap: poll again
-            # ---- frame plan: wide while any slot prefills, else decode ----
+            # ---- frame plan: wide while any slot prefills, else decode
+            # (the draft/verify frames when a draft rides) ----
             width = c.prefill_chunk_size if slots.any_prefilling() else 1
             cur_steps = steps
             if adaptive:
                 cur_steps = self._pick_frame_steps(ewma, steps, slots.free_slots() == 0)
             toks, emit, nonfinite, stats = slots.run_frame(
                 self.runner, self.params, self.kv, width, cur_steps,
-                slots.all_greedy())
+                slots.all_greedy(), draft=draft)
             for name, n in zip(STAT_NAMES, stats):
                 self.serve_counters[name] += int(n)
             # quarantine before the host replay: a poisoned row's slot is
@@ -604,7 +726,8 @@ class InferenceEngineV2:
             for uid, new_toks in emissions.items():
                 seq = self.state.seqs[uid]
                 seq.generated.extend(new_toks)
-                seq.seen_tokens = int(slots.cached_h[slots.slot_of_uid[uid]])
+                # the committed watermark: rejected drafts never count as seen
+                seq.seen_tokens = int(slots.committed_h[slots.slot_of_uid[uid]])
             for uid in finished:
                 seq = self.state.seqs[uid]
                 seq.done = True
@@ -612,6 +735,11 @@ class InferenceEngineV2:
                 slots.retire(uid)
                 self.state.flush_sequence(uid)
                 yield uid, out
+
+
+def _is_quantized(tree) -> bool:
+    """Whether the tree holds a quantized ({"q", "s"}) leaf."""
+    return any(isinstance(v, dict) and ("q" in v or _is_quantized(v)) for v in tree.values())
 
 
 def _to_device(tree, device):

@@ -1,16 +1,19 @@
 """Paged forward execution for ragged inference.
 
-Mirrors ``deepspeed_tpu/inference/v2/model_runner.py`` for the plain
-(tp=1, float-KV, non-speculative) serving path. One forward handles a batch
-of sequence chunks: prefill chunks (C > 1) and decode steps (C = 1) are the
-same code at different chunk widths (Dynamic SplitFuse).
+Mirrors ``deepspeed_tpu/inference/v2/model_runner.py`` for the tp=1
+serving paths. One forward handles a batch of sequence chunks: prefill
+chunks (C > 1) and decode steps (C = 1) are the same code at different
+chunk widths (Dynamic SplitFuse).
 
-Per layer: project q/k/v, RoPE at absolute positions, then the paged
-attention kernel (``ops/paged_attention.py``) reads the pools in place
-through the block table, with the chunk's own KV riding beside them. The
-pools stay read-only during the layer walk; every layer's chunk KV is
-committed by ONE scatter after it, with pad rows routed to trash block 0.
-GEMMs are plain ``torch.matmul``.
+Per layer: project q/k/v, RoPE at absolute positions, then attention with
+the chunk's own KV riding beside the pools. Float pools are read in place
+by the paged attention kernel (``ops/paged_attention.py``) through the
+block table; int8 pools (``kv_dtype="int8"``) are gathered, dequantized
+and attended by ``_paged_attention``, as JAX routes them. The pools stay
+read-only during the layer walk; every layer's chunk KV is committed by
+ONE scatter after it, with pad rows routed to trash block 0. GEMMs are
+plain ``torch.matmul``; int8 weight leaves are dequantized at use
+(``layers.dq``).
 
 Weights are cast to the activation dtype at use (``.to(dt)``), as the JAX
 forward's ``.astype(dt)`` does, so weights stored in bf16 on the card give
@@ -19,14 +22,19 @@ the same values as f32 weights cast per use, at half the memory.
 ``frame_loop``, ``decode_loop`` and ``mixed_loop`` run their steps as a
 Python loop in place of ``lax.scan``; the carry tensors are returned, and
 the pools are updated in place. Every step is device work only: nothing in
-a loop reads a value back to the host.
+a loop reads a value back to the host. ``frame_loop_spec`` and
+``mixed_loop_spec`` are the speculative programs: a draft model's forward
+(another runner's ``_forward`` over its own pools, which share the block
+tables) proposes gamma tokens a step and ONE target forward over gamma + 1
+positions verifies them (``_spec_scan_body``).
 
 Step graphs (``cuda_graphs.py``), the default on the card: each program's
 step runs over static buffers that it updates in place, captured into a
 CUDA graph once per key and replayed, as the JAX programs are compiled once
 per shape bucket with their state donated. Keys: ("run", B, C, MB);
 ("loop", B, MB, greedy); ("frame" or "mixed", width, greedy, B, prompt
-width, table width). The serving slot state (``DeviceSlotTable``) and the
+width, table width); ("spec_frame" or "spec_mixed", the same, gamma, the
+draft runner's tag). The serving slot state (``DeviceSlotTable``) and the
 ``mixed_loop`` state share one set of static buffers per (B, prompt width,
 table width); a slot table served here holds those buffers as its tensors.
 Sampled steps are never captured: they run eagerly on the same buffers, by
@@ -35,6 +43,7 @@ loops stay: they are the CPU's path and the card's with
 ``cuda_graphs=False``.
 """
 
+import itertools
 import types
 import weakref
 
@@ -44,10 +53,15 @@ from ...accelerator import get_device
 from ...models import layers as L
 from ...models.transformer import CausalLM, walk_layer_plan
 from ...ops.paged_attention import paged_ragged_attention
+from ...ops.attention import window_mask
 from ..cuda_graphs import StepGraphs, StepRows
-from ..sampling import sample_logits, sample_logits_per_row
-from .ragged_manager import SLOT_CARRY, SLOT_STATE, slot_state
+from ..sampling import sample_logits, sample_logits_per_row, speculative_verify_per_row
+from .kv_cache import dequantize_kv_lanes, quantize_kv_lanes
+from .ragged_manager import SLOT_CARRY, SLOT_STATE, SPEC_CARRY, slot_state
 from .telemetry import N_STATS, zero_stats
+
+
+_RUNNER_IDS = itertools.count()
 
 
 class PagedModelRunner:
@@ -68,6 +82,8 @@ class PagedModelRunner:
                 "act_quant_bits serving is not ported yet (ROADMAP.md)")
         self.model = model
         self.cfg = model.cfg
+        # names this runner in the keys of speculative steps it drafts for
+        self.tag = f"runner{next(_RUNNER_IDS)}:L{model.cfg.num_layers}xE{model.cfg.hidden_size}"
         self.block_size = block_size
         self.max_blocks = max_blocks_per_seq
         self.device = get_device(device)
@@ -85,11 +101,21 @@ class PagedModelRunner:
         self._loop_sets = {}    # (B, MB) -> static decode_loop state
 
     def _forward(self, params, ids, positions, block_tables, valid_counts,
-                 kpool, vpool):
+                 kpool, vpool, *, all_logits=False):
         """ids/positions: (B, C) int32; block_tables: (B, MB) int32;
         valid_counts: (B,) real (non-pad) tokens in each chunk; kpool/vpool:
-        (L, KVH, NB, bs, D). Returns (last-valid-token logits (B, V) f32,
-        kpool, vpool) with the chunk's KV committed into the pools."""
+        (L, KVH, NB, bs, lanes). Returns (last-valid-token logits (B, V)
+        f32, kpool, vpool) with the chunk's KV committed into the pools, or
+        the logits at EVERY chunk position (B, C, V) with ``all_logits``
+        (the speculative verify scores all gamma + 1 positions at once).
+
+        Float pools are read in place by the paged attention kernel (K1).
+        Int8 pools (``kv_dtype="int8"``) hold packed rows the kernel does
+        not decode: the layer gathers its pages through the block table,
+        dequantizes them and attends with ``_paged_attention``, the JAX
+        runner's own route for int8 pools (``model_runner.py:186-212``),
+        not a fallback; the chunk's KV leaves the layer quantized
+        (``quantize_kv_lanes``), so the commit scatter is dtype-blind."""
         cfg = self.cfg
         bs = self.block_size
         dt = cfg.act_dtype
@@ -110,6 +136,11 @@ class PagedModelRunner:
         page = (pos_safe // bs).clamp_max(block_tables.shape[1] - 1).long()
         blk = torch.where(is_pad, 0, torch.gather(block_tables, 1, page))
         off = pos_safe % bs
+        quantized_kv = kpool.dtype == torch.int8
+        # first chunk position per row: pool slots >= this are stale (the
+        # chunk's KV flows beside the pool, committed after the layer walk)
+        chunk_start = (torch.where(is_pad, 1 << 30, positions).amin(dim=1)
+                       if quantized_kv else None)
 
         # one set of rotary sines and cosines serves every layer's q and k
         sin_cos = (L.rope_sin_cos(pos_safe, self._inv_freq)
@@ -128,9 +159,9 @@ class PagedModelRunner:
             a_in = L.apply_norm(lp["norm1"], h, cfg)
             x2 = a_in.reshape(b * c, e)
             att = lp["attn"]
-            q = (x2 @ att["wq"].to(dt).reshape(e, nh * d)).view(b, c, nh, d)
-            k = (x2 @ att["wk"].to(dt).reshape(e, kvh * d)).view(b, c, kvh, d)
-            v = (x2 @ att["wv"].to(dt).reshape(e, kvh * d)).view(b, c, kvh, d)
+            q = (x2 @ L.dq(att["wq"], dt).reshape(e, nh * d)).view(b, c, nh, d)
+            k = (x2 @ L.dq(att["wk"], dt).reshape(e, kvh * d)).view(b, c, kvh, d)
+            v = (x2 @ L.dq(att["wv"], dt).reshape(e, kvh * d)).view(b, c, kvh, d)
             if cfg.use_bias or cfg.qkv_bias:
                 q = q + L.bcast(att["bq"].to(dt), q.dim())
                 k = k + L.bcast(att["bk"].to(dt), k.dim())
@@ -143,13 +174,21 @@ class PagedModelRunner:
                                  interleaved=cfg.rope_interleaved, sin_cos=sin_cos)
                 k = L.apply_rope(k, pos_safe, self._inv_freq,
                                  interleaved=cfg.rope_interleaved, sin_cos=sin_cos)
-            k = k.to(kpool.dtype).contiguous()
-            v = v.to(vpool.dtype).contiguous()
-            out = paged_ragged_attention(
-                q.contiguous(), kpool, vpool, block_tables, positions, k, v,
-                layer=li, scale=cfg.attn_scale, window=win,
-                alibi_slopes=self._slopes, softcap=cfg.attn_softcap)
-            y = (out.reshape(b * c, nh * d) @ att["wo"].to(dt).reshape(nh * d, e)).view(b, c, e)
+            if quantized_kv:
+                kpages, vpages = (_gather_pages(pool, li, block_tables, dt)
+                                  for pool in (kpool, vpool))
+                out = _paged_attention(q, kpages, vpages, positions, cfg, window=win,
+                                       chunk_k=k, chunk_v=v, chunk_start=chunk_start,
+                                       alibi_slopes=self._slopes)
+                k, v = quantize_kv_lanes(k), quantize_kv_lanes(v)
+            else:
+                k = k.to(kpool.dtype).contiguous()
+                v = v.to(vpool.dtype).contiguous()
+                out = paged_ragged_attention(
+                    q.contiguous(), kpool, vpool, block_tables, positions, k, v,
+                    layer=li, scale=cfg.attn_scale, window=win,
+                    alibi_slopes=self._slopes, softcap=cfg.attn_softcap)
+            y = (out.reshape(b * c, nh * d) @ L.dq(att["wo"], dt).reshape(nh * d, e)).view(b, c, e)
             if "bo" in att:   # presence-keyed: out_bias may differ from use_bias
                 y = y + L.bcast(att["bo"].to(dt), y.dim())
             if cfg.sandwich_norm:   # Gemma-2 post-attn output norm
@@ -168,7 +207,7 @@ class PagedModelRunner:
         h, kpool, vpool = self._run_layers(layer, h, params, kpool, vpool,
                                            windows, blk, off)
         h = L.apply_norm(params["final_norm"], h, cfg)
-        return self._head(params, h, valid_counts), kpool, vpool
+        return self._head(params, h, valid_counts, all_logits), kpool, vpool
 
     def _run_layers(self, layer, h, params, kpool, vpool, windows, blk, off):
         """Drive ``layer`` over the stack; the pools stay read-only during
@@ -185,17 +224,21 @@ class PagedModelRunner:
         vpool[:, :, blk, off] = cv_all.permute(0, 3, 1, 2, 4)
         return h, kpool, vpool
 
-    def _head(self, params, h, valid_counts):
-        """Last-valid-token logits (B, V) f32 from normed hidden states."""
+    def _head(self, params, h, valid_counts, all_logits=False):
+        """Last-valid-token logits (B, V) f32 from normed hidden states, or
+        the logits at every position (B, C, V) with ``all_logits``."""
         cfg = self.cfg
         dt = cfg.act_dtype
-        last_idx = (valid_counts - 1).clamp_min(0).long()
-        h_last = h[torch.arange(h.shape[0], device=h.device), last_idx]   # (B, E)
+        if all_logits:
+            h_last = h                                               # (B, C, E)
+        else:
+            last_idx = (valid_counts - 1).clamp_min(0).long()
+            h_last = h[torch.arange(h.shape[0], device=h.device), last_idx]   # (B, E)
         emb = params["embed"]
         if cfg.tie_embeddings:
             logits = h_last @ emb["tok"].to(dt).t()
         else:
-            logits = h_last @ emb["lm_head"].to(dt)
+            logits = h_last @ L.dq(emb["lm_head"], dt)
         if "lm_head_bias" in emb:
             logits = logits + L.bcast(emb["lm_head_bias"].to(logits.dtype), logits.dim())
         if cfg.logit_softcap:
@@ -293,6 +336,33 @@ class PagedModelRunner:
         ``new_limits`` freezes. prompts: (B, P_max) padded prompt ids.
         Returns (tokens, emit (wide_steps + narrow_steps, B), kpool,
         vpool)."""
+        toks, emit = self._mixed(params, prompts, prompt_lens, new_limits, kpool, vpool,
+                                 block_tables, rng, temperature, chunk, wide_steps,
+                                 narrow_steps, greedy)
+        return toks, emit, kpool, vpool
+
+    def mixed_loop_spec(self, draft_runner, params, draft_params, prompts, prompt_lens,
+                        new_limits, kpool, vpool, dkpool, dvpool, block_tables, rng,
+                        temperature, *, chunk, wide_steps, narrow_steps, greedy, gamma):
+        """``mixed_loop`` with speculation (the JAX ``mixed_loop_spec``
+        without its tp branch): the wide steps prefill both models, the
+        narrow steps are draft/verify steps; rows freeze at their limits, so
+        ``narrow_steps`` stays the no-acceptance budget and early finishers
+        coast. ``draft_runner`` supplies the draft's forward over its pools
+        ``dkpool``/``dvpool``, which share the block tables. Returns
+        (tokens, emit (wide_steps + narrow_steps, B, gamma + 1), kpool,
+        vpool, dkpool, dvpool)."""
+        toks, emit = self._mixed(params, prompts, prompt_lens, new_limits, kpool, vpool,
+                                 block_tables, rng, temperature, chunk, wide_steps,
+                                 narrow_steps, greedy,
+                                 (draft_runner, draft_params, dkpool, dvpool, gamma))
+        return toks, emit, kpool, vpool, dkpool, dvpool
+
+    def _mixed(self, params, prompts, prompt_lens, new_limits, kpool, vpool, block_tables,
+               rng, temperature, chunk, wide_steps, narrow_steps, greedy, spec=None):
+        """The steps of ``mixed_loop`` (``spec``: those of
+        ``mixed_loop_spec``, as ``_slot_steps`` takes it). Returns (tokens,
+        emit)."""
         b = prompts.shape[0]
         dev = prompts.device
         no_eos = torch.full((b,), -1, dtype=torch.int32, device=dev)
@@ -301,30 +371,31 @@ class PagedModelRunner:
         if self.graphs is None:
             zero = torch.zeros((b,), dtype=torch.int32, device=dev)
             no = torch.zeros((b,), dtype=torch.bool, device=dev)
-            carry = (zero, zero, zero, no, no, no, zero_stats(dev), rng, kpool, vpool)
-            toks, emits = [], []
+            fresh = dict(cached=zero, produced=zero, last_tok=zero, penult=zero, done=no,
+                         poison=no, nonfinite=no, stats=zero_stats(dev))
+            carry = tuple(fresh[n] for n in (SPEC_CARRY if spec else SLOT_CARRY)) + (
+                rng, kpool, vpool) + (tuple(spec[2:4]) if spec else ())
+            draft = (spec[0]._forward, spec[1], spec[4]) if spec else None
+            parts = []
             for width, n in passes:
                 body = _serving_scan_body(self._forward, params, prompts, prompt_lens,
                                           new_limits, no_eos, temps, block_tables,
-                                          width, greedy)
-                for _ in range(n):
-                    carry, (t, em) = body(carry)
-                    toks.append(t)
-                    emits.append(em)
-            return (_stack_rows(toks, b, torch.int32, dev),
-                    _stack_rows(emits, b, torch.bool, dev), kpool, vpool)
+                                          width, greedy, draft=draft)
+                toks, emit, carry = _run_steps(body, carry, n, spec[4] if spec else None)
+                parts.append((toks, emit))
+            return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
         st = self._claim_slots((b, prompts.shape[1], block_tables.shape[1]))
         for name, t in (("prompts", prompts), ("prompt_lens", prompt_lens),
                         ("limits", new_limits), ("eos_ids", no_eos), ("temps", temps),
                         ("tables", block_tables)):
             getattr(st, name).copy_(t)
-        for name in SLOT_CARRY:
+        for name in SPEC_CARRY:
             getattr(st, name).zero_()
-        self.graphs.bind(params, kpool, vpool)
-        parts = [self._slot_steps(st, params, kpool, vpool, rng, "mixed", width, n, greedy)
+        self.graphs.bind(params, kpool, vpool, *((spec[1],) + spec[2:4] if spec else ()))
+        program = "spec_mixed" if spec else "mixed"
+        parts = [self._slot_steps(st, params, kpool, vpool, rng, program, width, n, greedy, spec)
                  for width, n in passes]
-        return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]),
-                kpool, vpool)
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
     def frame_loop(self, params, prompts, prompt_lens, limits, eos_ids, temps,
                    tables, cached, produced, last_tok, done, poison, nonfinite,
@@ -337,25 +408,51 @@ class PagedModelRunner:
         in place by sampled steps."""
         body = _serving_scan_body(self._forward, params, prompts, prompt_lens,
                                   limits, eos_ids, temps, tables, width, greedy)
-        carry = (cached, produced, last_tok, done, poison, nonfinite, stats,
-                 rng, kpool, vpool)
-        toks, emits = [], []
-        for _ in range(steps):
-            carry, (t, em) = body(carry)
-            toks.append(t)
-            emits.append(em)
-        return (torch.stack(toks), torch.stack(emits)) + carry
+        toks, emit, carry = _run_steps(body, (cached, produced, last_tok, done, poison,
+                                              nonfinite, stats, rng, kpool, vpool), steps)
+        return (toks, emit) + carry
 
-    def frame_in_place(self, slots, params, kv, *, width, steps, greedy):
+    def frame_loop_spec(self, draft_runner, params, draft_params, prompts, prompt_lens,
+                        limits, eos_ids, temps, tables, cached, produced, last_tok,
+                        penult, done, poison, nonfinite, stats, rng, kpool, vpool,
+                        dkpool, dvpool, *, width, steps, greedy, gamma):
+        """Speculative K-step serving frame (the JAX ``frame_loop_spec``
+        without its tp branch): ``frame_loop`` with the draft riding the
+        carry. Wide frames run the target step unchanged while the draft
+        ingests the same chunks into its pools (``dkpool``/``dvpool``, which
+        share the block tables); width-1 frames run gamma draft proposals
+        and ONE gamma + 1 wide target verify a step, with per-row acceptance
+        and rollback on the carry. ``penult`` is the token at position
+        ``cached - 1``. Returns (tokens (steps, B, gamma + 1), emit (same),
+        cached, produced, last_tok, penult, done, poison, nonfinite, stats,
+        rng, kpool, vpool, dkpool, dvpool)."""
+        body = _serving_scan_body(self._forward, params, prompts, prompt_lens, limits,
+                                  eos_ids, temps, tables, width, greedy,
+                                  draft=(draft_runner._forward, draft_params, gamma))
+        toks, emit, carry = _run_steps(body, (cached, produced, last_tok, penult, done, poison,
+                                              nonfinite, stats, rng, kpool, vpool, dkpool,
+                                              dvpool), steps, gamma)
+        return (toks, emit) + carry
+
+    def frame_in_place(self, slots, params, kv, *, width, steps, greedy, draft=None):
         """One serving frame on the static buffers of ``slots``' shape (the
-        step-graph form of ``frame_loop``): the slot table's tensors become
-        those buffers, with their values, and are updated in place; so are
-        the pools. Returns (tokens, emit), each (steps, B)."""
+        step-graph form of ``frame_loop`` and, with ``draft=(draft_runner,
+        draft_params, draft_kv, gamma)``, of ``frame_loop_spec``): the slot
+        table's tensors become those buffers, with their values, and are
+        updated in place; so are the pools (the draft's too). Returns
+        (tokens, emit), each (steps, B), or (steps, B, gamma + 1) with a
+        draft."""
         shape = (slots.n_slots, slots.prompts.shape[1], slots.tables.shape[1])
         st = self._claim_slots(shape, slots)
-        self.graphs.bind(params, kv.k, kv.v)
-        return self._slot_steps(st, params, kv.k, kv.v, slots.rng, "frame", width,
-                                steps, greedy)
+        if draft is None:
+            self.graphs.bind(params, kv.k, kv.v)
+            return self._slot_steps(st, params, kv.k, kv.v, slots.rng, "frame", width,
+                                    steps, greedy)
+        draft_runner, draft_params, draft_kv, gamma = draft
+        self.graphs.bind(params, kv.k, kv.v, draft_params, draft_kv.k, draft_kv.v)
+        return self._slot_steps(st, params, kv.k, kv.v, slots.rng, "spec_frame", width,
+                                steps, greedy,
+                                (draft_runner, draft_params, draft_kv.k, draft_kv.v, gamma))
 
     def _claim_slots(self, shape, slots=None):
         """The static slot buffers of ``shape`` (B, prompt width, table
@@ -365,9 +462,7 @@ class PagedModelRunner:
         st = self._slot_sets.get(shape)
         if st is None:
             st = self._slot_sets[shape] = types.SimpleNamespace(
-                shape=shape, owner=None,
-                rows=StepRows(shape[0], (torch.int32, torch.bool), self.device),
-                **slot_state(*shape, self.device))
+                shape=shape, owner=None, rows={}, **slot_state(*shape, self.device))
         if slots is not None and all(getattr(slots, n) is getattr(st, n) for n in SLOT_STATE):
             return st
         owner = st.owner() if st.owner is not None else None
@@ -383,23 +478,34 @@ class PagedModelRunner:
             st.owner = weakref.ref(slots)
         return st
 
-    def _slot_steps(self, st, params, kpool, vpool, rng, program, width, steps, greedy):
+    def _slot_steps(self, st, params, kpool, vpool, rng, program, width, steps, greedy,
+                    spec=None):
         """``steps`` serving steps of program ``program`` on the static slot
-        buffers ``st``, each writing its carry back in place. Returns
-        (tokens, emit), each (steps, B)."""
+        buffers ``st``, each writing its carry back in place. ``spec``
+        (draft_runner, draft_params, dkpool, dvpool, gamma) makes them
+        speculative steps, whose key adds gamma and the draft runner's tag.
+        Returns (tokens, emit), each (steps, B), or (steps, B, gamma + 1)."""
         key = (program, width, greedy) + st.shape
+        names, draft, tail, row = SLOT_CARRY, None, (rng, kpool, vpool), (st.shape[0],)
+        if spec is not None:
+            draft_runner, draft_params, dkpool, dvpool, gamma = spec
+            key += (gamma, draft_runner.tag)
+            names, draft = SPEC_CARRY, (draft_runner._forward, draft_params, gamma)
+            tail, row = tail + (dkpool, dvpool), row + (gamma + 1,)
+        rows = st.rows.get(row)
+        if rows is None:
+            rows = st.rows[row] = StepRows(row, (torch.int32, torch.bool), self.device)
 
         def one():
             body = _serving_scan_body(self._forward, params, st.prompts, st.prompt_lens,
                                       st.limits, st.eos_ids, st.temps, st.tables,
-                                      width, greedy)
-            carry, (tok, emit) = body(tuple(getattr(st, n) for n in SLOT_CARRY)
-                                      + (rng, kpool, vpool))
-            for name, new in zip(SLOT_CARRY, carry):
+                                      width, greedy, draft=draft)
+            carry, (tok, emit) = body(tuple(getattr(st, n) for n in names) + tail)
+            for name, new in zip(names, carry):
                 getattr(st, name).copy_(new)
-            st.rows.write(tok, emit)
+            rows.write(tok, emit)
 
-        return st.rows.loop(steps, lambda: self.graphs.run(key, one, capture=greedy))
+        return rows.loop(steps, lambda: self.graphs.run(key, one, capture=greedy))
 
 
 def _stack_rows(rows, b, dtype, device):
@@ -409,15 +515,36 @@ def _stack_rows(rows, b, dtype, device):
     return torch.zeros((0, b), dtype=dtype, device=device)
 
 
+def _run_steps(body, carry, steps, gamma=None):
+    """``steps`` steps of a serving step ``body`` from ``carry``: (tokens,
+    emit), each (steps, B) or, for a speculative body (``gamma``),
+    (steps, B, gamma + 1), and the last carry."""
+    toks, emits = [], []
+    for _ in range(steps):
+        carry, (t, em) = body(carry)
+        toks.append(t)
+        emits.append(em)
+    if not toks:
+        row = (0, carry[0].shape[0]) + (() if gamma is None else (gamma + 1,))
+        dev = carry[0].device
+        return (torch.zeros(row, dtype=torch.int32, device=dev),
+                torch.zeros(row, dtype=torch.bool, device=dev), carry)
+    return torch.stack(toks), torch.stack(emits), carry
+
+
 def _serving_scan_body(fwd, params, prompts, prompt_lens, limits, eos_ids,
-                       temps, tables, width, greedy):
+                       temps, tables, width, greedy, draft=None):
     """One serving step over the carry (cached, produced, last_tok, done,
     poison, nonfinite, stats, rng, kpool, vpool). A row with
     ``cached < prompt_lens`` prefills up to ``width`` prompt tokens; a row
     past its prompt with ``produced < limits`` decodes one token; ``done``
     rows and rows at their limit freeze (width 0, positions -1, writes to
     the trash block). Emits (token or -1, emit mask) per step and adds the
-    step's counters to ``stats``."""
+    step's counters to ``stats``. ``draft=(draft_fwd, draft_params,
+    gamma)`` makes it the speculative step (``_spec_scan_body``)."""
+    if draft is not None:
+        return _spec_scan_body(fwd, params, prompts, prompt_lens, limits, eos_ids,
+                               temps, tables, width, greedy, *draft)
 
     def body(carry):
         (cached, produced, last_tok, done, poison, nonfinite, stats, rng,
@@ -505,3 +632,190 @@ def _wide_emit(active, prefilling, cached, w, prompt_lens, eos_ids, nxt,
     last_tok = torch.where(emit, nxt, last_tok)
     done = done | (emit & (nxt == eos_ids))
     return emit, last_tok, done
+
+
+def _spec_scan_body(fwd, params, prompts, prompt_lens, limits, eos_ids, temps, tables,
+                    width, greedy, draft_fwd, draft_params, gamma):
+    """The speculative serving step (JAX ``_spec_scan_body`` without the
+    repair policy). Carry: (cached, produced, last_tok, penult, done,
+    poison, nonfinite, stats, rng, kpool, vpool, dkpool, dvpool); emissions
+    are (B, gamma + 1). The finite check watches the target's verify
+    logits.
+
+    Invariants at every step boundary, per row: target KV is committed for
+    positions [0, cached), and pool slots at or beyond ``cached`` may hold
+    rejected speculation (dead until overwritten; the attention masks them
+    by the chunk's first position); ``last_tok`` sits at position
+    ``cached`` and is in no cache yet; ``penult`` is the token at
+    ``cached - 1``; the draft's KV is valid for [0, cached - 1] at least
+    (its width-2 first step re-feeds ``penult`` and ``last_tok``, which
+    restores the slot a fully accepted step leaves it missing)."""
+    k_out = gamma + 1
+
+    if width > 1:
+        def wide(carry):
+            (cached, produced, last_tok, penult, done, poison, nonfinite, stats, rng,
+             kpool, vpool, dkpool, dvpool) = carry
+            b = cached.shape[0]
+            prefilling, active, w, ids, positions = _wide_plan(
+                prompts, prompt_lens, limits, width, cached, produced, last_tok, done)
+            logits, kpool, vpool = fwd(params, ids, positions, tables, w, kpool, vpool)
+            logits = _inject_poison(logits, poison)
+            # the draft ingests the same chunk: prefill rows stream the
+            # prompt into its pools, decode rows keep it on the committed prefix
+            _, dkpool, dvpool = draft_fwd(draft_params, ids, positions, tables, w,
+                                          dkpool, dvpool)
+            if greedy:
+                nxt = logits.argmax(dim=-1).to(torch.int32)
+            else:
+                nxt = sample_logits_per_row(logits, rng, temps)
+            # the token at position cached + w - 1, read before _wide_emit
+            # moves last_tok: the last prompt token of a row completing its
+            # prefill, the consumed last_tok of a decode row
+            tail = torch.gather(prompts, 1, (prompt_lens - 1).clamp_min(0)[:, None].long())[:, 0]
+            new_penult = torch.where(prefilling, tail, last_tok)
+            emit, last_tok, done = _wide_emit(active, prefilling, cached, w, prompt_lens,
+                                              eos_ids, nxt, last_tok, done)
+            emit, done, nonfinite, _bad = _finite_check(logits, active, emit, done, nonfinite)
+            penult = torch.where(emit, new_penult, penult)
+            dev = cached.device
+            toks_k = torch.cat([torch.where(emit, nxt, -1)[:, None].to(torch.int32),
+                                torch.full((b, k_out - 1), -1, dtype=torch.int32, device=dev)], 1)
+            emit_k = torch.cat([emit[:, None],
+                                torch.zeros((b, k_out - 1), dtype=torch.bool, device=dev)], 1)
+            # TARGET_FWD stays 0 on wide speculative steps: the speculative
+            # accounting counts verify forwards only
+            stats = stats + _stat_delta(
+                emitted=emit, active=active, prefill_toks=torch.where(prefilling, w, 0),
+                eos=emit & (nxt == eos_ids))
+            return ((cached + w, produced + emit.to(torch.int32), last_tok, penult, done,
+                     poison, nonfinite, stats, rng, kpool, vpool, dkpool, dvpool),
+                    (toks_k, emit_k))
+
+        return wide
+
+    def body(carry):
+        (cached, produced, last_tok, penult, done, poison, nonfinite, stats, rng,
+         kpool, vpool, dkpool, dvpool) = carry
+        koffs = torch.arange(k_out, dtype=torch.int32, device=cached.device)
+        # speculative frames run only when no slot prefills; a prefilling
+        # row here would freeze
+        active = ~done & (cached >= prompt_lens) & (produced < limits)
+        # positions past the row's reservation (prompt + budget + 1) go to
+        # the trash block: a clamped table gather would write rejected
+        # speculation into the row's live last page. Their logits are never
+        # emitted (index k needs produced + k < limits).
+        cap = prompt_lens + limits
+
+        def pos_of(p):
+            return torch.where(active[:, None] & (p >= 0) & (p <= cap[:, None]), p,
+                               -1).to(torch.int32)
+
+        def propose(logits):
+            if greedy:
+                return logits.argmax(dim=-1).to(torch.int32)
+            return sample_logits_per_row(logits, rng, temps)
+
+        # draft phase: gamma proposals; the first re-feeds penult + last_tok
+        av = active.to(torch.int32)
+        ids0 = torch.stack([penult, last_tok], dim=1)
+        pos0 = pos_of(torch.stack([cached - 1, cached], dim=1))
+        dlog, dkpool, dvpool = draft_fwd(draft_params, ids0, pos0, tables, 2 * av,
+                                         dkpool, dvpool)
+        q, dlogits = [propose(dlog)], [dlog]
+        for j in range(1, gamma):
+            dlog, dkpool, dvpool = draft_fwd(draft_params, q[-1][:, None],
+                                             pos_of((cached + j)[:, None]), tables, av,
+                                             dkpool, dvpool)
+            dlogits.append(dlog)
+            q.append(propose(dlog))
+        q = torch.stack(q, dim=1)                          # (B, G)
+        dlogits = torch.stack(dlogits, dim=1)              # (B, G, V)
+
+        # verify: ONE target forward over the last token and the G drafts
+        ids_v = torch.cat([last_tok[:, None], q], dim=1)
+        pos_v = pos_of(cached[:, None] + koffs[None, :])
+        tlogits, kpool, vpool = fwd(params, ids_v, pos_v, tables, k_out * av, kpool, vpool,
+                                    all_logits=True)
+        tlogits = _inject_poison(tlogits, poison)
+        n_acc, repl = speculative_verify_per_row(tlogits, dlogits, q, temps,
+                                                 gen=None if greedy else rng)
+
+        # accept and roll back: selects on the carry
+        q_pad = torch.cat([q, q[:, -1:]], dim=1)          # (B, G + 1)
+        e = torch.where(koffs[None, :] < n_acc[:, None], q_pad, repl[:, None])
+        is_eos = e == eos_ids[:, None]
+        eos_before = is_eos.to(torch.int32).cumsum(dim=1) - is_eos.to(torch.int32)
+        emit = (active[:, None] & (koffs[None, :] <= n_acc[:, None])
+                & (produced[:, None] + koffs[None, :] < limits[:, None]) & (eos_before == 0))
+        emit, done, nonfinite, _bad = _finite_check(tlogits, active, emit, done, nonfinite)
+        m = emit.to(torch.int32).sum(dim=1, dtype=torch.int32)
+        seq_toks = torch.cat([last_tok[:, None], e], dim=1)
+        new_last = torch.gather(seq_toks, 1, m[:, None].long())[:, 0]
+        new_penult = torch.gather(seq_toks, 1, (m - 1).clamp_min(0)[:, None].long())[:, 0]
+        last_tok = torch.where(active, new_last, last_tok)
+        penult = torch.where(active, new_penult, penult)
+        done = done | (emit & is_eos).any(dim=1)
+        # verify forwards are the active rows; accepted drafts the emit
+        # columns past the first
+        stats = stats + _stat_delta(
+            emitted=emit, active=active, eos=emit & is_eos, target_fwd=active,
+            drafted=gamma * av, accepted=emit[:, 1:])
+        return ((cached + m, produced + m, last_tok, penult, done, poison, nonfinite, stats,
+                 rng, kpool, vpool, dkpool, dvpool),
+                (torch.where(emit, e, -1), emit))
+
+    return body
+
+
+def _gather_pages(pool, layer, block_tables, dtype):
+    """Layer ``layer``'s pages of an int8 pool through the block table,
+    dequantized: (B, MB * bs, KVH, D) in ``dtype`` (JAX
+    ``model_runner.py:195-205``)."""
+    kvh, lanes = pool.shape[1], pool.shape[-1]
+    b = block_tables.shape[0]
+    pages = pool[layer][:, block_tables.long()]        # (KVH, B, MB, bs, lanes)
+    pages = pages.reshape(kvh, b, -1, lanes).permute(1, 2, 0, 3)
+    return dequantize_kv_lanes(pages, dtype)
+
+
+def _paged_attention(q, kpages, vpages, positions, cfg, window=None, chunk_k=None,
+                     chunk_v=None, chunk_start=None, alibi_slopes=None):
+    """Masked softmax attention over gathered pages (JAX
+    ``model_runner._paged_attention``). q: (B, C, H, D); kpages/vpages:
+    (B, S_pad, KVH, D); positions: (B, C) absolute slot of each query (-1 =
+    pad); a query at slot p sees slots <= p. ``chunk_k``/``chunk_v``:
+    (B, C, KVH, D) the chunk's own KV, at key positions ``positions``; pool
+    slots at or beyond ``chunk_start`` (B,) are stale and masked.
+    ``window``: sliding-window width (<= 0 or None: global). Scores and
+    softmax in f32, probabilities cast to q's dtype before P.V. Query head
+    j reads kv head j // (H / KVH), as JAX's repeat does, without the
+    repeat: the G query heads of a kv head form one batch of the products."""
+    b, c, h, d = q.shape
+    s_pad = kpages.shape[1]
+    k_pos = torch.arange(s_pad, dtype=torch.int32, device=q.device)[None, :].expand(b, s_pad)
+    if chunk_k is not None:
+        kpages = torch.cat([kpages, chunk_k.to(kpages.dtype)], dim=1)
+        vpages = torch.cat([vpages, chunk_v.to(vpages.dtype)], dim=1)
+        k_pos = torch.cat([torch.where(k_pos < chunk_start[:, None], k_pos, -1),
+                           torch.where(positions >= 0, positions, -1)], dim=1)
+    kvh = kpages.shape[2]
+    g = h // kvh
+    scale = cfg.attn_scale if cfg.attn_scale is not None else d ** -0.5
+    logits = torch.einsum("bckgd,bskd->bkgcs", q.reshape(b, c, kvh, g, d).float(),
+                          kpages.float()).reshape(b, h, c, -1) * scale
+    if alibi_slopes is not None:
+        logits = logits + (alibi_slopes[None, :, None, None]
+                           * (k_pos[:, None, None, :].float()
+                              - positions.clamp_min(0)[:, None, :, None].float()))
+    if cfg.attn_softcap:
+        logits = cfg.attn_softcap * torch.tanh(logits / cfg.attn_softcap)
+    kp = k_pos[:, None, :]                               # (B, 1, S_total)
+    mask = (kp >= 0) & (kp <= positions[:, :, None])     # pad keys and rows dead
+    if window is not None:
+        mask = mask & window_mask(positions[:, :, None], kp, window)
+    logits = logits.masked_fill(~mask[:, None], torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgcs,bskd->bckgd", probs.reshape(b, kvh, g, c, -1),
+                       vpages.to(q.dtype))
+    return out.reshape(b, c, h, d)

@@ -1,8 +1,10 @@
 """Sequence state tracking for continuous batching.
 
 Mirrors ``deepspeed_tpu/inference/v2/ragged_manager.py``:
-``DSSequenceDescriptor``, ``DSStateManager`` and the non-speculative,
-single-device ``DeviceSlotTable``. Per-slot state (last token, cached-token
+``DSSequenceDescriptor``, ``DSStateManager`` and the single-device
+``DeviceSlotTable``, whose frames may carry a draft model (speculative
+serving: ``penult`` in the slot state, (steps, B, gamma + 1) emissions,
+the committed watermark ``committed_h``). Per-slot state (last token, cached-token
 counts, per-row limits/EOS/temperature, padded block tables) lives on the
 device between frames as tensors the frame loop updates; the host keeps
 numpy mirrors purely for admission control and never reads slot state back
@@ -84,11 +86,12 @@ class DSStateManager:
 
 
 # The device tensors of a slot table, in the frame's argument order; the
-# carry is the part a serving step writes back.
-SLOT_STATE = ("prompts", "prompt_lens", "limits", "eos_ids", "temps", "tables",
-              "cached", "produced", "last_tok", "done", "poison", "nonfinite",
+# carry is the part a serving step writes back, and a speculative step also
+# carries ``penult`` (the token at position cached - 1).
+SPEC_CARRY = ("cached", "produced", "last_tok", "penult", "done", "poison", "nonfinite",
               "stats")
-SLOT_CARRY = SLOT_STATE[6:]
+SLOT_CARRY = tuple(n for n in SPEC_CARRY if n != "penult")
+SLOT_STATE = ("prompts", "prompt_lens", "limits", "eos_ids", "temps", "tables") + SPEC_CARRY
 
 
 def slot_state(n_slots: int, prompt_width: int, table_width: int, device) -> Dict:
@@ -105,7 +108,7 @@ def slot_state(n_slots: int, prompt_width: int, table_width: int, device) -> Dic
             "eos_ids": torch.full((n_slots,), -1, dtype=torch.int32, device=dev),
             "temps": torch.zeros((n_slots,), dtype=torch.float32, device=dev),
             "tables": zi(n_slots, max(1, table_width)), "cached": zi(n_slots),
-            "produced": zi(n_slots), "last_tok": zi(n_slots),
+            "produced": zi(n_slots), "last_tok": zi(n_slots), "penult": zi(n_slots),
             "done": torch.ones((n_slots,), dtype=torch.bool, device=dev),
             "poison": torch.zeros((n_slots,), dtype=torch.bool, device=dev),
             "nonfinite": torch.zeros((n_slots,), dtype=torch.bool, device=dev),
@@ -220,7 +223,7 @@ class DeviceSlotTable:
         self.limits[idx] = self._dev(lims, torch.int32)
         self.eos_ids[idx] = self._dev(eoss, torch.int32)
         self.temps[idx] = self._dev(temps, torch.float32)
-        for t in (self.cached, self.produced, self.last_tok):
+        for t in (self.cached, self.produced, self.last_tok, self.penult):
             t[idx] = 0
         self.done[idx] = False
         # a slot freed by quarantine must not hand its flags to the next row
@@ -248,31 +251,45 @@ class DeviceSlotTable:
     # ---------------- frame execution + host replay ----------------
 
     def dispatch_frame(self, runner, params, kv, width: int, steps: int,
-                       greedy: bool):
+                       greedy: bool, draft=None):
         """Run one K-step frame, returning the (tokens, emit) DEVICE tensors;
-        nothing is read back. A runner with step graphs runs it in place on
+        nothing is read back. ``draft=(draft_runner, draft_params, draft_kv,
+        gamma)`` runs the speculative frame: the draft's pools share this
+        table's block tables. A runner with step graphs runs it in place on
         its static buffers; otherwise the functional loop's carry becomes the
         new state."""
         if runner.graphs is not None:
             return runner.frame_in_place(self, params, kv, width=width,
-                                         steps=steps, greedy=greedy)
-        (toks, emit, self.cached, self.produced, self.last_tok, self.done,
-         self.poison, self.nonfinite, self.stats, self.rng, kv.k,
-         kv.v) = runner.frame_loop(
-            params, self.prompts, self.prompt_lens, self.limits, self.eos_ids,
-            self.temps, self.tables, self.cached, self.produced, self.last_tok,
-            self.done, self.poison, self.nonfinite, self.stats, self.rng,
-            kv.k, kv.v, width=width, steps=steps, greedy=greedy)
+                                         steps=steps, greedy=greedy, draft=draft)
+        if draft is None:
+            (toks, emit, self.cached, self.produced, self.last_tok, self.done,
+             self.poison, self.nonfinite, self.stats, self.rng, kv.k,
+             kv.v) = runner.frame_loop(
+                params, self.prompts, self.prompt_lens, self.limits, self.eos_ids,
+                self.temps, self.tables, self.cached, self.produced, self.last_tok,
+                self.done, self.poison, self.nonfinite, self.stats, self.rng,
+                kv.k, kv.v, width=width, steps=steps, greedy=greedy)
+            return toks, emit
+        draft_runner, draft_params, draft_kv, gamma = draft
+        (toks, emit, self.cached, self.produced, self.last_tok, self.penult, self.done,
+         self.poison, self.nonfinite, self.stats, self.rng, kv.k, kv.v, draft_kv.k,
+         draft_kv.v) = runner.frame_loop_spec(
+            draft_runner, params, draft_params, self.prompts, self.prompt_lens,
+            self.limits, self.eos_ids, self.temps, self.tables, self.cached,
+            self.produced, self.last_tok, self.penult, self.done, self.poison,
+            self.nonfinite, self.stats, self.rng, kv.k, kv.v, draft_kv.k, draft_kv.v,
+            width=width, steps=steps, greedy=greedy, gamma=gamma)
         return toks, emit
 
     def run_frame(self, runner, params, kv, width: int, steps: int,
-                  greedy: bool):
+                  greedy: bool, draft=None):
         """Dispatch one frame, then fetch everything the boundary reads in
-        the one device-to-host copy a frame makes: (tokens (steps, B),
-        emit (steps, B) bool, the finite-check latch (B,) bool, the
+        the one device-to-host copy a frame makes: (tokens (steps, B[,
+        gamma + 1]), emit (same) bool, the finite-check latch (B,) bool, the
         in-frame counters' increment (N_STATS,) int64). The device counter
         vector restarts at zero, in place."""
-        toks, emit = self.dispatch_frame(runner, params, kv, width, steps, greedy)
+        toks, emit = self.dispatch_frame(runner, params, kv, width, steps, greedy,
+                                         draft=draft)
         n, b = toks.numel(), self.n_slots
         host = torch.cat([toks.flatten(), emit.flatten().to(torch.int32),
                           self.nonfinite.to(torch.int32), self.stats]).cpu().numpy()
@@ -286,10 +303,20 @@ class DeviceSlotTable:
         return [int(self.uid_of_slot[i]) for i in range(self.n_slots)
                 if flags[i] and self.uid_of_slot[i] >= 0]
 
+    @property
+    def committed_h(self) -> np.ndarray:
+        """Host mirror of the per-row committed watermark (JAX
+        ``committed_h``): the tokens whose target KV is final (``cached``; pool slots at or beyond it may hold
+        rejected speculation awaiting overwrite)."""
+        return self.cached_h
+
     def absorb(self, toks: np.ndarray, emit: np.ndarray, width: int):
         """Replay the frame against the host mirrors (same arithmetic as the
         in-frame step) -> ({uid: [tokens emitted this frame]}, [finished
-        uids]). A row finishes when it emits its EOS or reaches its limit."""
+        uids]). A row finishes when it emits its EOS or reaches its limit.
+        Speculative frames hand in (steps, B, gamma + 1) arrays."""
+        if emit.ndim == 3:
+            return self._absorb_spec(toks, emit, width)
         emissions: Dict[int, List[int]] = {}
         finished: List[int] = []
         live = [i for i in range(self.n_slots) if self.uid_of_slot[i] >= 0]
@@ -310,6 +337,42 @@ class DeviceSlotTable:
                     self.produced_h[i] += 1
                     if t == self.eos_h[i] or self.produced_h[i] >= self.limit_h[i]:
                         self.done_h[i] = True
+        for i in live:
+            if self.done_h[i]:
+                finished.append(int(self.uid_of_slot[i]))
+        return emissions, finished
+
+    def _absorb_spec(self, toks: np.ndarray, emit: np.ndarray, width: int):
+        """Speculative replay (JAX ``_absorb_spec``): a decode row advances
+        its committed watermark by the tokens its emit row carries (accepted
+        drafts and the bonus or correction token); a prefill row advances by
+        the chunk and emits at most its first token, in column 0."""
+        emissions: Dict[int, List[int]] = {}
+        finished: List[int] = []
+        live = [i for i in range(self.n_slots) if self.uid_of_slot[i] >= 0]
+
+        def take(i, uid, t):
+            emissions.setdefault(uid, []).append(t)
+            self.produced_h[i] += 1
+            if t == self.eos_h[i] or self.produced_h[i] >= self.limit_h[i]:
+                self.done_h[i] = True
+
+        for s in range(toks.shape[0]):
+            for i in live:
+                if self.done_h[i]:
+                    continue
+                uid = int(self.uid_of_slot[i])
+                if self.cached_h[i] < self.plen_h[i]:
+                    self.cached_h[i] += min(width, self.plen_h[i] - self.cached_h[i])
+                    if emit[s, i, 0]:
+                        take(i, uid, int(toks[s, i, 0]))
+                elif self.produced_h[i] < self.limit_h[i]:
+                    m = 0
+                    for k in range(emit.shape[2]):
+                        if emit[s, i, k]:
+                            take(i, uid, int(toks[s, i, k]))
+                            m += 1
+                    self.cached_h[i] += m
         for i in live:
             if self.done_h[i]:
                 finished.append(int(self.uid_of_slot[i]))

@@ -3,7 +3,8 @@
 Mirrors the dense subset of ``deepspeed_tpu/models/layers.py`` that the
 serving, training and v1 inference paths run: norms, rotary embeddings,
 ALiBi slopes and bias, q/k norms, ``apply_attention`` (training and
-KV-cache branches) with ``_scatter_cache``, the MLP, and the
+KV-cache branches) with ``_scatter_cache``, the MLP, ``dq`` (the
+int8 weight leaves of quantized serving), and the
 initializers of the attention, MLP, norm and embedding
 leaves (same leaf names, shapes and distributions: normal(0.02), output
 projections scaled by 1/sqrt(2L), the untied LM head by E^-0.5), drawn from
@@ -44,6 +45,21 @@ def bcast(w, ndim: int):
     """Left-pad ``w`` with size-1 axes to rank ``ndim`` (explicit
     trailing-dim broadcasting, as the JAX forward writes it)."""
     return w.reshape((1,) * (ndim - w.dim()) + tuple(w.shape))
+
+
+def dq(w, dt):
+    """Dequantize-or-cast a weight leaf to compute dtype ``dt`` (JAX
+    ``layers.dq``). Serving-side weight quantization
+    (``inference/v2/model_implementations/quantize.py``) replaces a matmul
+    weight with ``{"q": int8, "s": f32 keepdims scale}``; it is rebuilt
+    here in one pass, ``q * s.to(dt)`` (torch promotes int8 x ``dt`` to
+    ``dt`` in one kernel; every |q| <= 127 is exact in bf16, so the bits
+    are JAX's ``q.astype(dt) * s.astype(dt)``). Any other leaf is cast.
+    This is plain torch as JAX's is plain XLA: no Pallas kernel computes
+    it, so no hand kernel is owed."""
+    if isinstance(w, dict) and "q" in w:
+        return w["q"] * w["s"].to(dt)
+    return w.to(dt)
 
 
 # ---- norms --------------------------------------------------------------
@@ -298,20 +314,20 @@ def apply_mlp(params, x, cfg: TransformerConfig):
     dt = cfg.act_dtype
     mlp_bias = cfg.use_bias if cfg.mlp_bias is None else cfg.mlp_bias
     if cfg.activation in ("swiglu", "geglu"):
-        g = _mm(x, params["wi_gate"].to(dt))
-        u = _mm(x, params["wi_up"].to(dt))
+        g = _mm(x, dq(params["wi_gate"], dt))
+        u = _mm(x, dq(params["wi_up"], dt))
         gate = (F.gelu(g, approximate="tanh") if cfg.activation == "geglu"
                 else F.silu(g))
         h = gate * u
     else:
-        h = _mm(x, params["wi"].to(dt))
+        h = _mm(x, dq(params["wi"], dt))
         if mlp_bias:
             h = h + bcast(params["bi"].to(dt), h.dim())
         if cfg.activation == "relu":
             h = F.relu(h)
         else:  # "gelu" = tanh approximation (gelu_new); "gelu_exact" = erf
             h = F.gelu(h, approximate="none" if cfg.activation == "gelu_exact" else "tanh")
-    y = _mm(h, params["wo"].to(dt))
+    y = _mm(h, dq(params["wo"], dt))
     if mlp_bias:
         y = y + bcast(params["bo"].to(dt), y.dim())
     return y

@@ -171,6 +171,17 @@ class CausalLM:
         """The params tree on the meta device: shapes and dtypes, no memory."""
         return self.init(device="meta", dtype=dtype)
 
+    def logical_axes(self):
+        """The logical-axis names of every leaf of ``init``'s tree (JAX
+        ``CausalLM.logical_axes``): tuples mirroring the params, stacked
+        layer leaves with a leading "layers" axis. Serving quantization
+        finds the contracted axes of each matmul weight by these names."""
+        def axes(tree, path):
+            return {k: axes(v, path + (k,)) if isinstance(v, dict) else _leaf_axes(path + (k,), v)
+                    for k, v in tree.items()}
+
+        return axes(self.abstract_params(), ())
+
     # -- training forward and loss --
 
     def embed_fwd(self, embed_params, input_ids, positions=None):
@@ -372,6 +383,31 @@ class CausalLM:
         n = cfg.local_attention_every
         return [cfg.sliding_window if i % n == n - 1 else 0
                 for i in range(cfg.num_layers)]
+
+
+# logical axes by leaf name (JAX ``layers.init_*``'s axes trees); norm
+# scales and biases are ("embed",), q/k norm leaves "unmodeled" per dim
+_AXES = {"wq": ("embed", "heads", "head_dim"), "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"), "wo_attn": ("heads", "head_dim", "embed"),
+         "bq": ("heads", "head_dim"), "bk": ("kv_heads", "head_dim"),
+         "bv": ("kv_heads", "head_dim"), "bo": ("embed",),
+         "wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"), "wi": ("embed", "mlp"),
+         "wo_mlp": ("mlp", "embed"), "bi": ("mlp",),
+         "tok": ("vocab", "embed"), "pos": ("unmodeled", "embed"),
+         "type": ("unmodeled", "embed"), "lm_head": ("embed", "vocab"),
+         "lm_head_bias": ("vocab",), "scale": ("embed",), "bias": ("embed",)}
+
+
+def _leaf_axes(path, leaf):
+    """Axis names of the leaf at ``path`` (keys from the root)."""
+    name = path[-1]
+    if any(k in ("q_norm", "k_norm") for k in path):
+        ax = ("unmodeled",) * (leaf.dim() - (path[0] == "layers"))
+    elif name == "wo":
+        ax = _AXES["wo_attn" if path[-2] == "attn" else "wo_mlp"]
+    else:
+        ax = _AXES[name]
+    return ("layers",) + ax if path[0] == "layers" else ax
 
 
 def _map(fn, tree):

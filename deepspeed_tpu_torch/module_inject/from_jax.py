@@ -22,31 +22,52 @@ from ..accelerator import get_device
 def params_from_numpy(cfg, tree, device=None, dtype=None):
     """Port params from a numpy copy of the JAX params of a model with
     config ``cfg``. Every leaf must match the port's tree by path and shape
-    (checked against ``CausalLM.abstract_params``); ``dtype`` casts every
-    leaf (None keeps each leaf's dtype). Returns a dict of tensors on
-    ``device``: the current CUDA device by default, which raises without a
-    GPU (pass ``device="cpu"`` for the CPU)."""
+    (checked against ``CausalLM.abstract_params``). A leaf may also be a
+    quantized one, ``{"q": int8, "s": f32}``, as the JAX serving
+    quantization (``model_implementations/quantize.py`` ``quantize_params``)
+    leaves it: its shapes are checked against the port's
+    ``quantize_params`` of the same leaf and its bytes kept. ``dtype``
+    casts every float leaf outside a quantized one (None keeps each leaf's
+    dtype). Returns a dict of tensors on ``device``: the current CUDA device
+    by default, which raises without a GPU (pass ``device="cpu"`` for the
+    CPU)."""
+    from ..inference.v2.model_implementations.quantize import quantize_params
     from ..models.transformer import CausalLM
-    expected = CausalLM(cfg).abstract_params()
+    model = CausalLM(cfg)
+    expected = model.abstract_params()
+    quantized, _ = quantize_params(model.abstract_params(), model.logical_axes())
     device = get_device(device)
 
-    def convert(node, want, path):
+    def keys(node, want, path):
         if set(node) != set(want):
             raise ValueError(f"params{path}: keys {sorted(node)} != expected {sorted(want)}")
+        return node
+
+    def convert(node, want, want_q, path):
         out = {}
-        for k, v in node.items():
+        for k, v in keys(node, want, path).items():
             if isinstance(want[k], dict):
-                out[k] = convert(v, want[k], f"{path}.{k}")
-                continue
-            arr = np.asarray(v)
-            if tuple(arr.shape) != tuple(want[k].shape):
-                raise ValueError(f"params{path}.{k}: shape {arr.shape} != "
-                                 f"expected {tuple(want[k].shape)}")
-            t = torch.tensor(arr)      # a copy: JAX hands out read-only arrays
-            out[k] = t.to(device=device, dtype=dtype or t.dtype)
+                out[k] = convert(v, want[k], want_q[k], f"{path}.{k}")
+            elif isinstance(v, dict):
+                if not isinstance(want_q[k], dict):
+                    raise ValueError(f"params{path}.{k}: a quantized leaf where the "
+                                     "serving quantization keeps the float one")
+                out[k] = {n: leaf(t, want_q[k][n], f"{path}.{k}.{n}", exact=True)
+                          for n, t in keys(v, want_q[k], f"{path}.{k}").items()}
+            else:
+                out[k] = leaf(v, want[k], f"{path}.{k}")
         return out
 
-    return convert(tree, expected, "")
+    def leaf(v, want, path, exact=False):
+        arr = np.asarray(v)
+        if tuple(arr.shape) != tuple(want.shape):
+            raise ValueError(f"params{path}: shape {arr.shape} != expected {tuple(want.shape)}")
+        t = torch.tensor(arr)      # a copy: JAX hands out read-only arrays
+        if exact and t.dtype != want.dtype:
+            raise ValueError(f"params{path}: dtype {t.dtype} != expected {want.dtype}")
+        return t.to(device=device, dtype=None if exact else dtype or t.dtype)
+
+    return convert(tree, expected, quantized, "")
 
 
 def _tensor(arr, device):

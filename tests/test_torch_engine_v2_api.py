@@ -152,8 +152,6 @@ def test_generate_degrades_to_stepwise_on_small_pool(weights, cuda_graphs):
 
 def test_unported_calls_raise(engines):
     _, te, _ = engines
-    with pytest.raises(NotImplementedError, match="item 9"):
-        te.generate_compiled([np.arange(5)], max_new_tokens=4, speculate=True)
     with pytest.raises(NotImplementedError, match="item 6"):
         te.serve_stats
     with pytest.raises(NotImplementedError, match="item 6"):

@@ -179,7 +179,6 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
 
 
 @pytest.mark.parametrize("over", [{"tp": 2}, {"prefix_cache": True},
-                                  {"kv_dtype": "int8"}, {"weight_dtype": "int8"},
                                   {"role": "prefill"}, {"kv_swap_dir": "/nonexistent"},
                                   {"nonfinite_policy": "repair"}])
 def test_unported_config_raises(over):
@@ -189,8 +188,7 @@ def test_unported_config_raises(over):
 
 
 @pytest.mark.parametrize("kw", [{"scheduler": object()}, {"faults": object()},
-                                {"resume_from": {}}, {"speculate": True},
-                                {"yield_boundaries": True}])
+                                {"resume_from": {}}, {"yield_boundaries": True}])
 def test_unported_serve_options_raise(engines, kw):
     _, te = engines
     with pytest.raises(NotImplementedError, match="ROADMAP"):
