@@ -94,6 +94,27 @@ serving slice runs (before phi2_path):
      same tokens) and a sampled serve (eager by rule); acceptance, tokens
      per target forward, tokens/s and the verify step beside the plain
      graph serve().
+The KV hierarchy and the scheduler follow, each on its own llama3-8b
+engine (the main path's serving config, full width and depth, graphs):
+  hier_path: ``prefix_cache=True``; 8 greedy requests sharing a
+     1536-token prefix (12 pages) with 64-200 tokens of their own, one at
+     boundary 0 and seven once its prefill committed; served to capture,
+     cold (cache detached), with the cache (the seven map the 12 published
+     pages and prefill from token 1536) and with it traced: budgets met,
+     K1 launches = layers x steps by wrapper and trace, refcounts 0 and the
+     pool drained after ``clear()``, and a never-served follower's
+     last-position logits through the paged forward resuming at the mapped
+     watermark within 5 % of the dense forward's range; TTFT p50 / p90 of
+     the seven, tokens/s, prefill steps, hit tokens and pages;
+  sched_path: ``kv_swap_dir`` (a temporary directory) and
+     ``serve(scheduler=RequestScheduler())``; 16 batch requests (512-token
+     prompts, budget 128) fill the table, then 4 interactive ones
+     (``slo_ms``) preempt a row each: swap-in with every victim's pages
+     compared byte for byte before eviction and after restore,
+     re-prefill (``kv_swap_preempt=False``), swap-in timed; budgets met,
+     the tier empty and the pool drained, K1 launches = layers x steps;
+     preemptions, interactive and batch TTFT, pages and GB/s out and in
+     through the port's aio engine, overlapped and blocking commits.
 The training slice follows:
   8. train_kernel_check: flash attention forward, dq and dk/dv (K3, K4, K5)
      against their plain versions at gpt2-xl and llama3-8b shapes and on
@@ -1702,6 +1723,383 @@ def spec_calls(torch, eng, eager_runner, prompts, gamma, main_tokens):
 
 
 # ------------------------------------------------------------ training slice
+
+# --------------------------------------------------- KV hierarchy, scheduler
+
+HIER_PREFIX = 1536                # the shared prefix: 12 pages of 128
+HIER_SUFFIX = (64, 200, 97, 150, 181, 73, 128, 111)    # the 8 rows' own tokens
+
+
+def hier_workload(torch, vocab):
+    """8 prompts of a 1536-token shared prefix and 64-200 tokens of their
+    own (seed 15), a ninth, never served, for the logit check, and 1536
+    tokens of another prompt for its control. Row 0 arrives at boundary
+    0; the seven others at boundary 2, after row 0's prefill (13 chunks
+    over two 8-step frames) has committed and its 12 prefix pages were
+    published."""
+    g = torch.Generator().manual_seed(15)
+    shared = torch.randint(0, vocab, (HIER_PREFIX,), generator=g)
+    prompts = {u: torch.cat([shared, torch.randint(0, vocab, (n,), generator=g)]).numpy()
+               for u, n in enumerate(HIER_SUFFIX)}
+    probe = torch.cat([shared, torch.randint(0, vocab, (150,), generator=g)]).numpy()
+    foreign = torch.randint(0, vocab, (HIER_PREFIX,), generator=g).numpy()
+    arrival_t = {}
+
+    def arrivals():
+        arrival_t[0] = time.perf_counter()
+        yield [(0, prompts[0])]
+        yield []
+        now = time.perf_counter()
+        for u in range(1, 8):
+            arrival_t[u] = now
+        yield [(u, prompts[u]) for u in range(1, 8)]
+
+    return prompts, probe, foreign, arrivals, arrival_t
+
+
+def resumed_logits(torch, eng, prompt, foreign=None):
+    """Last-position logits of ``prompt`` through the paged forward that
+    resumes at the prefix cache's watermark: ``_prefix_map`` maps the
+    published pages read-only into a fresh block list, as admission does,
+    and only the chunks past the watermark run (``runner.run``), reading
+    the shared pages through the block table. With ``foreign`` (the tokens
+    of another prompt, chunk-aligned) nothing is mapped: those tokens are
+    prefilled into the first pages, and ``prompt`` resumes at their length
+    over them. Returns (logits, watermark, pages mapped)."""
+    from deepspeed_tpu_torch.inference.v2.ragged_manager import DSSequenceDescriptor
+    kv, dev = eng.kv, eng.device
+    n, chunk = len(prompt), eng._config.prefill_chunk_size
+    seq = DSSequenceDescriptor(uid=-2)
+    cached0 = eng._prefix_map(seq, prompt) if foreign is None else len(foreign)
+    mapped = len(seq.blocks)
+    try:
+        seq.blocks += kv.allocator.allocate(kv.blocks_for(n) - len(seq.blocks))
+        table = torch.zeros((1, eng.max_blocks_per_seq), dtype=torch.int32, device=dev)
+        table[0, :len(seq.blocks)] = torch.tensor(seq.blocks, dtype=torch.int32)
+
+        def run(tokens, start, end):
+            ids = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
+            logits = None
+            for c0 in range(start, end, chunk):
+                w = min(chunk, end - c0)
+                cids = torch.zeros((1, chunk), dtype=torch.int32, device=dev)
+                cids[0, :w] = ids[c0:c0 + w]
+                pos = torch.full((1, chunk), -1, dtype=torch.int32, device=dev)
+                pos[0, :w] = torch.arange(c0, c0 + w, dtype=torch.int32, device=dev)
+                valid = torch.tensor([w], dtype=torch.int32, device=dev)
+                logits, _, _ = eng.runner.run(eng.params, cids, pos, table, valid, kv.k, kv.v)
+            return logits
+
+        if foreign is not None:
+            run(foreign, 0, cached0)
+        logits = run(prompt, cached0, n)
+    finally:
+        kv.allocator.free(seq.blocks)
+    return logits[0], cached0, mapped
+
+
+def pool_clean(eng, cached=0):
+    """Blocks in use are the cache's (``cached``) and the trash block's, and
+    no request is tracked."""
+    return eng.kv.num_blocks - eng.kv.free_blocks == cached + 1 and not eng.state.seqs \
+        and not eng._ledger
+
+
+def hier_path(torch, smi):
+    """Phase hier_path: llama3-8b at full width and depth (random weights
+    from seed 0), the main path's serving config with ``prefix_cache=True``
+    and CUDA graphs, serves ``hier_workload`` (32 greedy new tokens each):
+    once to capture, then with the cache detached (cold), with it (the
+    seven followers map row 0's 12 published pages and prefill from token
+    1536), and with it again traced frame by frame. Gates: every request
+    completes its budget; K1 launches = layers x steps in every run, by
+    wrapper and in the trace; after each cache run the blocks in use are
+    exactly the cache's and, after ``clear()``, every refcount is 0 and the
+    pool drained; the frames' own count of prefilled tokens is 7 x 1536
+    lower with the cache than without, and the wide steps are those the
+    workload gives each run; one follower's last-position logits through
+    the paged forward that resumes at the mapped watermark over the shared
+    pages within 5 % of their range of the dense forward over its whole
+    prompt (a follower never served: its watermark is the 1536 shared
+    tokens), and the same resume over another prompt's 12 pages outside
+    that limit.
+    Reported: TTFT p50 / p90 of the seven, tokens/s, prefill steps, hit
+    tokens and pages, and where the cache run's tokens leave the cold
+    run's (bf16 batch composition can flip near ties: not gated)."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+    model = build_model("llama3-8b")
+    cfg = model.cfg
+    eng = InferenceEngineV2(model, serving_config(prefix_cache=True), max_seq_len=2048)
+    prompts, probe, foreign, arrivals, arrival_t = hier_workload(torch, cfg.vocab_size)
+    cache = eng.prefix_cache
+    runs = {}
+    for mode, on, trace in (("capture", False, False), ("cold", False, False),
+                            ("cache", True, False), ("cache_traced", True, True)):
+        eng.prefix_cache = cache if on else None
+        runs[mode] = r = serve_counted(torch, eng, arrivals(), trace=trace, max_new_tokens=32)
+        r["counters"] = dict(eng.telemetry.counters)
+        r["serve_stats"] = {k: eng.serve_stats[k] for k in ("frames", "frame_steps_hist")}
+        r["ttft_s"] = sorted(r["first_tok"][u] - arrival_t[u] for u in range(1, 8))
+        check_budgets(f"hier_path ({mode})", r["got"], prompts, None, None, cfg.vocab_size)
+        if r["launches"] != cfg.num_layers * r["steps"]:
+            fail(f"hier_path ({mode}): {r['launches']} K1 launches, expected "
+                 f"{cfg.num_layers} layers x {r['steps']} steps")
+        if not pool_clean(eng, cache.resident_blocks() if on else 0):
+            fail(f"hier_path ({mode}): {eng.kv.num_blocks - eng.kv.free_blocks} blocks in "
+                 f"use, the cache holds {cache.resident_blocks() if on else 0}")
+        if on and mode == "cache":
+            logits, cached0, mapped = resumed_logits(torch, eng, probe)
+            dense = dense_logits(torch, eng, torch.as_tensor(probe, device=eng.device).long())
+            err, span = float((logits - dense).abs().max()), float(dense.max() - dense.min())
+            ok = bool(torch.isfinite(logits).all()) and err <= 0.05 * span \
+                and cached0 == HIER_PREFIX
+            # the control: the same resume over another prompt's 12 pages
+            # must miss the limit, or the limit cannot tell a wrong mapping
+            flogits, _, _ = resumed_logits(torch, eng, probe, foreign=foreign)
+            ferr = float((flogits - dense).abs().max())
+            ref = dict(prompt_tokens=len(probe), watermark=cached0, pages_mapped=mapped,
+                       max_abs_logit_err=err, logit_range=span, within=ok,
+                       control_foreign_pages_err=ferr, control_missed=ferr > 0.05 * span)
+            if not ok:
+                fail(f"hier_path: resumed paged logits {err} from the dense forward's "
+                     f"(range {span}), watermark {cached0}")
+            if not ref["control_missed"]:
+                fail(f"hier_path: resumed over another prompt's pages, the logits are {ferr} "
+                     f"from the dense forward's (range {span}): within the 5 % limit")
+        if on:
+            cache.clear()
+            if any(eng.kv.allocator.refcount(b) for b in range(1, eng.kv.num_blocks)) \
+                    or not pool_clean(eng):
+                fail("hier_path: refcounts or the pool not back to zero after clear()")
+    tr = runs["cache_traced"]
+    if tr["k1_on_card"] != tr["launches"]:
+        fail(f"hier_path: {tr['k1_on_card']} K1 kernels on the card in the trace, expected "
+             f"{tr['launches']}; frames traced short: {tr['trace_short_frames']}")
+    c = runs["cache"]["counters"]
+    if c["prefix_hits"] < 7 or c["prefix_hit_tokens"] < 7 * HIER_PREFIX:
+        fail(f"hier_path: {c['prefix_hits']} hits for {c['prefix_hit_tokens']} tokens, "
+             f"expected 7 of {HIER_PREFIX}")
+    # the watermark reached the captured steps' static buffers: the frames'
+    # own count of the tokens they prefilled drops by the seven mapped
+    # prefixes, and the wide steps by the chunks skipped (row 0 prefills
+    # alone over whole frames; the followers then take as many whole
+    # frames as the longest of them has chunks left)
+    skipped = runs["cold"]["prefill_tokens"] - runs["cache"]["prefill_tokens"]
+    chunk, fs = eng._config.prefill_chunk_size, eng._config.frame_steps
+
+    def wide(chunks):
+        return fs * math.ceil(chunks / fs)
+
+    row0 = wide(math.ceil(len(prompts[0]) / chunk))
+    want_wide = {"cold": row0 + wide(max(math.ceil(len(prompts[u]) / chunk)
+                                         for u in range(1, 8))),
+                 "cache": row0 + wide(max(math.ceil((len(prompts[u]) - HIER_PREFIX) / chunk)
+                                          for u in range(1, 8)))}
+    got_wide = {m: runs[m]["wide_steps"] for m in want_wide}
+    if skipped != 7 * HIER_PREFIX or got_wide != want_wide:
+        fail(f"hier_path: the cache run prefilled {skipped} tokens fewer than the cold run "
+             f"(expected 7 x {HIER_PREFIX}); wide steps {got_wide}, expected {want_wide}")
+    n_tok = sum(len(t) for _, t in runs["cache"]["got"])
+    rows = {}
+    for mode, r in runs.items():
+        t = r["ttft_s"]
+        rows[mode] = {"serve_s": r["serve_s"], "tokens_per_s": n_tok / r["serve_s"],
+                      "ttft_followers_p50_s": statistics.median(t),
+                      "ttft_followers_p90_s": t[math.ceil(0.9 * len(t)) - 1],
+                      "frames": r["frames"], "prefill_steps": r["wide_steps"],
+                      "decode_steps": r["narrow_steps"], "prefill_tokens": r["prefill_tokens"],
+                      "paged_attention_launches": r["launches"], "captures": r["captures"],
+                      "prefix_hits": r["counters"]["prefix_hits"],
+                      "prefix_hit_tokens": r["counters"]["prefix_hit_tokens"],
+                      "prefix_hit_pages": r["counters"]["prefix_hit_tokens"] // BS,
+                      "prefix_pages_published": r["counters"]["prefix_blocks_published"],
+                      "serve_stats": r["serve_stats"], "peak_memory_gb": r["peak_memory_gb"]}
+    emit("hier_path", model="llama3-8b", layers=cfg.num_layers, requests=8,
+         shared_prefix_tokens=HIER_PREFIX, suffix_tokens=list(HIER_SUFFIX), tokens=n_tok,
+         by_mode=rows, prefill_tokens_skipped=skipped, wide_steps_expected=want_wide,
+         k1_kernels_on_card_traced=tr["k1_on_card"],
+         traced_device_ms_by_class=tr["device_ms_by_class"], reference=ref,
+         first_divergence_cache_vs_cold=divergence_from(
+             {u: t.tolist() for u, t in runs["cold"]["got"]}, runs["cache"]["got"]),
+         card=smi)
+    launches = runs["cache"]["launches"]
+    del eng, runs, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+SCHED_BATCH, SCHED_INTERACTIVE = 16, 4
+
+
+def sched_workload(torch, vocab):
+    """16 batch requests (512-token prompts, budget 128) fill the 16 slots at
+    boundary 0; 4 interactive ones (256-token prompts, budget 32, slo_ms
+    2000) arrive at boundary 3 (seed 16)."""
+    g = torch.Generator().manual_seed(16)
+    batch = {u: torch.randint(0, vocab, (512,), generator=g).numpy()
+             for u in range(SCHED_BATCH)}
+    inter = {100 + i: torch.randint(0, vocab, (256,), generator=g).numpy()
+             for i in range(SCHED_INTERACTIVE)}
+    arrival_t = {}
+
+    def arrivals():
+        now = time.perf_counter()
+        arrival_t.update(dict.fromkeys(batch, now))
+        yield [{"uid": u, "tokens": p, "max_new_tokens": 128, "priority": "batch"}
+               for u, p in batch.items()]
+        yield []
+        yield []
+        now = time.perf_counter()
+        arrival_t.update(dict.fromkeys(inter, now))
+        yield [{"uid": u, "tokens": p, "max_new_tokens": 32, "priority": "interactive",
+                "slo_ms": 2000.0} for u, p in inter.items()]
+
+    return batch, inter, arrivals, arrival_t
+
+
+def watch_tier(torch, tier, check_pages):
+    """Time the tier's page traffic: ``put_request`` (the victim's pages
+    read to the host, one copy a pool, and their writes queued on the
+    aio engine), every ``drain`` by mode (the wait for the writes and the
+    commit), and ``restore_request`` (the files read and the pages
+    scattered onto the card). ``check_pages`` also keeps each victim's
+    pages as read before its blocks are freed and compares them, byte for
+    byte, with its pages read back after the restore. Returns the stats
+    dict the wrappers fill."""
+    st = {"put_s": 0.0, "restore_s": 0.0, "drain_s": {"overlapped": 0.0, "blocking": 0.0},
+          "pages_checked": 0, "mismatched": []}
+    saved = {}
+    put, restore, drain = tier.put_request, tier.restore_request, tier.drain
+
+    def pages_bytes(kv, blocks):
+        return [bytes(p.contiguous().view(torch.uint8).numpy()) for p in kv.read_pages(blocks)]
+
+    def put_request(uid, tokens, kv, blocks, **kw):
+        if check_pages:
+            saved[uid] = pages_bytes(kv, blocks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        put(uid, tokens, kv, blocks, **kw)
+        st["put_s"] += time.perf_counter() - t0
+
+    def restore_request(uid, kv, dst_blocks, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore(uid, kv, dst_blocks, **kw)
+        torch.cuda.synchronize()
+        st["restore_s"] += time.perf_counter() - t0
+        if check_pages:
+            st["pages_checked"] += len(dst_blocks)
+            if pages_bytes(kv, dst_blocks) != saved.pop(uid):
+                st["mismatched"].append(uid)
+
+    def drain_(blocking=True):
+        t0 = time.perf_counter()
+        try:
+            return drain(blocking=blocking)
+        finally:
+            st["drain_s"]["blocking" if blocking else "overlapped"] += time.perf_counter() - t0
+
+    tier.put_request, tier.restore_request, tier.drain = put_request, restore_request, drain_
+    return st
+
+
+def sched_path(torch, smi):
+    """Phase sched_path: llama3-8b at full width and depth (random weights
+    from seed 0), the main path's serving config with a ``kv_swap_dir`` in
+    a temporary directory and CUDA graphs, serves ``sched_workload``
+    through ``serve(scheduler=RequestScheduler())``: each interactive
+    arrival finds the table full and preempts a batch row at a frame
+    boundary, whose committed pages go to host files through the port's
+    aio engine and come back when it is re-admitted. Runs: swap-in with
+    the victims' pages checked (the first run, capturing), re-prefill
+    (``kv_swap_preempt=False``), swap-in timed. Gates: every budget
+    completes; each victim's pages read back after its swap-in are
+    byte-identical to its pages read before eviction; the tier holds no
+    record after serve and the pool drains; K1 launches = layers x steps.
+    Reported: preemptions, interactive against batch TTFT, pages and GB/s
+    swapped out and in, overlapped against blocking commits and their
+    wait, and the re-prefill run beside the swap runs."""
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.scheduler import RequestScheduler
+    from deepspeed_tpu_torch.models import build_model
+    model = build_model("llama3-8b")
+    cfg = model.cfg
+    swap_dir = tempfile.mkdtemp(prefix="kv_swap_")
+    try:
+        eng = InferenceEngineV2(model, serving_config(kv_swap_dir=swap_dir), max_seq_len=2048)
+        batch, inter, arrivals, arrival_t = sched_workload(torch, cfg.vocab_size)
+        tier, runs, budgets = eng.kv_swap, {}, {**dict.fromkeys(batch, 128),
+                                                **dict.fromkeys(inter, 32)}
+        for mode, swap, check in (("swap_checked", True, True), ("reprefill", False, False),
+                                  ("swap", True, False)):
+            eng._config.kv_swap_preempt = swap
+            st = watch_tier(torch, tier, check)
+            sched = RequestScheduler()
+            runs[mode] = r = serve_counted(torch, eng, arrivals(), scheduler=sched)
+            del tier.put_request, tier.restore_request, tier.drain
+            c = dict(eng.telemetry.counters)
+            got = dict(r["got"])
+            if {u: len(t) for u, t in got.items()} != budgets or any(
+                    not ((t >= 0) & (t < cfg.vocab_size)).all() for t in got.values()):
+                fail(f"sched_path ({mode}): budgets {({u: len(t) for u, t in got.items()})}")
+            if r["launches"] != cfg.num_layers * r["steps"]:
+                fail(f"sched_path ({mode}): {r['launches']} K1 launches, expected "
+                     f"{cfg.num_layers} layers x {r['steps']} steps")
+            if tier._index["requests"] or tier.pending_commits() or not pool_clean(eng):
+                fail(f"sched_path ({mode}): records left in the tier "
+                     f"({sorted(tier._index['requests'])}) or the pool not drained")
+            if sched.summary["preempted"] < 1:
+                fail(f"sched_path ({mode}): no preemption")
+            if swap and (c["kv_swap_out_blocks"] != c["kv_swap_in_blocks"]
+                         or not c["kv_swap_in_blocks"]):
+                fail(f"sched_path ({mode}): {c['kv_swap_out_blocks']} pages out, "
+                     f"{c['kv_swap_in_blocks']} in")
+            if check and (st["mismatched"] or st["pages_checked"] != c["kv_swap_in_blocks"]):
+                fail(f"sched_path: victims {st['mismatched']} came back with other page "
+                     f"bytes ({st['pages_checked']} pages checked)")
+            ttft = {u: r["first_tok"][u] - arrival_t[u] for u in got}
+            gb_out = c["kv_swap_out_blocks"] * eng.kv.block_bytes / 1e9
+            drain_s = st["drain_s"]["overlapped"] + st["drain_s"]["blocking"]
+            r["row"] = {
+                "serve_s": r["serve_s"],
+                "tokens_per_s": sum(len(t) for t in got.values()) / r["serve_s"],
+                "preempted": sched.summary["preempted"],
+                "ttft_interactive_s": sorted(ttft[u] for u in inter),
+                "ttft_batch_p50_s": statistics.median(ttft[u] for u in batch),
+                "ttft_batch_max_s": max(ttft[u] for u in batch),
+                "frames": r["frames"], "prefill_steps": r["wide_steps"],
+                "decode_steps": r["narrow_steps"], "prefill_tokens": r["prefill_tokens"],
+                "paged_attention_launches": r["launches"], "captures": r["captures"],
+                "swap_out_pages": c["kv_swap_out_blocks"], "swap_in_pages": c["kv_swap_in_blocks"],
+                "swap_gb": gb_out, "page_bytes": eng.kv.block_bytes,
+                "swap_out_s": st["put_s"], "commit_wait_s": st["drain_s"],
+                "swap_in_s": st["restore_s"],
+                "swap_out_gb_per_s": gb_out / st["put_s"] if st["put_s"] else None,
+                "swap_out_through_commit_gb_per_s": (gb_out / (st["put_s"] + drain_s)
+                                                     if st["put_s"] else None),
+                "swap_in_gb_per_s": gb_out / st["restore_s"] if st["restore_s"] else None,
+                "commits_overlapped": c["kv_swap_commits_overlapped"],
+                "commits_blocking": c["kv_swap_commits_blocking"],
+                "pages_checked": st["pages_checked"], "peak_memory_gb": r["peak_memory_gb"]}
+        emit("sched_path", model="llama3-8b", layers=cfg.num_layers, batch=SCHED_BATCH,
+             interactive=SCHED_INTERACTIVE, by_mode={m: r["row"] for m, r in runs.items()},
+             swapped_pages_byte_identical=True,
+             first_divergence_swap_vs_reprefill=divergence_from(
+                 {u: t.tolist() for u, t in runs["reprefill"]["got"]}, runs["swap"]["got"]),
+             card=smi)
+        launches = runs["swap"]["launches"]
+        del eng, runs, tier
+    finally:
+        shutil.rmtree(swap_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
 
 FLASH_SOURCE = "deepspeed_tpu_torch/ops/csrc/flash_attention.cu"
 ADAM_SOURCE = "deepspeed_tpu_torch/ops/csrc/fused_adam.cu"
@@ -4221,6 +4619,8 @@ def main():
     quant_check(torch, smi)
     quant_serve_path(torch, smi, main_tokens)
     entry["launches_spec_path"] = spec_path(torch, smi, main_tokens)
+    entry["launches_hier_path"] = hier_path(torch, smi)
+    entry["launches_sched_path"] = sched_path(torch, smi)
     phi2_path(torch, smi)
     entries = train_phases(torch, smi)
     gc.collect()

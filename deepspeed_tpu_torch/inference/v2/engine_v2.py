@@ -13,19 +13,36 @@ and int8 KV pages (``kv_dtype="int8"``). Speculative decoding:
 tables, and ``serve()`` / ``generate_compiled()`` run draft/verify steps.
 On the card every program runs from CUDA graphs, one captured step a shape
 key, unless the engine is built with ``cuda_graphs=False``; sampled steps
-run eagerly (``model_runner.py``). ``RaggedInferenceEngineConfig`` keeps
-every field and default of the JAX config; the fields of paths not ported
-yet (tensor parallelism, the KV hierarchy, disaggregated roles, the repair
-policy) raise ``NotImplementedError`` when set, as do ``serve(scheduler=,
-faults=, resume_from=, yield_boundaries=True)``, dict arrivals,
-``serve_stats`` and ``cancel_request`` (ROADMAP.md lists them). The
-telemetry, trace, retry and watchdog fields are accepted and not acted
-on: ``ServingTelemetry`` and the fault machinery are not ported yet.
+run eagerly (``model_runner.py``).
+
+Serving reports to ``ServingTelemetry`` (``telemetry.py``: ``serve_stats``,
+``telemetry.snapshot()`` / ``render_prometheus()``) and keeps JAX's
+request ledger (``faults.LedgerEntry``); quarantined rows land in
+``fault_log`` as ``faults.FaultReason``. ``serve(scheduler=)`` runs the
+SLO-aware ``scheduler.RequestScheduler`` (priorities with aging, tenant
+fair share and quotas, shedding and deferral, frame-boundary preemption)
+on dict arrivals carrying ``tenant`` / ``priority`` / ``slo_ms``. The KV
+hierarchy (``kv_hierarchy.py``): ``prefix_cache=True`` maps published
+prefix blocks read-only into a new row's block table (copy-on-write at a
+mid-block divergence) and starts its prefill at the watermark;
+``kv_swap_dir=`` (or ``attach_kv_tier``) swaps a preempted row's pages to
+host files through the port's aio engine and back at re-admission.
+
+``RaggedInferenceEngineConfig`` keeps every field and default of the JAX
+config. What is not ported yet raises ``NotImplementedError`` citing its
+ROADMAP.md item: tensor parallelism (``tp > 1``, item 11), roles other
+than "unified" and ``serve(yield_boundaries=True)`` (item 12), the repair
+policy, ``serve(faults=, resume_from=)``, arrivals carrying
+``deadline_ms`` or ``generated``, and ``cancel_request`` (item 6), and
+arrivals carrying a ``trace`` (item 12). The retry and watchdog fields are
+accepted and not acted on.
 """
 
 import collections
 import dataclasses
 import logging
+import math
+import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -35,17 +52,22 @@ from ...accelerator import get_device
 from ...models.transformer import CausalLM, build_model
 from ...module_inject import as_inference_model
 from ..sampling import sample_logits
+from .faults import FaultReason, LedgerEntry
 from .kv_cache import BlockedKVCache
+from .kv_hierarchy import KVSwapTier, PrefixCache, token_fingerprint
 from .model_implementations.quantize import quantize_params
 from .model_runner import PagedModelRunner
 from .ragged_manager import DeviceSlotTable, DSStateManager
-from .telemetry import STAT_NAMES
+from .scheduler import PRIORITY_NAMES, Request, normalize_priority
+from .telemetry import STAT_NAMES, ServingTelemetry
 
 logger = logging.getLogger(__name__)
 
 _ROADMAP = "not ported to deepspeed_tpu_torch yet (ROADMAP.md, section A)"
-_TELEMETRY = ("reads ServingTelemetry and the request ledger, which are not ported "
-              "to deepspeed_tpu_torch yet (ROADMAP.md section A, item 6)")
+_FAULTS = ("rides the deadline and fault machinery, which is not ported to "
+           "deepspeed_tpu_torch yet (ROADMAP.md section A, item 6)")
+_TRACING = ("distributed tracing is not ported to deepspeed_tpu_torch yet "
+            "(ROADMAP.md section A, item 12)")
 
 
 @dataclasses.dataclass
@@ -102,8 +124,7 @@ def _check_config(c: RaggedInferenceEngineConfig) -> None:
         raise ValueError(f"tp_collective_payload={c.tp_collective_payload!r}: "
                          "expected 'int8' or 'fp8'")
     unported = {
-        "tp": c.tp > 1, "prefix_cache": c.prefix_cache,
-        "kv_swap_dir": bool(c.kv_swap_dir),
+        "tp": c.tp > 1,
         "role": c.role != "unified",
         "nonfinite_policy": c.nonfinite_policy != "quarantine",
     }
@@ -171,6 +192,21 @@ class InferenceEngineV2:
         self.fault_log: collections.deque = collections.deque(maxlen=c.fault_log_max)
         # the in-frame counters of the last serve() run, by STAT_NAMES
         self.serve_counters: Dict[str, int] = {}
+        self.telemetry = ServingTelemetry(enabled=c.telemetry, trace=c.telemetry_trace)
+        # the host-side request ledger of the current serve() run
+        self._ledger: Dict[int, LedgerEntry] = {}
+        # the serving clock (telemetry spans, scheduler shed stamps);
+        # tests inject one clock into both this and ``telemetry.clock``
+        self._clock = time.monotonic
+        # KV hierarchy (kv_hierarchy.py): host swap tier and prefix cache,
+        # both off by default; the cache rides the refcounted allocator
+        self.kv_swap = KVSwapTier(c.kv_swap_dir) if c.kv_swap_dir else None
+        self.prefix_cache = (PrefixCache(self.kv, max_blocks=c.prefix_cache_max_blocks,
+                                         swap=self.kv_swap)
+                             if c.prefix_cache else None)
+        # cumulative cache / tier stats at the last telemetry sync
+        self._pc_stats_base: Optional[Dict] = None
+        self._tier_stats_base: Optional[Dict] = None
         self.draft_model = self.draft_params = self.draft_runner = self.draft_kv = None
         if draft_model is not None:
             self.attach_draft(draft_model, draft_params)
@@ -238,6 +274,10 @@ class InferenceEngineV2:
                                              cuda_graphs=False)
         if self.runner.graphs is not None:
             self.runner.graphs.evict("spec_frame", "spec_mixed")
+        if self.prefix_cache is not None:
+            # spilled prefix pages carry the draft pool's page too, so a
+            # restored block keeps draft acceptance
+            self.prefix_cache.draft_kv = self.draft_kv
         logger.info(f"InferenceEngineV2: draft attached (layers={dcfg.num_layers} "
                     f"gamma={c.speculate_gamma})")
 
@@ -258,14 +298,33 @@ class InferenceEngineV2:
     # admission control, ingest and the Dynamic SplitFuse step
     # ------------------------------------------------------------------
 
+    def attach_kv_tier(self, tier, tag: Optional[str] = None) -> None:
+        """Attach an external (possibly shared) ``KVSwapTier`` in place of
+        any tier built from ``kv_swap_dir``. ``tag`` namespaces this
+        engine's prefix-cache spill keys inside a shared tier (default:
+        the engine's id)."""
+        self.kv_swap = tier
+        if self.prefix_cache is not None:
+            self.prefix_cache.swap = tier
+            self.prefix_cache.tag = f"{id(self):x}_" if tag is None else f"{tag}_"
+        self._tier_stats_base = None
+
     @property
     def serve_stats(self) -> Dict:
-        """The serving telemetry view of the JAX engine (not ported)."""
-        raise NotImplementedError(f"serve_stats {_TELEMETRY}")
+        """The telemetry's ``serve_view`` (JAX ``serve_stats``): frames,
+        frame-steps histogram and trace, arrival EWMA, the SLO p90s and the
+        speculative counters. Full detail: ``telemetry.snapshot()`` /
+        ``telemetry.render_prometheus()``."""
+        return self.telemetry.serve_view
+
+    def attach_monitor(self, monitor, every_frames: int = 1) -> None:
+        """Fan serving telemetry out through ``monitor.write_events`` at
+        frame boundaries."""
+        self.telemetry.attach_monitor(monitor, every_frames=every_frames)
 
     def cancel_request(self, uid: int) -> bool:
         """Cancel an in-flight request through the ledger (not ported)."""
-        raise NotImplementedError(f"cancel_request {_TELEMETRY}")
+        raise NotImplementedError(f"cancel_request {_FAULTS}")
 
     def can_schedule(self, uids: List[int], lengths: List[int]) -> bool:
         """Would these new sequences fit (blocks + tracking)?"""
@@ -523,17 +582,41 @@ class InferenceEngineV2:
 
     @staticmethod
     def _norm_arrival(item, max_new_tokens, temperature, eos_token_id):
-        """Normalize a tuple arrival ``(uid, tokens[, max_new_tokens[,
-        temperature[, eos_id]]])`` to ``(uid, tokens, limit, temp, eos)``;
-        None in an optional field means the serve() default (eos_id=-1
-        disables EOS for one row)."""
+        """Normalize one arrival to ``(uid, tokens, limit, temp, eos,
+        tenant, priority, slo_ms)`` (JAX ``_norm_arrival`` without the
+        fields of paths not ported yet).
+
+        Tuple form: ``(uid, tokens[, max_new_tokens[, temperature[,
+        eos_id]]])``; None in an optional field means the serve() default
+        (eos_id=-1 disables EOS for one row). Tuples carry no scheduling
+        metadata. Dict form: ``{"uid", "tokens"}`` plus optional
+        ``max_new_tokens`` / ``temperature`` / ``eos_token_id`` and the
+        scheduling fields ``tenant`` (str), ``priority`` ("interactive" |
+        "batch" | "best_effort" or 0..2) and ``slo_ms`` (a per-request TTFT
+        target), which are inert without a ``scheduler=``. A dict carrying
+        ``deadline_ms`` or ``generated`` (a resume) raises, as does one
+        carrying ``trace``: those paths are not ported yet."""
         if isinstance(item, dict):
-            raise NotImplementedError(f"dict arrivals (scheduler metadata): {_ROADMAP}")
-        uid, toks = item[0], item[1]
-        limit = item[2] if len(item) > 2 and item[2] is not None else max_new_tokens
-        temp = item[3] if len(item) > 3 and item[3] is not None else temperature
-        eos = item[4] if len(item) > 4 and item[4] is not None else eos_token_id
-        return uid, np.asarray(toks, np.int32).reshape(-1), int(limit), float(temp), eos
+            for key, why in (("deadline_ms", _FAULTS), ("generated", _FAULTS),
+                             ("trace", _TRACING)):
+                if item.get(key) is not None:
+                    raise NotImplementedError(f"arrival field {key!r}: {why}")
+            uid, toks = item["uid"], item["tokens"]
+            limit = item.get("max_new_tokens")
+            limit = max_new_tokens if limit is None else limit
+            temp = item.get("temperature")
+            temp = temperature if temp is None else temp
+            eos = item.get("eos_token_id")
+            eos = eos_token_id if eos is None else eos
+            tenant, prio, slo_ms = item.get("tenant"), item.get("priority"), item.get("slo_ms")
+        else:
+            uid, toks = item[0], item[1]
+            limit = item[2] if len(item) > 2 and item[2] is not None else max_new_tokens
+            temp = item[3] if len(item) > 3 and item[3] is not None else temperature
+            eos = item[4] if len(item) > 4 and item[4] is not None else eos_token_id
+            tenant = prio = slo_ms = None
+        return (uid, np.asarray(toks, np.int32).reshape(-1), int(limit), float(temp), eos,
+                tenant, prio, slo_ms)
 
     def serve(self, arrivals: Iterable, *, max_new_tokens: int = 32,
               temperature: float = 0.0, eos_token_id: Optional[int] = None,
@@ -546,24 +629,31 @@ class InferenceEngineV2:
 
         Generator: yields ``(uid, generated_tokens)`` as sequences finish.
         ``arrivals`` is an iterator polled once per frame boundary; each
-        ``next()`` returns the tuple arrivals since the last poll (possibly
-        an empty list) and raises StopIteration when no more will come.
+        ``next()`` returns the arrivals since the last poll (possibly an
+        empty list; tuples or dicts, see ``_norm_arrival``) and raises
+        StopIteration when no more will come.
 
         Decoding runs as K-step frames over a fixed set of slots whose
         state stays on the device between frames; the host touches the
         loop only at frame boundaries: admit arrivals into free slots (KV
         reserved up front for prompt + budget; admission defers arrivals
-        the pool can't hold, FIFO), retire finished rows (EOS is detected
-        in-frame; the host replays the emit mask), and grow the pow2 shape
-        buckets. ``rng`` (an int seed or a ``torch.Generator`` on the
-        engine's device) makes sampled rows reproducible. With a draft
-        attached (or ``speculate=True``) the width-1 frames are draft/verify
-        frames of ``gamma`` drafts a step (default
-        ``config.speculate_gamma``); greedy rows give the tokens of plain
-        decoding.
+        the pool can't hold), retire finished rows (EOS is detected
+        in-frame; the host replays the emit mask), publish prefix blocks,
+        and grow the pow2 shape buckets. ``rng`` (an int seed or a
+        ``torch.Generator`` on the engine's device) makes sampled rows
+        reproducible. With a draft attached (or ``speculate=True``) the
+        width-1 frames are draft/verify frames of ``gamma`` drafts a step
+        (default ``config.speculate_gamma``); greedy rows give the tokens
+        of plain decoding.
+
+        ``scheduler`` (a ``scheduler.RequestScheduler``) replaces the FIFO
+        admission deque with the SLO-aware policy object: priority classes
+        with aging, tenant fair share and quotas, shedding and deferral
+        under TTFT pressure, and frame-boundary preemption, whose victims
+        swap their pages to the tier when ``kv_swap_dir`` is set. Every
+        request reports to ``self.telemetry``.
         """
-        unported = {"scheduler": scheduler is not None, "faults": faults is not None,
-                    "resume_from": resume_from is not None,
+        unported = {"faults": faults is not None, "resume_from": resume_from is not None,
                     "yield_boundaries": yield_boundaries}
         for name, on in unported.items():
             if on:
@@ -583,10 +673,38 @@ class InferenceEngineV2:
         slots = DeviceSlotTable(n_slots, prompt_width=c.prefill_chunk_size,
                                 table_width=1, rng=frame_rng, device=self.device)
         self.serve_counters = dict.fromkeys(STAT_NAMES, 0)
+        if self.prefix_cache is not None:
+            # telemetry counters restart per serve run: rebase the cache's
+            # cumulative bookkeeping
+            self._pc_stats_base = dict(self.prefix_cache.stats)
+        if self.kv_swap is not None:
+            # request records exist solely for re-admission: a new run has
+            # abandoned its predecessors' (a shared tier never prunes)
+            self.kv_swap.prune_requests(set())
+            self._tier_stats_base = dict(self.kv_swap.stats)
+        self._ledger = {}
+        self.telemetry.begin_serve(speculate=speculate, gamma=gamma, adaptive=adaptive,
+                                   n_slots=n_slots, kv_blocks_total=self.kv.num_blocks,
+                                   tp_degree=c.tp, kv_block_bytes=self.kv.block_bytes)
         draft = ((self.draft_runner, self.draft_params, self.draft_kv, gamma)
                  if speculate else None)
-        return self._serve_guarded(slots, iter(arrivals), steps, max_new_tokens,
+        arrivals = iter(arrivals)
+        if scheduler is not None:
+            scheduler.begin_serve(self)
+            return self._serve_guarded_sched(slots, arrivals, scheduler, steps,
+                                             max_new_tokens, temperature, eos_token_id,
+                                             adaptive, draft)
+        return self._serve_guarded(slots, arrivals, steps, max_new_tokens,
                                    temperature, eos_token_id, adaptive, draft)
+
+    def _release_all(self, slots, queued_uids) -> None:
+        """Abandonment (break / close() / error) must not strand state:
+        release every slot-held, queued and ledgered sequence. The ledger
+        also covers a preempted row caught between eviction and
+        re-admission."""
+        for uid in list(slots.slot_of_uid) + list(queued_uids) + list(self._ledger):
+            self.state.flush_sequence(uid)
+        self._ledger.clear()
 
     def _serve_guarded(self, slots, arrivals, steps, max_new_tokens,
                        temperature, eos_token_id, adaptive, draft):
@@ -596,12 +714,16 @@ class InferenceEngineV2:
                                         max_new_tokens, temperature,
                                         eos_token_id, adaptive, draft)
         finally:
-            # abandonment (break / close() / error) must not strand state:
-            # release every slot-held and every deferred sequence
-            for uid in list(slots.slot_of_uid):
-                self.state.flush_sequence(uid)
-            for item in pending:
-                self.state.flush_sequence(item[0])
+            self._release_all(slots, [item[0] for item in pending])
+
+    def _serve_guarded_sched(self, slots, arrivals, sched, steps, max_new_tokens,
+                             temperature, eos_token_id, adaptive, draft):
+        try:
+            yield from self._serve_loop_sched(slots, arrivals, sched, steps,
+                                              max_new_tokens, temperature,
+                                              eos_token_id, adaptive, draft)
+        finally:
+            self._release_all(slots, sched.queued_uids())
 
     @staticmethod
     def _pick_frame_steps(ewma: float, max_steps: int, saturated: bool) -> int:
@@ -636,60 +758,409 @@ class InferenceEngineV2:
             limit = clamped
         return limit
 
-    def _admit_capacity(self, seq, toks, limit: int) -> bool:
-        """Reserve KV blocks for prompt + budget + one lookahead slot."""
-        return self.state.ensure_capacity(seq, len(toks) + limit + 1)
+    # ------------------------------------------------------------------
+    # telemetry, the request ledger and fault records
+    # ------------------------------------------------------------------
 
-    def _handle_nonfinite(self, slots, flags, frame: int) -> None:
+    def _run_frame(self, slots, width, cur_steps, ewma, queue_depth, draft):
+        """Dispatch one frame and absorb its counters (JAX's frame call and
+        ``_sync_frame_stats``): the in-frame stat vector comes back in the
+        frame's one device-to-host copy, so each boundary holds exactly
+        this frame's counts. ``recompiled_programs`` is the runner's count
+        of CUDA-graph captures (0 where nothing is captured)."""
+        tel = self.telemetry
+        with tel.frame_trace(width, cur_steps):
+            toks, emit, nonfinite, stats = slots.run_frame(
+                self.runner, self.params, self.kv, width, cur_steps,
+                slots.all_greedy(), draft=draft)
+        for name, n in zip(STAT_NAMES, stats):
+            self.serve_counters[name] += int(n)
+        if tel.enabled:
+            graphs = self.runner.graphs
+            tel.on_frame(delta=stats, width=width, steps=cur_steps,
+                         live_slots=slots.live_count(),
+                         kv_blocks_in_use=self.kv.num_blocks - self.kv.free_blocks,
+                         arrival_ewma=ewma,
+                         recompiled_programs=graphs.captures if graphs is not None else 0,
+                         queue_depth=queue_depth)
+        else:
+            tel.frame_view_update(width, cur_steps, ewma)
+        return toks, emit, nonfinite
+
+    def _ledger_add(self, uid, toks, limit, temp, eos, tenant=None, priority=None,
+                    slo_ms=None) -> None:
+        self._ledger[uid] = LedgerEntry(
+            uid=uid, prompt=[int(t) for t in toks], limit=int(limit), temp=float(temp),
+            eos=eos, tenant=tenant, priority=priority, slo_ms=slo_ms)
+
+    def _enqueue_traced(self, uid, **kw) -> None:
+        """``telemetry.on_enqueue``, writing back into the ledger entry the
+        trace context it returns (JAX ``_enqueue_traced``; without a tracer
+        it is None)."""
+        trace = self.telemetry.on_enqueue(uid, **kw)
+        ent = self._ledger.get(uid)
+        if ent is not None and trace is not None:
+            ent.trace = trace
+
+    def _fault_event(self, kind: str, frame: int, detail: str) -> None:
+        """Frame-level fault event (no single victim request), e.g. a swap
+        tier failure that falls back to re-prefill."""
+        self.fault_log.append(FaultReason(uid=-1, kind=kind, frame=frame, detail=detail))
+        self.telemetry.on_fault(kind)
+        logger.warning(f"serve(): {kind} at frame {frame}: {detail}")
+
+    def _fault_retire(self, uid: int, kind: str, frame: int, detail: str,
+                      partial=None) -> None:
+        """Abnormal retirement: drop the ledger entry and any swap record,
+        record a ``FaultReason`` with the committed partial output and count
+        it; the request is not yielded."""
+        ent = self._ledger.pop(uid, None)
+        self._drop_swap(uid)
+        tenant = ent.tenant if ent is not None else None
+        priority = ent.priority if ent is not None else None
+        self.fault_log.append(FaultReason(
+            uid=uid, kind=kind, frame=frame, detail=detail,
+            tokens_emitted=len(partial or ()), partial=list(partial) if partial else None,
+            tenant=tenant, priority=str(priority) if priority is not None else None))
+        self.telemetry.on_fault(kind, uid=uid)
+        logger.warning(f"serve(): uid={uid} retired with fault kind={kind} at "
+                       f"frame {frame}: {detail}")
+
+    def _quarantine_rows(self, slots, flags, frame: int, sched=None) -> None:
         """Quarantine rows whose logits went non-finite in the last frame
         (``flags``: the frame's finite-check latch): evict, free their
-        blocks, and log them (they are not yielded); the batch never dies
-        for one row."""
+        blocks, drop what they published to the prefix cache (a poisoned
+        page must never reach a healthy request) and retire them with a
+        ``poison_row`` fault; the batch never dies for one row."""
         for uid in slots.nonfinite_uids(flags):
             seq = self.state.seqs.get(uid)
             partial = list(seq.generated) if seq is not None else []
             slots.evict(uid)
+            if sched is not None:
+                sched.on_retire(uid)
+            if self.prefix_cache is not None:
+                self.prefix_cache.invalidate_uid(uid)
             self.state.flush_sequence(uid)
-            self.fault_log.append({"uid": uid, "kind": "poison_row", "frame": frame,
-                                   "tokens_emitted": len(partial)})
-            logger.warning(f"serve(): uid={uid} quarantined at frame {frame}: "
-                           "non-finite logits")
+            self._fault_retire(uid, "poison_row", frame,
+                               "non-finite logits (in-frame finite check); row "
+                               "quarantined, siblings unaffected", partial=partial)
+
+    # ------------------------------------------------------------------
+    # KV hierarchy (kv_hierarchy.py): prefix-cache admission, copy-on-write,
+    # boundary publishing, swap-tier restore
+    # ------------------------------------------------------------------
+
+    def _drop_swap(self, uid: int) -> None:
+        """Drop a request's swap-tier record at terminal retirement."""
+        if self.kv_swap is not None:
+            self.kv_swap.drop_request(uid)
+
+    def _admit_capacity(self, uid: int, seq, toks, limit: int,
+                        boundary: int) -> Optional[int]:
+        """Reserve KV capacity for one admission (JAX ``_admit_capacity``).
+        Returns the admission watermark ``cached0`` (0 on the cold path) or
+        None when the pool cannot hold the request yet.
+
+        With the hierarchy off this is the plain capacity probe. With it
+        on, in order of preference: (1) a preempted victim whose pages sit
+        in the swap tier restores them into fresh blocks; (2) a prompt
+        matching published prefix blocks maps them read-only
+        (copy-on-write at a mid-block divergence), then the tier's prefix
+        records are probed; (3) cold. A deferred request keeps its mapped
+        shared blocks and its ``resume_cached`` mark, so the retry at the
+        next boundary resumes where it left off."""
+        total = len(toks) + limit + 1
+        if self.prefix_cache is None and self.kv_swap is None:
+            return 0 if self.state.ensure_capacity(seq, total) else None
+        chunk = self._config.prefill_chunk_size
+        # --- (1) swap-in re-admission ---
+        if self.kv_swap is not None and not seq.blocks:
+            rec = self.kv_swap.request_record(uid)
+            # the record's pages cover the first rec["tokens"] tokens of the
+            # folded stream; the content fingerprint is checked too, so a
+            # reused uid never restores another request's pages
+            if rec is not None and not (
+                    0 < rec["tokens"] <= len(toks)
+                    and rec.get("fingerprint") == token_fingerprint(toks[:rec["tokens"]])):
+                self.kv_swap.drop_request(uid)
+                rec = None
+            if rec is not None:
+                if not self._ensure_capacity_reclaim(seq, total):
+                    return None      # record kept: retry next boundary
+                try:
+                    self.kv_swap.restore_request(uid, self.kv, seq.blocks[:rec["blocks"]],
+                                                 draft_kv=self.draft_kv)
+                except (OSError, KeyError, ValueError) as e:
+                    self.kv_swap.drop_request(uid)
+                    self._fault_event("swap_failed", boundary,
+                                      f"uid={uid}: page restore failed "
+                                      f"({type(e).__name__}: {e}); re-prefilling")
+                else:
+                    self.kv_swap.drop_request(uid)
+                    cached0 = min(rec["tokens"], len(toks) - 1) // chunk * chunk
+                    seq.resume_cached = cached0
+                    self.telemetry.on_kv_swap_in(rec["blocks"], uid=uid)
+                    return cached0
+        # --- (2) prefix hit: the local cache first, then the tier's
+        # content-addressed prefix records; one probe per enqueue ---
+        cached0 = seq.resume_cached
+        if not seq.blocks and not seq.hier_probed and (
+                self.prefix_cache is not None
+                or (self.kv_swap is not None and self._config.tier_prefix_share)):
+            seq.hier_probed = True
+            if self.prefix_cache is not None:
+                cached0 = self._prefix_map(seq, toks)
+            if cached0 == 0 and self.kv_swap is not None and self._config.tier_prefix_share:
+                cached0 = self._tier_prefix_map(seq, toks, boundary)
+        # --- (3) fresh blocks for everything past the mapped prefix ---
+        if not self._ensure_capacity_reclaim(seq, total):
+            return None
+        seq.resume_cached = cached0
+        return cached0
+
+    def _ensure_capacity_reclaim(self, seq, total: int) -> bool:
+        """``ensure_capacity`` with one retry after evicting cold
+        unreferenced prefix-cache blocks (spilled to the swap tier when
+        there is one)."""
+        if self.state.ensure_capacity(seq, total):
+            return True
+        if self.prefix_cache is not None:
+            need = self.kv.blocks_for(total) - len(seq.blocks) - self.kv.free_blocks
+            if need > 0 and self.prefix_cache.reclaim(need) > 0 \
+                    and self.state.ensure_capacity(seq, total):
+                return True
+        return False
+
+    def _prefix_map(self, seq, toks) -> int:
+        """Map the longest usable published prefix into ``seq.blocks``:
+        full blocks below the chunk-aligned admission watermark are shared
+        read-only; a hit ending mid-block copies that page (copy-on-write,
+        for the draft's pools too) so the divergent continuation writes a
+        private copy. Returns the watermark (0 = miss). Chunk alignment
+        makes a hit replay the chunk boundaries of a cold admission."""
+        pc = self.prefix_cache
+        tel = self.telemetry
+        alloc = self.kv.allocator
+        bs = self.kv.block_size
+        chunk = self._config.prefill_chunk_size
+        full, partial = pc.match(toks)
+        # every matched entry is refcount 1 until mapped below: protect the
+        # whole chain so one entry's restore cannot reclaim a chain-mate
+        protect = {e.eid for e in full} | ({partial[0].eid} if partial else set())
+        usable = []
+        for e in full:
+            if not pc.ensure_resident(e, protect=protect):
+                break
+            usable.append(e)
+        partial_ok = partial if (
+            partial is not None and len(usable) == len(full)
+            and pc.ensure_resident(partial[0], protect=protect)) else None
+        matched = len(usable) * bs + (partial_ok[1] if partial_ok else 0)
+        cached0 = min(matched, len(toks) - 1) // chunk * chunk
+        n_full, mid = cached0 // bs, cached0 % bs
+        chain = usable + ([partial_ok[0]] if partial_ok else [])
+        if mid and alloc.free_blocks < 1 and \
+                not pc.reclaim(1, protect={e.eid for e in chain}):
+            # no page for the copy: shrink the hit to whole blocks, aligned
+            # to both the block and the chunk
+            align = bs * chunk // math.gcd(bs, chunk)
+            cached0 = n_full * bs // align * align
+            n_full, mid = cached0 // bs, 0
+        if cached0 <= 0:
+            tel.on_prefix_lookup(0, 0, False)
+            return 0
+        shared = [e.block for e in chain[:n_full]]
+        alloc.share(shared)
+        seq.blocks.extend(shared)
+        if mid:
+            src = chain[n_full].block
+            dst = alloc.allocate(1)[0]
+            self.kv.k, self.kv.v = self.kv.copy_blocks(self.kv.k, self.kv.v, [src], [dst])
+            if self.draft_kv is not None:
+                self.draft_kv.k, self.draft_kv.v = self.draft_kv.copy_blocks(
+                    self.draft_kv.k, self.draft_kv.v, [src], [dst])
+            seq.blocks.append(dst)
+            pc.stats["cow_copies"] += 1
+        pc.touch(chain[:n_full + (1 if mid else 0)], cached0)
+        tel.on_prefix_lookup(cached0, n_full + (1 if mid else 0), mid > 0)
+        # the watermark goes on the descriptor the moment blocks are
+        # mapped: a deferred admission must resume at cached0, never
+        # prefill from 0 into the shared (read-only) pages
+        seq.resume_cached = cached0
+        # the mapped full blocks are published entries: this row's first
+        # boundary publish resumes after them
+        seq.published_upto = n_full * bs
+        seq.publish_parent = chain[n_full - 1].eid if n_full else -1
+        return cached0
+
+    def _publish_prefixes(self, slots) -> None:
+        """Frame-boundary publish: every live row's full blocks below its
+        committed watermark enter the prefix index; then the cache's
+        bookkeeping deltas go to the telemetry counters."""
+        pc = self.prefix_cache
+        if pc is None:
+            return
+        bs = self.kv.block_size
+        for uid, slot in list(slots.slot_of_uid.items()):
+            seq = self.state.seqs.get(uid)
+            ent = self._ledger.get(uid)
+            if seq is None or ent is None or not seq.blocks:
+                continue
+            w = int(slots.cached_h[slot])
+            lo = seq.published_upto // bs * bs
+            if w // bs * bs <= lo:
+                continue                     # no newly committed full block
+            # hand publish only the unpublished suffix of the stream
+            pl = len(ent.prompt)
+            seg = seq.generated[lo - pl:] if lo >= pl else ent.prompt[lo:] + seq.generated
+            _, seq.publish_parent, d_done = pc.publish(
+                uid, seg, seq.blocks, w, start_depth=lo // bs, parent=seq.publish_parent)
+            # advance only as far as the walk got: an early stop must retry
+            # those depths, never skip them
+            seq.published_upto = d_done * bs
+        s = dict(pc.stats)
+        base = self._pc_stats_base or {k: 0 for k in s}
+        self.telemetry.on_prefix_update(
+            s["published"] - base["published"], s["evicted"] - base["evicted"],
+            s["swapped_out"] - base["swapped_out"], s["swapped_in"] - base["swapped_in"],
+            pc.resident_blocks())
+        self._pc_stats_base = s
+
+    def _drain_swap_boundary(self, boundary: int) -> None:
+        """Frame-boundary drain of the async swap-out commits queued at the
+        previous boundary (their writes overlapped the frame in between);
+        a drain failure drops the queued records, whose victims then
+        re-prefill, and is recorded as a ``swap_failed`` fault."""
+        tier = self.kv_swap
+        if tier is None:
+            return
+        try:
+            tier.drain(blocking=False)
+        except OSError as e:
+            self._fault_event("swap_failed", boundary,
+                              f"async swap-out commit failed ({type(e).__name__}: {e}); "
+                              "queued records dropped, victims will re-prefill")
+        if not tier.shared and self.telemetry.enabled:
+            s, base = tier.stats, self._tier_stats_base or {}
+            self.telemetry.on_kv_swap_commits(
+                s["commits_overlapped"] - base.get("commits_overlapped", 0),
+                s["commits_blocking"] - base.get("commits_blocking", 0))
+            self._tier_stats_base = dict(s)
+
+    def _tier_prefix_map(self, seq, toks, boundary: int) -> int:
+        """Match the prompt against the tier's content-addressed prefix
+        records and restore the hit pages into fresh private blocks.
+        Returns the chunk-aligned admission watermark (0 = miss)."""
+        chunk = self._config.prefill_chunk_size
+        hit = self.kv_swap.match_prefix(toks, chunk)
+        if hit is None:
+            return 0
+        key, rec = hit
+        cached0 = min(rec["tokens"], len(toks) - 1) // chunk * chunk
+        if cached0 <= 0:
+            return 0
+        n = self.kv.blocks_for(cached0)
+        if self.kv.allocator.free_blocks < n and self.prefix_cache is not None:
+            self.prefix_cache.reclaim(n - self.kv.allocator.free_blocks)
+        if self.kv.allocator.free_blocks < n:
+            return 0
+        blocks = self.kv.allocator.allocate(n)
+        try:
+            self.kv_swap.restore_prefix(key, self.kv, blocks, draft_kv=self.draft_kv)
+        except (OSError, KeyError, ValueError) as e:
+            self.kv.allocator.free(blocks)
+            self._fault_event("swap_failed", boundary,
+                              f"tier prefix restore failed ({type(e).__name__}: {e}); "
+                              "admitting cold")
+            return 0
+        seq.blocks.extend(blocks)
+        seq.resume_cached = cached0
+        self.telemetry.on_tier_prefix_hit(cached0, n)
+        return cached0
+
+    # ------------------------------------------------------------------
+    # the serving loops
+    # ------------------------------------------------------------------
+
+    def _poll(self, arrivals, exhausted: bool, ewma: float):
+        """One arrival poll: (batch or None, exhausted, ewma)."""
+        alpha = self._config.frame_steps_ewma_alpha
+        if exhausted:
+            return None, True, (1.0 - alpha) * ewma
+        try:
+            batch = next(arrivals)
+        except StopIteration:
+            exhausted, batch = True, None
+        return batch, exhausted, alpha * len(batch or []) + (1.0 - alpha) * ewma
+
+    def _plan_frame(self, slots, steps, adaptive, ewma, cap=None):
+        """Frame plan: wide while any slot prefills, else width 1 (the
+        draft/verify frames when a draft rides); the frame length is the
+        adaptive bucket, capped by the scheduler's pressure signal."""
+        width = self._config.prefill_chunk_size if slots.any_prefilling() else 1
+        saturated = slots.free_slots() == 0
+        cur_steps = self._pick_frame_steps(ewma, steps, saturated) if adaptive else steps
+        if cap is not None:
+            cur_steps = min(cur_steps, cap)
+        self.telemetry.on_frame_plan(ewma, saturated, cur_steps)
+        return width, cur_steps
+
+    def _absorb(self, slots, toks, emit, width):
+        """Host replay of a frame: extend each row's tokens, advance its
+        committed watermark (rejected drafts never count as seen), report
+        the emissions; returns the finished uids."""
+        emissions, finished = slots.absorb(toks, emit, width)
+        for uid, new_toks in emissions.items():
+            seq = self.state.seqs[uid]
+            seq.generated.extend(new_toks)
+            seq.seen_tokens = int(slots.committed_h[slots.slot_of_uid[uid]])
+            self.telemetry.on_emit(uid, len(new_toks))
+        self._publish_prefixes(slots)
+        return finished
+
+    def _retire(self, slots, uid, sched=None):
+        seq = self.state.seqs[uid]
+        seq.done = True
+        out = np.asarray(seq.generated, np.int64)
+        slots.retire(uid)
+        self.state.flush_sequence(uid)
+        if sched is not None:
+            sched.on_retire(uid)
+        self._ledger.pop(uid, None)
+        self._drop_swap(uid)
+        self.telemetry.on_retire(uid)
+        return out
 
     def _serve_loop(self, slots, arrivals, pending, steps, max_new_tokens,
                     temperature, eos_token_id, adaptive, draft):
-        c = self._config
-        alpha = c.frame_steps_ewma_alpha
+        tel = self.telemetry
         ewma = 0.0
         exhausted = False
         boundary = -1
         while True:
             boundary += 1
-            if exhausted:
-                batch = None
-                ewma = (1.0 - alpha) * ewma
-            else:
-                try:
-                    batch = next(arrivals)
-                except StopIteration:
-                    exhausted = True
-                    batch = None
-                ewma = alpha * len(batch or []) + (1.0 - alpha) * ewma
-                # validate at enqueue, before any KV is reserved this round
-                for item in (batch or []):
-                    uid, toks, limit, temp, eos = self._norm_arrival(
-                        item, max_new_tokens, temperature, eos_token_id)
-                    limit = self._validate_arrival(
-                        uid, toks, limit,
-                        in_flight=uid in slots.slot_of_uid or
-                        any(p[0] == uid for p in pending))
-                    pending.append((uid, toks, limit, temp, eos))
+            # commit the async swap-out writes queued at the previous boundary
+            self._drain_swap_boundary(boundary)
+            batch, exhausted, ewma = self._poll(arrivals, exhausted, ewma)
+            # validate at enqueue, before any KV is reserved this round
+            for item in (batch or []):
+                uid, toks, limit, temp, eos, *_ = self._norm_arrival(
+                    item, max_new_tokens, temperature, eos_token_id)
+                limit = self._validate_arrival(
+                    uid, toks, limit,
+                    in_flight=uid in slots.slot_of_uid or any(p[0] == uid for p in pending))
+                pending.append((uid, toks, limit, temp, eos))
+                self._ledger_add(uid, toks, limit, temp, eos)
+                self._enqueue_traced(uid)
             # ---- admission control (FIFO; blocks reserved up front, so
             # block tables never grow mid-flight) ----
             admits = []
+            blocks_before = self.kv.free_blocks
             while pending and len(admits) < slots.free_slots():
                 uid, toks, limit, temp, eos = pending[0]
                 seq = self.state.get_or_create_sequence(uid)
-                if not self._admit_capacity(seq, toks, limit):
+                cached0 = self._admit_capacity(uid, seq, toks, limit, boundary)
+                if cached0 is None:
                     if slots.live_count() == 0 and not admits:
                         raise RuntimeError(
                             f"uid={uid}: prompt + budget can never fit the "
@@ -698,7 +1169,15 @@ class InferenceEngineV2:
                     break        # wait for retirements to free blocks
                 pending.popleft()
                 seq.done = False
-                admits.append((uid, seq, toks, limit, temp, eos))
+                admits.append((uid, seq, toks, limit, temp, eos, cached0))
+                tel.on_admit(uid)
+            if pending:
+                # overload is otherwise invisible: count it and warn
+                tel.on_defer(queue_depth=len(pending),
+                             frame_steps=tel.serve_view["frame_steps_last"] or steps,
+                             free_slots=slots.free_slots() - len(admits),
+                             free_blocks=self.kv.free_blocks,
+                             reserved_blocks=blocks_before - self.kv.free_blocks)
             if admits:
                 slots.ensure_widths(max(len(a[2]) for a in admits),
                                     max(len(a[1].blocks) for a in admits),
@@ -708,33 +1187,142 @@ class InferenceEngineV2:
                 if exhausted and not pending:
                     return
                 continue         # arrival gap: poll again
-            # ---- frame plan: wide while any slot prefills, else decode
-            # (the draft/verify frames when a draft rides) ----
-            width = c.prefill_chunk_size if slots.any_prefilling() else 1
-            cur_steps = steps
-            if adaptive:
-                cur_steps = self._pick_frame_steps(ewma, steps, slots.free_slots() == 0)
-            toks, emit, nonfinite, stats = slots.run_frame(
-                self.runner, self.params, self.kv, width, cur_steps,
-                slots.all_greedy(), draft=draft)
-            for name, n in zip(STAT_NAMES, stats):
-                self.serve_counters[name] += int(n)
+            width, cur_steps = self._plan_frame(slots, steps, adaptive, ewma)
+            toks, emit, nonfinite = self._run_frame(slots, width, cur_steps, ewma,
+                                                    len(pending), draft)
             # quarantine before the host replay: a poisoned row's slot is
             # freed here, so absorb neither emits nor retires it
-            self._handle_nonfinite(slots, nonfinite, boundary)
-            emissions, finished = slots.absorb(toks, emit, width)
-            for uid, new_toks in emissions.items():
-                seq = self.state.seqs[uid]
-                seq.generated.extend(new_toks)
-                # the committed watermark: rejected drafts never count as seen
-                seq.seen_tokens = int(slots.committed_h[slots.slot_of_uid[uid]])
-            for uid in finished:
-                seq = self.state.seqs[uid]
-                seq.done = True
-                out = np.asarray(seq.generated, np.int64)
-                slots.retire(uid)
-                self.state.flush_sequence(uid)
-                yield uid, out
+            self._quarantine_rows(slots, nonfinite, boundary)
+            for uid in self._absorb(slots, toks, emit, width):
+                yield uid, self._retire(slots, uid)
+
+    def _evict_to_queue(self, uid, slots, sched, boundary: int = -1):
+        """Preempt a live row at a frame boundary: freeze its slot, release
+        its KV blocks, fold its emitted tokens into the request's prompt and
+        re-queue it at the front of its class/tenant queue. Re-admission
+        re-prefills the committed prefix, unless the swap tier is on: then
+        the victim's committed pages are swapped out here (one device read
+        per pool) and swapped back in at re-admission."""
+        seq = self.state.seqs[uid]
+        req = sched.on_evict(uid)
+        emitted = seq.generated[req.gen_base:]
+        if emitted:
+            req.tokens = np.concatenate([np.asarray(req.tokens, np.int32),
+                                         np.asarray(emitted, np.int32)])
+            req.limit -= len(emitted)
+        if self.kv_swap is not None and self._config.kv_swap_preempt and seq.blocks:
+            # committed watermark: pages cover the first w tokens of the
+            # folded stream (the newest emitted token is not in KV yet)
+            w = int(slots.committed_h[slots.slot_of_uid[uid]])
+            n = self.kv.blocks_for(w)
+            if 0 < w <= len(req.tokens) and n <= len(seq.blocks):
+                try:
+                    # async: the page writes ride the aio queue and commit at
+                    # the next boundary's drain; the device read is done, so
+                    # freeing the blocks below is safe
+                    self.kv_swap.put_request(uid, w, self.kv, seq.blocks[:n],
+                                             draft_kv=self.draft_kv,
+                                             fingerprint=token_fingerprint(req.tokens[:w]),
+                                             async_commit=self._config.kv_swap_async)
+                    self.telemetry.on_kv_swap_out(n, uid=uid)
+                except OSError as e:
+                    self._fault_event("swap_failed", boundary,
+                                      f"uid={uid}: page swap-out failed "
+                                      f"({type(e).__name__}: {e}); victim will re-prefill")
+        slots.evict(uid)
+        seq.resume_cached = 0           # the mapped pages are going away
+        seq.hier_probed = False         # re-admission probes the cache anew
+        if seq.blocks:
+            self.kv.allocator.free(seq.blocks)
+            seq.blocks = []
+        sched.requeue_front(req)
+        self.telemetry.on_preempt(uid, req.tenant, PRIORITY_NAMES[req.priority])
+
+    def _serve_loop_sched(self, slots, arrivals, sched, steps, max_new_tokens,
+                          temperature, eos_token_id, adaptive, draft):
+        """The scheduler-driven twin of ``_serve_loop``: the same frames and
+        retirement, with enqueue and admission through the
+        ``RequestScheduler``, an SLO control pass, preemption and
+        pressure-capped frame lengths at each boundary."""
+        tel = self.telemetry
+        ewma = 0.0
+        exhausted = False
+        boundary = -1
+        while True:
+            boundary += 1
+            self._drain_swap_boundary(boundary)
+            batch, exhausted, ewma = self._poll(arrivals, exhausted, ewma)
+            for item in (batch or []):
+                uid, toks, limit, temp, eos, tenant, prio, slo_ms = self._norm_arrival(
+                    item, max_new_tokens, temperature, eos_token_id)
+                limit = self._validate_arrival(
+                    uid, toks, limit,
+                    in_flight=uid in slots.slot_of_uid or sched.is_queued(uid))
+                prio = normalize_priority(prio)
+                tenant = tenant or "default"
+                self._ledger_add(uid, toks, limit, temp, eos, tenant=tenant,
+                                 priority=PRIORITY_NAMES[prio], slo_ms=slo_ms)
+                self._enqueue_traced(uid, tenant=tenant, pclass=PRIORITY_NAMES[prio])
+                shed = sched.submit(Request(uid=uid, tokens=toks, limit=limit, temp=temp,
+                                            eos=eos, tenant=tenant, priority=prio,
+                                            slo_ms=slo_ms))
+                if shed is not None:
+                    tel.on_shed(uid, shed.tenant, shed.priority, shed.reason)
+                    self._ledger.pop(uid, None)
+            # ---- SLO control pass: age queues, recompute pressure, shed
+            # best-effort work under critical pressure ----
+            for shed in sched.on_boundary(tel.slo_view(), live_count=slots.live_count()):
+                tel.on_shed(shed.uid, shed.tenant, shed.priority, shed.reason)
+                # a shed request may hold a blockless descriptor left by a
+                # failed capacity probe: drop it (and any swap record)
+                self.state.flush_sequence(shed.uid)
+                self._ledger.pop(shed.uid, None)
+                self._drop_swap(shed.uid)
+            tel.gauges["slo_risk"] = round(sched.risk, 4)
+            # ---- preemption: make room for a queued interactive arrival
+            # by evicting a lower-priority live row ----
+            if sched.preempt_wanted(slots.free_slots()):
+                committed = {u: int(slots.committed_h[s]) for u, s in slots.slot_of_uid.items()}
+                for uid in sched.pick_victims(committed, free_blocks=self.kv.free_blocks):
+                    self._evict_to_queue(uid, slots, sched, boundary)
+            # ---- policy admission (strict priority + fair share) ----
+            blocks_before = self.kv.free_blocks
+
+            def try_reserve(req):
+                seq = self.state.get_or_create_sequence(req.uid)
+                cached0 = self._admit_capacity(req.uid, seq, req.tokens, req.limit, boundary)
+                return None if cached0 is None else (seq, cached0)
+
+            admits = []
+            for req, (seq, cached0) in sched.pick(slots.free_slots(), try_reserve,
+                                                  live_count=slots.live_count()):
+                seq.done = False
+                req.gen_base = len(seq.generated)
+                admits.append((req.uid, seq, req.tokens, req.limit, req.temp, req.eos,
+                               cached0))
+                tel.on_admit(req.uid)
+            if sched.queued_count():
+                tel.on_defer(queue_depth=sched.queued_count(),
+                             frame_steps=tel.serve_view["frame_steps_last"] or steps,
+                             free_slots=slots.free_slots() - len(admits),
+                             free_blocks=self.kv.free_blocks,
+                             reserved_blocks=blocks_before - self.kv.free_blocks)
+            if admits:
+                slots.ensure_widths(max(len(a[2]) for a in admits),
+                                    max(len(a[1].blocks) for a in admits),
+                                    self.max_seq_len, self.max_blocks_per_seq)
+                slots.admit(admits)
+            if slots.live_count() == 0:
+                if exhausted and not sched.queued_count():
+                    return
+                continue
+            width, cur_steps = self._plan_frame(slots, steps, adaptive, ewma,
+                                                cap=sched.frame_steps_cap(steps))
+            toks, emit, nonfinite = self._run_frame(slots, width, cur_steps, ewma,
+                                                    sched.queued_count(), draft)
+            self._quarantine_rows(slots, nonfinite, boundary, sched=sched)
+            for uid in self._absorb(slots, toks, emit, width):
+                yield uid, self._retire(slots, uid, sched)
 
 
 def _is_quantized(tree) -> bool:

@@ -31,6 +31,19 @@ class DSSequenceDescriptor:
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     slot: int = -1                  # decode-slot index, -1 = not resident
+    # KV hierarchy (kv_hierarchy.py): tokens whose pages are already valid
+    # at admission (mapped prefix-cache blocks or swapped-in pages); prefill
+    # starts here. Reset when the blocks are released (preemption).
+    resume_cached: int = 0
+    # the prefix cache is probed once per enqueue (a deferred miss stays a
+    # miss across retries)
+    hier_probed: bool = False
+    # stream position this row has published prefix blocks up to, and the
+    # chain entry id there (the publish walk resumes from it)
+    published_upto: int = 0
+    publish_parent: int = -1        # kv_hierarchy.CHAIN_ROOT
+    # (JAX's tier_blocks / tier_final / tier_partial marks belong to the
+    # prefill role's handoff pipeline and wait for ROADMAP §A item 12)
 
     @property
     def in_prefill(self) -> bool:
@@ -187,20 +200,31 @@ class DeviceSlotTable:
 
     def admit(self, items: List[Tuple]) -> None:
         """Admit arrivals into free slots: ``items`` is a list of
-        (uid, seq, prompt_tokens, limit, temperature, eos_id). Device writes
-        are batched: one indexed store per tensor, however many arrive."""
+        (uid, seq, prompt_tokens, limit, temperature, eos_id[, cached0]).
+        ``cached0`` (default 0) is the KV-hierarchy admission watermark:
+        tokens whose pages are already valid in the row's block table
+        (mapped prefix-cache blocks or swapped-in pages); the frame starts
+        the row's prefill there, as it resumes a mid-prefill row. Device
+        writes are batched: one indexed store per tensor, however many
+        arrive, into the tensors in place (on the card, the static buffers
+        of the captured steps)."""
         free = [i for i in range(self.n_slots) if self.uid_of_slot[i] < 0]
         assert len(items) <= len(free), "admit() beyond free slots"
         p_w = int(self.prompts.shape[1])
         t_w = int(self.tables.shape[1])
         rows, p_rows, t_rows = [], [], []
-        plens, lims, eoss, temps = [], [], [], []
-        for (uid, seq, toks, limit, temp, eos), slot in zip(items, free):
+        plens, lims, eoss, temps, cacheds = [], [], [], [], []
+        for item, slot in zip(items, free):
+            (uid, seq, toks, limit, temp, eos), rest = item[:6], item[6:]
+            cached0 = int(rest[0]) if rest else 0
             toks = np.asarray(toks, np.int32).reshape(-1)
+            if not 0 <= cached0 < max(len(toks), 1):
+                raise ValueError(f"uid={uid}: admission watermark {cached0} must "
+                                 f"leave a token of its {len(toks)} to prefill")
             self.uid_of_slot[slot] = uid
             self.slot_of_uid[uid] = slot
             seq.slot = slot
-            self.cached_h[slot] = 0
+            self.cached_h[slot] = cached0
             self.plen_h[slot] = len(toks)
             self.produced_h[slot] = 0
             self.limit_h[slot] = limit
@@ -216,6 +240,7 @@ class DeviceSlotTable:
             lims.append(limit)
             eoss.append(-1 if eos is None else eos)
             temps.append(temp)
+            cacheds.append(cached0)
         idx = self._dev(rows, torch.long)
         self.prompts[idx] = self._dev(np.stack(p_rows), torch.int32)
         self.tables[idx] = self._dev(np.stack(t_rows), torch.int32)
@@ -223,7 +248,8 @@ class DeviceSlotTable:
         self.limits[idx] = self._dev(lims, torch.int32)
         self.eos_ids[idx] = self._dev(eoss, torch.int32)
         self.temps[idx] = self._dev(temps, torch.float32)
-        for t in (self.cached, self.produced, self.last_tok, self.penult):
+        self.cached[idx] = self._dev(cacheds, torch.int32)
+        for t in (self.produced, self.last_tok, self.penult):
             t[idx] = 0
         self.done[idx] = False
         # a slot freed by quarantine must not hand its flags to the next row

@@ -1,0 +1,608 @@
+"""SLO-aware request scheduler for the frame serving loop.
+
+Mirrors ``deepspeed_tpu/inference/v2/scheduler.py``, all of it (numpy and
+the standard library only): ``RequestScheduler`` replaces the FIFO
+admission deque of ``serve()`` with a policy object owning
+
+1. **Priority classes** (``interactive`` / ``batch`` / ``best_effort``) with
+   strict-priority dispatch and aging: a request's effective class improves
+   by one level every ``aging_frames`` frame boundaries it waits.
+2. **Per-tenant weighted fair share** over KV-block cost, in virtual time,
+   with per-tenant quotas on live slots and queue depth.
+3. **SLO-aware shedding and deferral** from the windowed TTFT / queue-wait
+   p90 of ``telemetry.slo_view()``, which also caps the frame length.
+4. **Frame-boundary preemption**: an interactive arrival with no free slot
+   evicts a live lower-priority row back to the queue; re-admission
+   re-prefills its committed prefix, or restores its pages from the swap
+   tier (``kv_hierarchy.KVSwapTier``).
+5. **Admission lookahead** (off by default): free slots held back for
+   EWMA-predicted interactive arrivals.
+
+Everything here runs on the host at frame boundaries.
+"""
+
+import dataclasses
+import logging
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from .kv_cache import BlockedKVCache
+
+logger = logging.getLogger(__name__)
+
+# priority classes, strict dispatch order (lower = more urgent)
+INTERACTIVE, BATCH, BEST_EFFORT = 0, 1, 2
+PRIORITY_NAMES = ("interactive", "batch", "best_effort")
+N_PRIORITIES = len(PRIORITY_NAMES)
+
+
+def normalize_priority(p) -> int:
+    """Accept a class name, an int level, or None (-> interactive)."""
+    if p is None:
+        return INTERACTIVE
+    if isinstance(p, str):
+        try:
+            return PRIORITY_NAMES.index(p)
+        except ValueError:
+            raise ValueError(
+                f"unknown priority {p!r}: expected one of {PRIORITY_NAMES}")
+    p = int(p)
+    if not 0 <= p < N_PRIORITIES:
+        raise ValueError(f"priority {p} out of range 0..{N_PRIORITIES - 1}")
+    return p
+
+
+@dataclasses.dataclass
+class SchedulerConfig:
+    """Policy knobs for ``RequestScheduler`` (see module docstring)."""
+    # TTFT SLO target in ms; None disables the pressure control loop (the
+    # scheduler still does priorities, fair-share, quotas, and preemption).
+    # A queued/live interactive request's per-request ``slo_ms`` tightens
+    # the effective target below this.
+    slo_ttft_ms: Optional[float] = None
+    slo_defer_threshold: float = 0.8    # risk ratio: defer batch/best-effort
+    slo_shed_threshold: float = 1.0     # risk ratio: shed best-effort
+    # frame boundaries a queued request waits before its effective class
+    # improves one level (starvation bound: best_effort reaches interactive
+    # after 2 * aging_frames boundaries)
+    aging_frames: int = 32
+    # tenant -> fair-share weight (virtual time advances cost/weight per
+    # admission, so weight 2 earns 2x the KV-block service of weight 1
+    # under contention); unlisted tenants weigh 1.0
+    tenant_weights: Dict[str, float] = dataclasses.field(default_factory=dict)
+    tenant_max_live: Optional[int] = None     # live slots per tenant
+    tenant_max_queued: Optional[int] = None   # queue depth per tenant
+    preemption: bool = True
+    max_preempts_per_frame: int = 1
+    shed_log_max: int = 256
+    # admission LOOKAHEAD: reserve free slots for
+    # EWMA-predicted interactive arrivals, so a batch/best-effort burst
+    # that lands an instant before a predicted chat arrival cannot fill
+    # the frame and force a preemption (or a frame of queue-wait) the
+    # prediction could have avoided. Per boundary the scheduler tracks an
+    # EWMA of fresh interactive submissions; ``ceil(ewma)`` slots (capped
+    # by ``lookahead_max_reserve``, and always leaving at least one slot
+    # admissible) are then invisible to effective-batch/best-effort
+    # admissions. Interactive and AGED requests ignore the reserve
+    # (anti-starvation outranks lookahead, exactly as it outranks
+    # deferral). Off by default: reserving slots trades batch throughput
+    # for interactive TTFT.
+    lookahead_reserve: bool = False
+    lookahead_ewma_alpha: float = 0.25
+    lookahead_max_reserve: int = 2
+
+    def __post_init__(self):
+        if self.aging_frames < 1:
+            raise ValueError("aging_frames must be >= 1")
+        if any(w <= 0 for w in self.tenant_weights.values()):
+            raise ValueError("tenant_weights must be > 0")
+        if self.tenant_max_live is not None and self.tenant_max_live < 1:
+            raise ValueError("tenant_max_live must be >= 1 (0 would deadlock "
+                             "an idle table against its own quota)")
+        if not 0.0 < self.lookahead_ewma_alpha <= 1.0:
+            raise ValueError("lookahead_ewma_alpha must be in (0, 1]")
+        if self.lookahead_max_reserve < 0:
+            raise ValueError("lookahead_max_reserve must be >= 0")
+        if not (self.slo_defer_threshold <= self.slo_shed_threshold):
+            raise ValueError("slo_defer_threshold must be <= "
+                             "slo_shed_threshold (defer is the milder action)")
+
+
+@dataclasses.dataclass
+class Request:
+    """One queued/live serving request plus its scheduling metadata.
+
+    ``tokens``/``limit`` are the *current* prefill prompt and remaining
+    budget: preemption folds already-emitted tokens into ``tokens`` and
+    shrinks ``limit``, so re-admission re-prefills the committed prefix and
+    continues — ``gen_base`` marks how many entries of the engine-side
+    descriptor's ``generated`` list predate the current admission."""
+    uid: int
+    tokens: np.ndarray
+    limit: int
+    temp: float
+    eos: Optional[int]
+    tenant: str = "default"
+    priority: int = INTERACTIVE
+    slo_ms: Optional[float] = None
+    seq_no: int = 0            # global arrival order (FIFO tie-break)
+    round0: int = 0            # boundary index at (re-)enqueue, for aging
+    gen_base: int = 0
+    preempts: int = 0
+    # re-admission metadata (router failover / crash resume): committed
+    # tokens this request carried INTO this engine, and whether it is a
+    # resume at all — a resumed request was already accepted once, so like
+    # a preempted one it is work the pressure loop must never shed (its
+    # quota bypass happens at submit; the flag protects it from
+    # slo_pressure sheds afterwards). The flag is separate from the token
+    # count because a QUEUED request migrating off a drained/killed
+    # replica resumes with zero committed tokens yet was still accepted.
+    resumed_from: int = 0
+    resumed: bool = False
+
+
+@dataclasses.dataclass
+class ShedReason:
+    """Structured rejection record (``RequestScheduler.shed_log``)."""
+    uid: int
+    tenant: str
+    priority: str              # class NAME, for log/export readability
+    reason: str                # "slo_pressure" | "tenant_queue_full"
+    risk: float
+    queue_depth: int
+    ttft_p90_ms: Optional[float]
+    slo_ms: Optional[float]
+    # monotonic shed time: orders shed records against the crash flight
+    # recorder's event ring (tracing.py) in a postmortem bundle
+    t: Optional[float] = None
+
+
+class RequestScheduler:
+    """SLO-aware admission policy for ``InferenceEngineV2.serve``.
+
+    Pass an instance as ``serve(..., scheduler=...)``. One scheduler drives
+    one serve generator at a time (``begin_serve`` resets queue state); the
+    ``shed_log`` and summary counters survive across runs for inspection.
+    """
+
+    def __init__(self, config: Optional[SchedulerConfig] = None,
+                 clock: Optional[Callable[[], float]] = None):
+        self.cfg = config or SchedulerConfig()
+        # injectable clock (sim/ virtual time): ShedReason.t is the only
+        # wall-clock read in the policy; None adopts the bound engine's
+        # clock at begin_serve (so a virtual-clocked engine stamps sheds
+        # in virtual time without the caller threading it twice)
+        self._clock: Optional[Callable[[], float]] = clock
+        self.shed_log: deque = deque(maxlen=self.cfg.shed_log_max)
+        self.summary: Dict = {
+            "admitted_by_class": {n: 0 for n in PRIORITY_NAMES},
+            "shed_by_class": {n: 0 for n in PRIORITY_NAMES},
+            "preempted": 0,
+        }
+        self._blocks_for: Optional[Callable[[int], int]] = None
+        self._telemetry = None
+        self._reset_queues()
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+
+    def _reset_queues(self) -> None:
+        # (base class, tenant) -> FIFO deque of Requests; within a queue the
+        # head is the oldest arrival, hence also the most aged
+        self._queues: Dict[Tuple[int, str], deque] = {}
+        self._queued_uids: set = set()
+        self._live: Dict[int, Request] = {}
+        self._live_by_tenant: Dict[str, int] = {}
+        # fair-share virtual time: blocks served / weight, per tenant; the
+        # furthest-behind tenant admits first within a priority class
+        self._vtime: Dict[str, float] = {}
+        self._vclock = 0.0          # running max vtime (idle-return floor)
+        self._seq_no = 0
+        self._round = 0
+        self.risk = 0.0
+        self.pressure = 0          # 0 ok / 1 defer / 2 shed
+        # admission lookahead: fresh interactive submissions since the
+        # last boundary, and their per-boundary EWMA (the slot-reserve
+        # predictor)
+        self._ia_seen = 0
+        self._ia_ewma = 0.0
+
+    def begin_serve(self, engine) -> None:
+        """Bind to an engine for one serve run (called by ``serve()``)."""
+        self._reset_queues()
+        self._blocks_for = engine.kv.blocks_for
+        self._telemetry = engine.telemetry
+        if self._clock is None:
+            self._clock = getattr(engine, "_clock", None)
+        if self.cfg.slo_ttft_ms is not None and not engine.telemetry.enabled:
+            logger.warning(
+                "RequestScheduler: slo_ttft_ms is set but engine telemetry "
+                "is disabled — the TTFT/queue-wait pressure signal will "
+                "never fire, so SLO shedding/deferral stays inert "
+                "(priorities, fair-share, quotas, preemption still apply)")
+
+    # ------------------------------------------------------------------
+    # queue state queries
+    # ------------------------------------------------------------------
+
+    def queued_count(self) -> int:
+        return len(self._queued_uids)
+
+    def is_queued(self, uid: int) -> bool:
+        return uid in self._queued_uids
+
+    def queued_uids(self) -> List[int]:
+        return [r.uid for q in self._queues.values() for r in q]
+
+    def queued_prompt_tokens(self) -> int:
+        """Prompt tokens waiting across every class/tenant queue — the
+        ``ServeBoundary.queued_tokens`` signal a disaggregated router
+        scores prefill replicas by (a prefill replica's backlog is
+        TOKENS to chew through, not request count)."""
+        return sum(len(r.tokens) for q in self._queues.values() for r in q)
+
+    def live_request(self, uid: int) -> Optional[Request]:
+        return self._live.get(uid)
+
+    def _weight(self, tenant: str) -> float:
+        w = self.cfg.tenant_weights.get(tenant, 1.0)
+        return max(w, 1e-6)
+
+    def _cost(self, req: Request) -> int:
+        """Fair-share cost of a request: the KV blocks its admission
+        reserves (full prompt + generation budget + lookahead slot)."""
+        return max(1, self._blocks_for(len(req.tokens) + req.limit + 1))
+
+    def _eff(self, req: Request) -> int:
+        """Effective class after aging: one level per ``aging_frames``
+        boundaries waited since (re-)enqueue."""
+        aged = (self._round - req.round0) // self.cfg.aging_frames
+        return max(INTERACTIVE, req.priority - aged)
+
+    # ------------------------------------------------------------------
+    # ingest
+    # ------------------------------------------------------------------
+
+    def _tenant_active(self, tenant: str) -> bool:
+        return self._live_by_tenant.get(tenant, 0) > 0 or \
+            any(q and t == tenant for (c, t), q in self._queues.items())
+
+    def _sync_vtime(self, tenant: str) -> None:
+        """A tenant (re)turning from idle must not cash in the virtual time
+        it 'saved' while absent: floor it to the most-behind ACTIVE tenant
+        (or the global clock when it is alone) so it competes fairly from
+        now, without a catch-up burst."""
+        others = [self._vtime.get(t, 0.0)
+                  for t in set(list(self._live_by_tenant) +
+                               [t for (c, t), q in self._queues.items() if q])
+                  if t != tenant and self._tenant_active(t)]
+        floor = min(others) if others else self._vclock
+        self._vtime[tenant] = max(self._vtime.get(tenant, 0.0), floor)
+
+    def submit(self, req: Request,
+               bypass_quota: bool = False) -> Optional[ShedReason]:
+        """Enqueue an arrival; returns a ``ShedReason`` (and does NOT
+        enqueue) when the tenant's queue quota rejects it.
+
+        ``bypass_quota`` is the crash-recovery resume path: a resumed
+        request was already ACCEPTED by the crashed run (tokens may have
+        been emitted and committed), so ``tenant_max_queued`` — an
+        admission-time back-pressure knob — must not shed it on re-entry
+        and silently drop the committed work (the ``requeue_front``
+        precedent: preempted mid-flight work never re-faces the quota)."""
+        cfg = self.cfg
+        if not bypass_quota and cfg.tenant_max_queued is not None:
+            depth = sum(len(q) for (c, t), q in self._queues.items()
+                        if t == req.tenant)
+            if depth >= cfg.tenant_max_queued:
+                return self._shed(req, "tenant_queue_full")
+        if not self._tenant_active(req.tenant):
+            self._sync_vtime(req.tenant)
+        req.seq_no = self._seq_no
+        self._seq_no += 1
+        req.round0 = self._round
+        if req.priority == INTERACTIVE and not req.resumed:
+            # lookahead predictor input: fresh interactive demand (resumes
+            # are failover bookkeeping, not new arrival-rate signal)
+            self._ia_seen += 1
+        key = (req.priority, req.tenant)
+        self._queues.setdefault(key, deque()).append(req)
+        self._queued_uids.add(req.uid)
+        return None
+
+    def requeue_front(self, req: Request) -> None:
+        """Put a preempted request back at the FRONT of its class/tenant
+        queue (it already waited once); aging restarts from now."""
+        req.round0 = self._round
+        key = (req.priority, req.tenant)
+        self._queues.setdefault(key, deque()).appendleft(req)
+        self._queued_uids.add(req.uid)
+
+    def cancel(self, uid: int) -> Optional[Request]:
+        """Remove a QUEUED request outright (deadline expiry — the engine
+        enforces ``deadline_ms`` at frame boundaries and cancels expired
+        work here BEFORE it can be preempted for, aged, or admitted).
+        Returns the removed request, or None if ``uid`` is not queued.
+        No shed record: the caller retires it with a structured
+        ``FaultReason`` instead."""
+        if uid not in self._queued_uids:
+            return None
+        for q in self._queues.values():
+            for r in q:
+                if r.uid == uid:
+                    q.remove(r)
+                    self._queued_uids.discard(uid)
+                    return r
+        self._queued_uids.discard(uid)     # defensive: set/queue desync
+        return None
+
+    def _shed(self, req: Request, reason: str) -> ShedReason:
+        slo = self._telemetry.slo_view() if self._telemetry is not None \
+            else {}
+        rec = ShedReason(
+            uid=req.uid, tenant=req.tenant,
+            priority=PRIORITY_NAMES[req.priority], reason=reason,
+            risk=round(self.risk, 4), queue_depth=self.queued_count(),
+            ttft_p90_ms=slo.get("ttft_p90_ms"), slo_ms=req.slo_ms,
+            t=(self._clock or time.monotonic)())
+        self.shed_log.append(rec)
+        self.summary["shed_by_class"][rec.priority] += 1
+        return rec
+
+    # ------------------------------------------------------------------
+    # per-boundary control loop
+    # ------------------------------------------------------------------
+
+    def _slo_target_ms(self) -> Optional[float]:
+        """Effective TTFT target: the configured default, tightened by any
+        stricter per-request slo_ms among queued/live interactive work."""
+        cands = [self.cfg.slo_ttft_ms] if self.cfg.slo_ttft_ms else []
+        for r in self._live.values():
+            if r.priority == INTERACTIVE and r.slo_ms:
+                cands.append(r.slo_ms)
+        for q in self._queues.values():
+            for r in q:
+                if r.priority == INTERACTIVE and r.slo_ms:
+                    cands.append(r.slo_ms)
+        return min(cands) if cands else None
+
+    def on_boundary(self, slo_view: Dict, live_count: int) -> List[ShedReason]:
+        """Advance the boundary clock: age queues, refill fair-share
+        credit, recompute SLO risk, and shed queued best-effort work under
+        critical pressure. Returns the sheds (the engine reports each to
+        telemetry)."""
+        cfg = self.cfg
+        self._round += 1
+        # admission-lookahead predictor: EWMA of fresh interactive
+        # submissions per boundary (updated even when the feature is off,
+        # so flipping it on mid-run predicts from live history)
+        self._ia_ewma = cfg.lookahead_ewma_alpha * self._ia_seen + \
+            (1.0 - cfg.lookahead_ewma_alpha) * self._ia_ewma
+        self._ia_seen = 0
+        # SLO pressure
+        self.risk = 0.0
+        target = self._slo_target_ms()
+        if target:
+            vals = [v for v in (slo_view.get("ttft_p90_ms"),
+                                slo_view.get("queue_wait_p90_ms"))
+                    if v is not None]
+            if vals:
+                self.risk = max(vals) / target
+        self.pressure = (2 if target and self.risk >= cfg.slo_shed_threshold
+                         else 1 if target and
+                         self.risk >= cfg.slo_defer_threshold else 0)
+        sheds: List[ShedReason] = []
+        # shed queued best-effort under critical pressure — but only while
+        # the machine is actually busy (an idle table should drain its
+        # queue, not reject it), never aged requests (anti-starvation
+        # outranks shedding: an aged request has already paid its wait),
+        # and never preempted ones (they are mid-flight: the client's
+        # request was accepted and tokens were already emitted)
+        if self.pressure >= 2 and live_count > 0:
+            for (cls, tenant), q in self._queues.items():
+                if cls != BEST_EFFORT:
+                    continue
+                keep = deque()
+                while q:
+                    r = q.popleft()
+                    if self._eff(r) == BEST_EFFORT and r.preempts == 0 \
+                            and not r.resumed:
+                        self._queued_uids.discard(r.uid)
+                        sheds.append(self._shed(r, "slo_pressure"))
+                    else:
+                        keep.append(r)
+                q.extend(keep)
+        return sheds
+
+    def frame_steps_cap(self, max_steps: int) -> int:
+        """Feed the pressure signal into frame sizing: under SLO pressure,
+        cap the frame at a smaller pow2 bucket (one halving per pressure
+        level) so admission boundaries — the only points where a queued
+        interactive arrival can act — come around sooner. Same pow2 bucket
+        set as ``_pick_frame_steps``, so the captured frames stay O(log)."""
+        if self.pressure <= 0:
+            return max_steps
+        return BlockedKVCache.floor_pow2(max(1, max_steps >> self.pressure))
+
+    def lookahead_reserved(self, free_slots: int) -> int:
+        """Slots this boundary holds back for EWMA-predicted interactive
+        arrivals (``lookahead_reserve``; 0 when off or idle). Never
+        reserves the last admissible slot — with zero interactive demand
+        ever arriving the reserve must not starve batch work outright
+        (the EWMA also decays it to zero within a few boundaries)."""
+        cfg = self.cfg
+        if not cfg.lookahead_reserve or free_slots <= 1 \
+                or self._ia_ewma < 0.5:
+            return 0
+        want = int(np.ceil(self._ia_ewma - 1e-9))
+        return max(0, min(want, cfg.lookahead_max_reserve, free_slots - 1))
+
+    # ------------------------------------------------------------------
+    # preemption
+    # ------------------------------------------------------------------
+
+    def preempt_wanted(self, free_slots: int) -> bool:
+        """An interactive arrival is queued, no slot is free, and a live
+        lower-priority row exists to make room."""
+        if not self.cfg.preemption or free_slots > 0:
+            return False
+        if not any(r.priority == INTERACTIVE
+                   for q in self._queues.values() for r in q):
+            return False
+        return any(r.priority > INTERACTIVE for r in self._live.values())
+
+    def pick_victims(self, committed: Dict[int, int],
+                     free_blocks: Optional[int] = None) -> List[int]:
+        """Choose live rows to evict: lowest class first (best_effort
+        before batch), then fewest committed tokens (cheapest re-prefill).
+        ``committed`` maps live uid -> committed-watermark tokens. Bounded
+        by ``max_preempts_per_frame`` and by how many interactive arrivals
+        are actually waiting.
+
+        ``free_blocks`` (when given) is a futility guard: if even after
+        the evictions the cheapest waiting interactive request still could
+        not reserve its KV blocks, evicting would only buy an
+        evict/re-admit thrash loop — the victim re-prefills its whole
+        committed prefix every boundary while the interactive request
+        stays stuck — so no victims are returned."""
+        want = min(
+            self.cfg.max_preempts_per_frame,
+            sum(1 for q in self._queues.values()
+                for r in q if r.priority == INTERACTIVE))
+        cands = sorted(
+            (r for r in self._live.values() if r.priority > INTERACTIVE),
+            key=lambda r: (-r.priority, committed.get(r.uid, 0), r.seq_no))
+        chosen = cands[:want]
+        if free_blocks is not None and chosen:
+            need = min((self._cost(r) for q in self._queues.values()
+                        for r in q if r.priority == INTERACTIVE),
+                       default=0)
+            # a victim's live reservation covers its (tokens, limit) cost —
+            # both were fixed at its admission and only change on eviction
+            if free_blocks + sum(self._cost(r) for r in chosen) < need:
+                return []
+        return [r.uid for r in chosen]
+
+    def on_evict(self, uid: int) -> Request:
+        """Remove a row from the live set (engine owns the slot/KV
+        mechanics); the caller folds emitted tokens into the request and
+        hands it back via ``requeue_front``."""
+        req = self._live.pop(uid)
+        self._live_by_tenant[req.tenant] -= 1
+        req.preempts += 1
+        self.summary["preempted"] += 1
+        return req
+
+    # ------------------------------------------------------------------
+    # admission
+    # ------------------------------------------------------------------
+
+    def _tenant_live_blocked(self, tenant: str) -> bool:
+        ml = self.cfg.tenant_max_live
+        return ml is not None and self._live_by_tenant.get(tenant, 0) >= ml
+
+    def pick(self, free_slots: int, try_reserve: Callable[[Request], object],
+             live_count: int) -> List[Tuple[Request, object]]:
+        """Admit up to ``free_slots`` requests: strict priority over
+        effective (aged) classes; within a class, the tenant furthest
+        behind in fair-share virtual time first, head-of-line within a
+        tenant (FIFO by arrival among equals). ``try_reserve(req)`` returns
+        the engine-side descriptor on success or None when the KV pool
+        cannot hold the request (that tenant's queue is then blocked for
+        this boundary — head-of-line, like the FIFO path).
+
+        Raises RuntimeError when the table is empty, nothing could be
+        admitted, and work is queued — the FIFO path's impossible-fit
+        semantics (only capacity can block an empty table)."""
+        admits: List[Tuple[Request, object]] = []
+        blocked: set = set()
+        first_blocked_uid: Optional[int] = None
+        defer_lo = self.pressure >= 1 and live_count > 0
+        reserve = self.lookahead_reserved(free_slots)
+        for eff in range(N_PRIORITIES):
+            # admission lookahead: effective-batch/best-effort admissions
+            # cannot take the slots reserved for predicted interactive
+            # arrivals; interactive (and aged-to-interactive) work ignores
+            # the reserve
+            cap = free_slots if eff == INTERACTIVE else free_slots - reserve
+            while len(admits) < cap:
+                best = None
+                for (cls, tenant), q in self._queues.items():
+                    if not q or (cls, tenant) in blocked:
+                        continue
+                    head = q[0]
+                    if self._eff(head) != eff:
+                        continue
+                    if defer_lo and cls > INTERACTIVE \
+                            and self._eff(head) > INTERACTIVE:
+                        continue       # deferred, stays queued (still ages)
+                    if self._tenant_live_blocked(tenant):
+                        continue
+                    v = self._vtime.get(tenant, 0.0)
+                    if best is None or v < best[0] or \
+                            (v == best[0] and head.seq_no < best[3].seq_no):
+                        best = (v, cls, tenant, head, q)
+                if best is None:
+                    break
+                v, cls, tenant, head, q = best
+                seq = try_reserve(head)
+                if seq is None:
+                    blocked.add((cls, tenant))
+                    if first_blocked_uid is None:
+                        first_blocked_uid = head.uid
+                    continue
+                q.popleft()
+                self._queued_uids.discard(head.uid)
+                self._vtime[tenant] = v + self._cost(head) / self._weight(tenant)
+                self._vclock = max(self._vclock, self._vtime[tenant])
+                self._live[head.uid] = head
+                self._live_by_tenant[tenant] = \
+                    self._live_by_tenant.get(tenant, 0) + 1
+                self.summary["admitted_by_class"][PRIORITY_NAMES[cls]] += 1
+                admits.append((head, seq))
+        if live_count == 0 and not admits and self.queued_count():
+            # mirrors the FIFO path: with nothing live, no quota or
+            # deferral can block (both are gated on live work), so the only
+            # blocker is capacity — and capacity that fails an EMPTY pool
+            # can never succeed. Name the request whose reservation
+            # actually failed, not an arbitrary queued uid.
+            uid = first_blocked_uid if first_blocked_uid is not None \
+                else next(iter(self._queued_uids))
+            raise RuntimeError(
+                f"uid={uid}: prompt + budget can never fit the KV pool "
+                "(no live sequences to retire)")
+        return admits
+
+    def on_retire(self, uid: int) -> None:
+        req = self._live.pop(uid, None)
+        if req is not None:
+            self._live_by_tenant[req.tenant] -= 1
+
+    # ------------------------------------------------------------------
+    # introspection
+    # ------------------------------------------------------------------
+
+    def stats(self) -> Dict:
+        """Plain-python policy snapshot (bench/debug surface)."""
+        by_class = {n: 0 for n in PRIORITY_NAMES}
+        for q in self._queues.values():
+            for r in q:
+                by_class[PRIORITY_NAMES[r.priority]] += 1
+        return {
+            "queued": self.queued_count(),
+            "queued_by_class": by_class,
+            "live": len(self._live),
+            "live_by_tenant": {t: n for t, n in self._live_by_tenant.items()
+                               if n},
+            "risk": round(self.risk, 4),
+            "pressure": self.pressure,
+            "interactive_arrival_ewma": round(self._ia_ewma, 4),
+            "admitted_by_class": dict(self.summary["admitted_by_class"]),
+            "shed_by_class": dict(self.summary["shed_by_class"]),
+            "shed_total": sum(self.summary["shed_by_class"].values()),
+            "preempted": self.summary["preempted"],
+        }

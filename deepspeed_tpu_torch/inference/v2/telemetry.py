@@ -1,12 +1,44 @@
-"""In-graph serving counters.
+"""Serving telemetry: in-frame counters, request tracing, export.
 
-Mirrors the counter layout of ``deepspeed_tpu/inference/v2/telemetry.py``:
-the (N_STATS,) int32 vector the serving frame carries, and its fresh zero.
-``ServingTelemetry`` (the host-side histograms, gauges and exporters) is
-not ported yet (ROADMAP.md).
+Mirrors ``deepspeed_tpu/inference/v2/telemetry.py``, all of it:
+
+1. **In-frame counters**: the serving steps (``model_runner.py``) add to a
+   small ``(N_STATS,)`` int32 vector on the frame carry (tokens emitted,
+   active row-steps, prompt tokens consumed, EOS events, and draft/verify
+   counts under speculative decoding); ``DeviceSlotTable.run_frame`` reads
+   it back in the one device-to-host copy a frame boundary makes.
+
+2. **Host request-lifecycle tracing**: ``serve()`` stamps enqueue, admit,
+   first token and retire per request into fixed-memory log-bucketed
+   histograms (``LogBucketHistogram``): TTFT, inter-token latency, queue
+   wait and end-to-end latency, each with p50/p90/p99. Inter-token latency
+   is measured at frame granularity.
+
+3. **Export**: ``render_prometheus()`` (text exposition format),
+   ``serve_metrics_http()`` (a stdlib ``/metrics`` endpoint), frame-boundary
+   event fan-out through a monitor (anything with
+   ``write_events([(tag, value, step)])``), and an opt-in
+   ``torch.profiler.record_function`` around each frame, so a device
+   profile shows frames as named ranges.
+
+``engine.serve_stats`` is ``ServingTelemetry.serve_view``. ``enabled=False``
+switches off the host side only; the in-frame counters are always part of
+the frame. Everything here is numpy and the standard library; the clock is
+injectable (``clock=``), so tests can drive two engines on one synthetic
+clock.
 """
 
+import logging
+import math
+import time
+from collections import deque
+from contextlib import nullcontext
+from typing import Dict, List, Optional
+
+import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 # Indices into the (N_STATS,) int32 vector the serving frame carries.
 # Per step:
@@ -34,3 +66,1000 @@ STAT_NAMES = ("tokens_emitted", "active_row_steps", "prefill_tokens",
 def zero_stats(device=None):
     """Fresh (N_STATS,) int32 stat vector for a frame carry."""
     return torch.zeros((N_STATS,), dtype=torch.int32, device=device)
+
+# ---------------------------------------------------------------------------
+# fixed-memory log-bucketed histogram
+# ---------------------------------------------------------------------------
+
+
+class LogBucketHistogram:
+    """Log-bucketed latency histogram with O(1) memory and record cost.
+
+    ``n_buckets`` geometric buckets spanning ``[lo, lo * growth**n_buckets)``
+    plus one overflow bucket; values below ``lo`` land in bucket 0. With the
+    defaults (100 µs first bound, ×2 growth, 22 buckets) the span is
+    100 µs … ~7 min, which covers TTFT through E2E on one scale.
+
+    ``percentile(p)`` returns the geometric midpoint of the bucket holding
+    the p-quantile sample — the standard fixed-memory estimator; the error
+    is bounded by the bucket's growth factor. Deterministic given the same
+    recorded values, which is what the golden tests rely on.
+    """
+
+    def __init__(self, lo: float = 1e-4, growth: float = 2.0,
+                 n_buckets: int = 22):
+        assert lo > 0 and growth > 1 and n_buckets >= 1
+        self.lo = lo
+        self.growth = growth
+        self.n_buckets = n_buckets
+        self._log_g = math.log(growth)
+        # bucket i covers (bounds[i-1], bounds[i]]; bucket n_buckets = +Inf
+        self.bounds = [lo * growth ** i for i in range(n_buckets)]
+        self.counts = np.zeros(n_buckets + 1, np.int64)
+        self.total = 0
+        self.sum = 0.0
+
+    def record(self, value: float, count: int = 1) -> None:
+        if count <= 0:
+            return
+        if value <= self.lo:
+            idx = 0
+        else:
+            idx = min(int(math.ceil(math.log(value / self.lo) / self._log_g
+                                    - 1e-12)), self.n_buckets)
+        self.counts[idx] += count
+        self.total += count
+        self.sum += value * count
+
+    def percentile(self, p: float) -> Optional[float]:
+        """p in [0, 100]; None when empty."""
+        if self.total == 0:
+            return None
+        rank = p / 100.0 * self.total
+        cum = 0
+        for i, c in enumerate(self.counts):
+            cum += int(c)
+            if cum >= rank and c > 0:
+                if i >= self.n_buckets:          # overflow bucket
+                    return self.bounds[-1] * self.growth
+                upper = self.bounds[i]
+                if i == 0:
+                    return upper / 2.0
+                return math.sqrt(upper / self.growth * upper)
+        return self.bounds[-1] * self.growth
+
+    def summary(self) -> Dict:
+        return {
+            "count": int(self.total),
+            "sum": round(self.sum, 6),
+            "p50": self.percentile(50), "p90": self.percentile(90),
+            "p99": self.percentile(99),
+        }
+
+    def reset(self) -> None:
+        self.counts[:] = 0
+        self.total = 0
+        self.sum = 0.0
+
+
+# ---------------------------------------------------------------------------
+# per-request lifecycle span
+# ---------------------------------------------------------------------------
+
+
+class _Span:
+    __slots__ = ("uid", "enqueue_t", "admit_t", "first_token_t",
+                 "last_emit_t", "tokens", "emit_spans", "tenant", "pclass",
+                 "resumed", "trace", "parent")
+
+    def __init__(self, uid: int, enqueue_t: float,
+                 tenant: Optional[str] = None, pclass: Optional[str] = None,
+                 resumed: bool = False):
+        self.uid = uid
+        self.enqueue_t = enqueue_t
+        self.admit_t: Optional[float] = None
+        self.first_token_t: Optional[float] = None
+        self.last_emit_t: Optional[float] = None
+        self.tokens = 0
+        self.emit_spans = 0         # per-frame emit instants recorded
+        self.tenant = tenant        # scheduler metadata (None without one)
+        self.pclass = pclass
+        # a resume arrival (router failover / drain migration / prefill→
+        # decode handoff) already emitted its true first token on another
+        # engine: this engine's first emission is a CONTINUATION, not a
+        # TTFT sample — recording it would pollute the per-replica TTFT
+        # histograms the disaggregation bench compares. The fleet-merged
+        # ``ds_fleet_ttft_ms`` attribution lives in tracing.TraceCollector
+        # (one sample per TRACE id, spanning handoff/failover).
+        self.resumed = resumed
+        # distributed-trace context (tracing.py): the fleet-wide trace id
+        # this request rides, and the span id engine spans parent to (the
+        # trace's root) — both carried in from the arrival dict, or minted
+        # locally when a tracer is attached and the arrival had none
+        self.trace: Optional[str] = None
+        self.parent: Optional[str] = None
+
+
+class ServingTelemetry:
+    """The serving telemetry subsystem (see module docstring).
+
+    ``clock`` is injectable (defaults to ``time.monotonic``) so lifecycle
+    tests can script deterministic timestamps. ``record_spans`` keeps the
+    last ``max_spans`` retired request records (bounded memory) for
+    per-request debugging; aggregation never needs them.
+    """
+
+    HIST_NAMES = ("ttft", "itl", "queue_wait", "e2e")
+    #: per-request ceiling on per-frame "emit" instant spans (tracing):
+    #: keeps a long generation from exhausting the collector's per-trace
+    #: span budget before its terminal spans are recorded
+    MAX_EMIT_SPANS = 64
+
+    def __init__(self, enabled: bool = True, trace: bool = False,
+                 clock=time.monotonic, record_spans: bool = False,
+                 max_spans: int = 1024,
+                 defer_warn_interval_s: float = 5.0,
+                 slo_window: int = 64, steps_trace_len: int = 128):
+        self.enabled = enabled
+        self.trace = trace
+        self.clock = clock
+        self.record_spans = record_spans
+        self.spans: deque = deque(maxlen=max_spans)
+        self.defer_warn_interval_s = defer_warn_interval_s
+        # sliding-window sample counts for the LIVE SLO signal (slo_view):
+        # the cumulative histograms never forget a good warm-up, so the
+        # admission control loop reads a recent-window p90 instead
+        self.slo_window = slo_window
+        self.steps_trace_len = steps_trace_len
+        self.monitor = None
+        self.monitor_every = 1
+        # constant identity labels (engine=..., model=...) merged into
+        # EVERY exported ds_serving_* series — the router's per-replica
+        # metric identity. Lives OUTSIDE reset(): identity outlives serve
+        # runs. Empty (the default) keeps the exposition byte-identical.
+        self.base_labels: Dict[str, str] = {}
+        # distributed tracing (tracing.TraceCollector): like base_labels,
+        # identity/wiring that outlives serve runs. None (the default)
+        # keeps every hook's fast path unchanged.
+        self.tracer = None
+        self.trace_replica: Optional[str] = None
+        # monitor step: monotonic across serve() runs (reset() zeroes the
+        # per-serve frame counter, but an attached TensorBoard/CSV writer
+        # must never see its step axis jump back to zero)
+        self.lifetime_frames = 0
+        self.reset()
+
+    # ------------------------------------------------------------------
+    # lifecycle of the subsystem itself
+    # ------------------------------------------------------------------
+
+    def reset(self) -> None:
+        """Zero every counter, histogram, and open span (new serve() run)."""
+        self._gamma = 0
+        self._kv_block_bytes = 0
+        self.counters: Dict[str, int] = {n: 0 for n in STAT_NAMES}
+        self.counters.update(requests_enqueued=0, requests_admitted=0,
+                             requests_retired=0, admission_deferrals=0,
+                             requests_shed=0, requests_preempted=0,
+                             frames=0, slot_steps_capacity=0,
+                             # fault-tolerance surface (faults.py): total
+                             # faults (kind-labeled), plus the per-kind
+                             # headline counters the SLO dashboard plots
+                             faults=0, quarantined=0, deadline_expired=0,
+                             cancelled=0, nonfinite_repaired=0,
+                             recoveries=0, frame_retries=0, slow_frames=0,
+                             # KV memory hierarchy (kv_hierarchy.py):
+                             # prefix-cache hit/publish/COW traffic and
+                             # swap-tier page movement, exported as the
+                             # ds_serving_prefix_* / ds_serving_kv_swap_*
+                             # metric families
+                             prefix_lookups=0, prefix_hits=0,
+                             prefix_hit_tokens=0, prefix_blocks_published=0,
+                             prefix_cow_copies=0, prefix_blocks_evicted=0,
+                             prefix_blocks_swapped_out=0,
+                             prefix_blocks_swapped_in=0,
+                             kv_swap_out_requests=0, kv_swap_out_blocks=0,
+                             kv_swap_in_requests=0, kv_swap_in_blocks=0,
+                             # bytes moved over the swap tier in EITHER
+                             # direction, at the pool's resident
+                             # representation (quantized pools move their
+                             # int8+scale pages, so an int8 engine's swap
+                             # traffic reads ~2.7x smaller than f32 for
+                             # the same block counts)
+                             kv_swap_bytes=0,
+                             kv_swap_resume_restores=0,
+                             # disaggregated prefill/decode fleet
+                             # (router.py roles): requests handed off to a
+                             # decode replica after this engine finished
+                             # their prefill, admissions served from the
+                             # shared tier's content-addressed prefix
+                             # records, and async swap-out commit modes
+                             # (overlapped with the next frame vs forced
+                             # blocking at a lookup)
+                             handoffs_out=0, handoffs_pipelined=0,
+                             tier_prefix_hits=0,
+                             tier_prefix_hit_tokens=0,
+                             kv_swap_commits_overlapped=0,
+                             kv_swap_commits_blocking=0)
+        self.gauges: Dict[str, float] = {
+            "live_slots": 0, "slot_count": 0, "queue_depth": 0,
+            "kv_blocks_in_use": 0, "kv_blocks_in_use_peak": 0,
+            "kv_blocks_total": 0, "kv_resident_bytes": 0,
+            "occupancy": 0.0, "recompiled_programs": 0,
+            "slo_risk": 0.0, "frame_steps_chosen": 0,
+            "last_recovery_ms": 0.0, "tp_degree": 1,
+            "prefix_blocks_resident": 0, "prefix_hit_rate": 0.0,
+        }
+        self.hists: Dict[str, LogBucketHistogram] = {
+            n: LogBucketHistogram() for n in self.HIST_NAMES}
+        # scheduler label surfaces: {metric: {((label, value), ...): count}}
+        # — cardinality is classes x tenants, bounded by the tenant set
+        self.labeled: Dict[str, Dict[tuple, int]] = {}
+        # per-class TTFT (the bench/SLO acceptance surface)
+        self.class_ttft: Dict[str, LogBucketHistogram] = {}
+        # live SLO signal windows (recent samples, seconds)
+        self._win: Dict[str, deque] = {
+            "ttft": deque(maxlen=self.slo_window),
+            "queue_wait": deque(maxlen=self.slo_window)}
+        # adaptive-frame-steps decision trace (ROADMAP follow-up (d)): a
+        # bounded ring of {frame, ewma, saturated, steps} records so
+        # frame-size oscillation is debuggable from serve_stats or a scrape
+        self.steps_trace: deque = deque(maxlen=self.steps_trace_len)
+        self._open_spans: Dict[int, _Span] = {}
+        self._last_defer_warn: Optional[float] = None
+        self._defers_since_warn = 0
+        # serve_stats read-through view (engine.serve_stats returns this)
+        self.serve_view: Dict = {
+            "frames": 0, "frame_steps_last": None, "frame_steps_hist": {},
+            "frame_steps_trace": self.steps_trace,
+            "arrival_ewma": 0.0, "adaptive_frame_steps": False,
+            "slo": {"ttft_p90_ms": None, "queue_wait_p90_ms": None},
+            "spec": {"gamma": 0, "target_forwards": 0, "emitted_tokens": 0,
+                     "accepted_drafts": 0, "acceptance_rate": None,
+                     "tokens_per_target_forward": None},
+            "telemetry_enabled": self.enabled,
+        }
+
+    def begin_serve(self, *, speculate: bool, gamma: int, adaptive: bool,
+                    n_slots: int, kv_blocks_total: int,
+                    tp_degree: int = 1, kv_block_bytes: int = 0) -> None:
+        """Called by ``serve()`` at generator construction.
+        ``kv_block_bytes`` is the pool-resident footprint of one KV block
+        across all layers (``BlockedKVCache.block_bytes``) — the
+        multiplier that turns block counts into the byte-denominated
+        swap/residency series (``ds_serving_kv_swap_bytes_total``,
+        ``ds_serving_kv_resident_bytes``)."""
+        self.reset()
+        self._gamma = gamma if speculate else 0
+        self._kv_block_bytes = kv_block_bytes
+        self.serve_view["adaptive_frame_steps"] = adaptive
+        self.serve_view["spec"]["gamma"] = self._gamma
+        self.gauges["slot_count"] = n_slots
+        self.gauges["kv_blocks_total"] = kv_blocks_total
+        self.gauges["tp_degree"] = tp_degree
+
+    def attach_monitor(self, monitor, every_frames: int = 1) -> None:
+        """Fan out frame-boundary events through ``monitor.write_events``
+        (e.g. a ``MonitorMaster`` → TensorBoard/CSV/W&B) every
+        ``every_frames`` frames. CSV writers open one file per tag per
+        flush — raise ``every_frames`` for high-frame-rate serving."""
+        self.monitor = monitor
+        self.monitor_every = max(1, every_frames)
+
+    def set_base_labels(self, **labels) -> None:
+        """Attach constant identity labels (``engine=``, ``model=``) to
+        every exported series — the per-replica identity a multi-engine
+        router stamps on each engine's telemetry so one scrape
+        distinguishes replicas. ``None`` values are dropped; calling with
+        no arguments clears nothing (pass ``engine=None`` explicitly to
+        unset a label)."""
+        for k, v in labels.items():
+            if v is None:
+                self.base_labels.pop(k, None)
+            else:
+                self.base_labels[k] = str(v)
+
+    def set_tracer(self, tracer, replica: Optional[str] = None) -> None:
+        """Attach a ``tracing.TraceCollector`` (or None to detach):
+        lifecycle hooks then emit frame-boundary-stamped spans into the
+        fleet-wide trace each request carries (minting a trace locally
+        when an arrival has none). ``replica`` labels this engine's spans
+        — the router stamps its replica name, mirroring
+        ``set_base_labels``. Requires ``enabled=True`` (the hooks that
+        stamp spans are the host lifecycle hooks)."""
+        self.tracer = tracer
+        if replica is not None:
+            self.trace_replica = replica
+
+    def _trace_span(self, span, name: str, t0: float, t1=None,
+                    status: Optional[str] = None,
+                    attrs: Optional[Dict] = None) -> None:
+        """Emit one span for an open request into the attached tracer
+        (no-op without one); parents to the trace root carried in the
+        arrival so the cross-replica tree stays connected."""
+        if self.tracer is None or span is None or span.trace is None:
+            return
+        a = {"uid": span.uid}
+        if attrs:
+            a.update(attrs)
+        self.tracer.span(span.trace, name, t0, t1, parent=span.parent,
+                         replica=self.trace_replica, status=status, attrs=a)
+
+    def _labelstr(self, extra: str = "") -> str:
+        """Render ``{...}`` merging the base identity labels with
+        ``extra`` (a pre-rendered ``k="v",...`` fragment); empty when
+        neither exists, so label-free telemetry keeps the historical
+        exposition byte-for-byte."""
+        base = ",".join(f'{k}="{v}"'
+                        for k, v in sorted(self.base_labels.items()))
+        both = ",".join(s for s in (base, extra) if s)
+        return f"{{{both}}}" if both else ""
+
+    # ------------------------------------------------------------------
+    # request lifecycle (host side, called from serve())
+    # ------------------------------------------------------------------
+
+    def _labels(self, span: Optional[_Span]) -> Optional[tuple]:
+        if span is None or (span.tenant is None and span.pclass is None):
+            return None
+        return (("class", span.pclass or "unknown"),
+                ("tenant", span.tenant or "unknown"))
+
+    def _inc_labeled(self, name: str, labels: Optional[tuple],
+                     n: int = 1) -> None:
+        if labels is None:
+            return
+        series = self.labeled.setdefault(name, {})
+        series[labels] = series.get(labels, 0) + n
+
+    def on_enqueue(self, uid: int, tenant: Optional[str] = None,
+                   pclass: Optional[str] = None,
+                   resumed: bool = False,
+                   trace: Optional[Dict] = None) -> Optional[Dict]:
+        """``trace`` is the distributed-trace context the arrival carried
+        (``{"id", "parent"}``, minted at the edge/router); with a tracer
+        attached and no context, a trace is minted HERE — a bare engine
+        (tuple arrivals) still yields one connected tree per request.
+        Returns the EFFECTIVE context so the engine can write a locally
+        minted one back into its ledger — without that, a failover/
+        handoff resume of a tuple arrival would start a second tree."""
+        if not self.enabled:
+            return trace
+        self.counters["requests_enqueued"] += 1
+        span = _Span(uid, self.clock(), tenant, pclass, resumed=resumed)
+        if self.tracer is not None:
+            if not trace:
+                tid, root = self.tracer.mint(
+                    "engine.recv", replica=self.trace_replica,
+                    t=span.enqueue_t, attrs={"uid": uid})
+                trace = {"id": tid, "parent": root}
+            span.trace = trace.get("id")
+            span.parent = trace.get("parent")
+        self._open_spans[uid] = span
+        return trace
+
+    def on_admit(self, uid: int) -> None:
+        if not self.enabled:
+            return
+        span = self._open_spans.get(uid)
+        if span is None:
+            return
+        if span.admit_t is not None:
+            # RE-admission after a preemption: the request was already
+            # counted, and (now - enqueue_t) would log the row's live
+            # generation time as queue wait — poisoning the windowed SLO
+            # signal the scheduler sheds on. A request admits once.
+            return
+        span.admit_t = self.clock()
+        self.counters["requests_admitted"] += 1
+        wait = span.admit_t - span.enqueue_t
+        self.hists["queue_wait"].record(wait)
+        self._win["queue_wait"].append(wait)
+        self._inc_labeled("requests_admitted", self._labels(span))
+        self._trace_span(span, "engine.queue", span.enqueue_t,
+                         span.admit_t)
+
+    def on_emit(self, uid: int, n_tokens: int) -> None:
+        """``n_tokens`` emitted to ``uid`` at this frame boundary."""
+        if not self.enabled or n_tokens <= 0:
+            return
+        span = self._open_spans.get(uid)
+        if span is None:
+            return
+        now = self.clock()
+        if span.first_token_t is None:
+            span.first_token_t = now
+            if not span.resumed:
+                ttft = now - span.enqueue_t
+                self.hists["ttft"].record(ttft)
+                self._win["ttft"].append(ttft)
+                if span.pclass is not None:
+                    self.class_ttft.setdefault(
+                        span.pclass, LogBucketHistogram()).record(ttft)
+            # first emission on THIS engine: the prefill (or, for a
+            # resumed request, the restore + re-prefill) phase ends here.
+            # The collector keys fleet TTFT by TRACE id — only the first
+            # replica to emit records a sample, so a handed-off/failed-
+            # over request gets exactly one true first-token time.
+            self._trace_span(
+                span, "engine.restore" if span.resumed else
+                "engine.prefill", span.admit_t or span.enqueue_t, now)
+            if self.tracer is not None and span.trace is not None:
+                self.tracer.note_first_token(span.trace, now)
+        else:
+            gap = max(0.0, now - span.last_emit_t)
+            self.hists["itl"].record(gap / n_tokens, count=n_tokens)
+        # cap the per-frame emit instants per REQUEST: a long generation
+        # would otherwise spend the trace's whole span budget on emit
+        # markers and truncate the terminal spans (decode/handoff/
+        # restore) that tracing exists to show — the decode span's
+        # ``tokens`` attr carries the total anyway
+        if span.emit_spans < self.MAX_EMIT_SPANS:
+            span.emit_spans += 1
+            self._trace_span(span, "emit", now, attrs={"n": n_tokens})
+        span.last_emit_t = now
+        span.tokens += n_tokens
+        self._inc_labeled("tokens_emitted", self._labels(span), n_tokens)
+
+    def on_retire(self, uid: int) -> None:
+        if not self.enabled:
+            return
+        span = self._open_spans.pop(uid, None)
+        if span is None:
+            return
+        now = self.clock()
+        self.counters["requests_retired"] += 1
+        self.hists["e2e"].record(now - span.enqueue_t)
+        self._inc_labeled("requests_retired", self._labels(span))
+        if span.first_token_t is not None:
+            self._trace_span(span, "engine.decode", span.first_token_t,
+                             now, attrs={"tokens": span.tokens})
+        if self.tracer is not None and span.trace is not None:
+            # the retiring replica ends the fleet-level request: one E2E
+            # sample per trace id, and the root span closes "ok" (the
+            # edge may still extend the root to cover its last SSE write)
+            self.tracer.note_done(span.trace, now)
+            self.tracer.finish(span.trace, now, status="ok")
+        if self.record_spans:
+            rec = {
+                "uid": span.uid, "enqueue_t": span.enqueue_t,
+                "admit_t": span.admit_t, "first_token_t": span.first_token_t,
+                "retire_t": now, "tokens": span.tokens,
+            }
+            if span.tenant is not None or span.pclass is not None:
+                rec["tenant"] = span.tenant     # scheduler runs only — the
+                rec["pclass"] = span.pclass     # FIFO span shape is a golden
+            self.spans.append(rec)
+
+    def on_shed(self, uid: int, tenant: Optional[str] = None,
+                pclass: Optional[str] = None,
+                reason: Optional[str] = None) -> None:
+        """The scheduler rejected ``uid`` (SLO pressure or tenant quota).
+
+        Like ``on_defer``, deliberately NOT gated on ``enabled``: shedding
+        is a client-visible overload action — losing its count is the
+        failure mode telemetry exists to prevent."""
+        self.counters["requests_shed"] += 1
+        span = self._open_spans.pop(uid, None)
+        if span is not None:
+            self._inc_labeled("requests_shed", self._labels(span))
+            if self.tracer is not None and span.trace is not None:
+                # shed traces are ALWAYS sampled — overload rejections
+                # are exactly what a uniform sampler would lose
+                self.tracer.mark(span.trace, "shed")
+                self.tracer.finish(span.trace, self.clock(),
+                                   status=f"shed:{reason or 'unknown'}")
+        elif tenant is not None or pclass is not None:
+            self._inc_labeled("requests_shed",
+                              (("class", pclass or "unknown"),
+                               ("tenant", tenant or "unknown")))
+
+    def on_preempt(self, uid: int, tenant: Optional[str] = None,
+                   pclass: Optional[str] = None) -> None:
+        """A live row was evicted back to the queue at a frame boundary to
+        make room for an interactive arrival (span stays open — the
+        request is still in flight and will re-admit)."""
+        self.counters["requests_preempted"] += 1
+        span = self._open_spans.get(uid)
+        if span is not None:
+            self._inc_labeled("requests_preempted", self._labels(span))
+            self._trace_span(span, "preempt", self.clock())
+        elif tenant is not None or pclass is not None:
+            self._inc_labeled("requests_preempted",
+                              (("class", pclass or "unknown"),
+                               ("tenant", tenant or "unknown")))
+
+    def on_fault(self, kind: str, uid: Optional[int] = None) -> None:
+        """One fault event (``faults.FAULT_KINDS``). Like ``on_shed``/
+        ``on_defer``, deliberately NOT gated on ``enabled``: a fault is a
+        client-visible failure action, and losing its count is the failure
+        mode telemetry exists to prevent. ``uid`` (for request-terminal
+        kinds) closes the request's open span WITHOUT recording latency
+        samples — a quarantined or timed-out request must not poison the
+        TTFT/E2E histograms the SLO control loop reads."""
+        self.counters["faults"] += 1
+        self._inc_labeled("faults", (("kind", kind),))
+        if kind == "poison_row":
+            self.counters["quarantined"] += 1
+        elif kind == "nonfinite_repaired":
+            self.counters["nonfinite_repaired"] += 1
+        elif kind == "deadline_expired":
+            self.counters["deadline_expired"] += 1
+        elif kind == "cancelled":
+            self.counters["cancelled"] += 1
+        elif kind == "dispatch_retry":
+            self.counters["frame_retries"] += 1
+        elif kind == "slow_frame":
+            self.counters["slow_frames"] += 1
+        if uid is not None:
+            span = self._open_spans.pop(uid, None)
+            if span is not None and self.tracer is not None \
+                    and span.trace is not None:
+                # faulted traces are ALWAYS sampled; a request-terminal
+                # fault ends the fleet-level request (status = the kind)
+                self.tracer.mark(span.trace,
+                                 "cancelled" if kind == "cancelled"
+                                 else "fault")
+                # no note_done: faulted requests stay out of the fleet
+                # E2E histogram, mirroring the per-replica semantics
+                self.tracer.finish(span.trace, self.clock(), status=kind)
+
+    def on_recover(self, n_requests: int, recovery_ms: float) -> None:
+        """A ``serve(..., resume_from=)`` run re-admitted ``n_requests``
+        snapshot requests; ``recovery_ms`` is resume-start → last
+        re-admission (the window clients waited on the restarted engine)."""
+        self.counters["recoveries"] += n_requests
+        self.gauges["last_recovery_ms"] = round(recovery_ms, 3)
+
+    # ------------------------------------------------------------------
+    # KV memory hierarchy (prefix cache + swap tier) — perf counters,
+    # gated on ``enabled`` like the frame counters (unlike shed/fault
+    # events, a missed hit count is not a client-visible failure)
+    # ------------------------------------------------------------------
+
+    def on_prefix_lookup(self, hit_tokens: int, hit_blocks: int,
+                         cow: bool) -> None:
+        """One admission-time prefix-cache lookup; ``hit_tokens == 0`` is
+        a miss. ``cow`` marks a mid-block hit that took a copy-on-write
+        page copy."""
+        if not self.enabled:
+            return
+        self.counters["prefix_lookups"] += 1
+        if hit_tokens > 0:
+            self.counters["prefix_hits"] += 1
+            self.counters["prefix_hit_tokens"] += hit_tokens
+        if cow:
+            self.counters["prefix_cow_copies"] += 1
+        self.gauges["prefix_hit_rate"] = round(
+            self.counters["prefix_hits"]
+            / max(1, self.counters["prefix_lookups"]), 4)
+
+    def on_prefix_update(self, published: int, evicted: int,
+                         swapped_out: int, swapped_in: int,
+                         resident: int) -> None:
+        """Frame-boundary prefix-cache bookkeeping delta."""
+        if not self.enabled:
+            return
+        self.counters["prefix_blocks_published"] += published
+        self.counters["prefix_blocks_evicted"] += evicted
+        self.counters["prefix_blocks_swapped_out"] += swapped_out
+        self.counters["prefix_blocks_swapped_in"] += swapped_in
+        self.gauges["prefix_blocks_resident"] = resident
+
+    def on_kv_swap_out(self, n_blocks: int, uid: Optional[int] = None,
+                       publish: bool = False) -> None:
+        """A request's committed pages left for the host tier — a
+        preemption victim's swap-out, or (``publish=True``) a prefill
+        replica's tier publish on the handoff path; ``uid`` stamps the
+        tier I/O into the request's distributed trace."""
+        if not self.enabled:
+            return
+        self.counters["kv_swap_out_requests"] += 1
+        self.counters["kv_swap_out_blocks"] += n_blocks
+        self.counters["kv_swap_bytes"] += n_blocks * self._kv_block_bytes
+        if uid is not None:
+            self._trace_span(self._open_spans.get(uid),
+                             "tier.publish" if publish else "kv.swap_out",
+                             self.clock(), attrs={"blocks": n_blocks})
+
+    def on_kv_swap_in(self, n_blocks: int, resume: bool = False,
+                      uid: Optional[int] = None) -> None:
+        """A request re-admitted by restoring its swapped pages (instead
+        of re-prefilling); ``resume`` marks the crash-recovery path.
+        ``uid`` stamps the restore into the request's distributed trace —
+        the decode-side restore span of a prefill→decode handoff."""
+        if not self.enabled:
+            return
+        self.counters["kv_swap_in_requests"] += 1
+        self.counters["kv_swap_in_blocks"] += n_blocks
+        self.counters["kv_swap_bytes"] += n_blocks * self._kv_block_bytes
+        if resume:
+            self.counters["kv_swap_resume_restores"] += 1
+        if uid is not None:
+            self._trace_span(self._open_spans.get(uid), "kv.restore",
+                             self.clock(),
+                             attrs={"blocks": n_blocks, "resume": resume})
+
+    def on_handoff_out(self, uid: int, pipelined: bool = False) -> None:
+        """A prefill-role engine finished ``uid``'s prefill, published its
+        pages to the shared tier, and handed the request to the router for
+        decode placement. The span closes WITHOUT latency samples (the
+        request is still in flight — its decode replica owns the rest of
+        its lifecycle; the TTFT recorded at this engine's first emission
+        already stands). ``pipelined`` marks a handoff whose final record
+        segment was published during the first-token frame (engine
+        ``handoff_pipeline``), so the handoff boundary did no page I/O."""
+        if not self.enabled:
+            return
+        self.counters["handoffs_out"] += 1
+        if pipelined:
+            self.counters["handoffs_pipelined"] += 1
+        span = self._open_spans.pop(uid, None)
+        if span is not None and self.tracer is not None \
+                and span.trace is not None:
+            now = self.clock()
+            self._trace_span(span, "engine.handoff",
+                             span.first_token_t or span.admit_t
+                             or span.enqueue_t, now, status="handoff",
+                             attrs={"pipelined": pipelined,
+                                    "tokens": span.tokens})
+            # handed-off traces are ALWAYS sampled; the trace stays OPEN
+            # — the decode replica owns the rest of its lifecycle and
+            # finishes it at retire
+            self.tracer.mark(span.trace, "handoff")
+
+    def on_tier_prefix_hit(self, hit_tokens: int, n_blocks: int) -> None:
+        """An admission restored a content-addressed prefix record from
+        the shared tier (the fleet-wide prefix share)."""
+        if not self.enabled:
+            return
+        self.counters["tier_prefix_hits"] += 1
+        self.counters["tier_prefix_hit_tokens"] += hit_tokens
+        self.counters["kv_swap_in_blocks"] += n_blocks
+
+    def on_kv_swap_commits(self, overlapped: int = 0,
+                           blocking: int = 0) -> None:
+        """Swap-tier record commits since the last boundary, split by mode
+        (overlapped = drained at a frame boundary after riding the aio
+        queue through the previous frame; blocking = forced synchronous)."""
+        if not self.enabled:
+            return
+        self.counters["kv_swap_commits_overlapped"] += overlapped
+        self.counters["kv_swap_commits_blocking"] += blocking
+
+    def slo_view(self) -> Dict[str, Optional[float]]:
+        """LIVE SLO signal: p90 (ms) over the recent sample windows — the
+        input the scheduler's control loop reads each frame boundary (the
+        cumulative histograms would let a good warm-up mask a bad now).
+        Mirrored into ``serve_view['slo']`` for observability.
+
+        Thread-tolerant by retry: a threaded fleet's router
+        thread scores replicas through here while each replica's worker
+        thread appends samples — a snapshot that races an append raises
+        RuntimeError ("deque mutated during iteration") and is simply
+        retaken; after a few collisions the stale answer (None) degrades
+        scoring gracefully instead of killing the caller."""
+        out: Dict[str, Optional[float]] = {}
+        for name in ("ttft", "queue_wait"):
+            w = self._win[name]
+            vals = None
+            for _ in range(4):
+                try:
+                    vals = list(w)
+                    break
+                except RuntimeError:     # mutated mid-snapshot: retake
+                    continue
+            out[f"{name}_p90_ms"] = round(
+                float(np.percentile(np.asarray(vals), 90)) * 1e3, 3) \
+                if vals else None
+        self.serve_view["slo"] = out
+        return out
+
+    def on_defer(self, queue_depth: int, frame_steps: Optional[int],
+                 free_slots: int, free_blocks: int,
+                 reserved_blocks: int = 0) -> None:
+        """Admission deferred at least one arrival this frame boundary.
+
+        Overload used to be invisible; this logs a structured warning,
+        rate-limited to one per ``defer_warn_interval_s`` (with a count of
+        suppressed events), and counts every occurrence. Deliberately NOT
+        gated on ``enabled``: it fires at most once per overloaded frame
+        boundary, and losing the overload signal is the exact failure mode
+        this hook exists to fix — telemetry=False must not bring it back.
+
+        ``free_blocks`` is the pool AFTER this round's admissions reserved
+        their blocks; ``reserved_blocks`` is that round's reservation, so
+        the warning can distinguish a pool that was already exhausted from
+        one this very boundary just consumed (without it, a busy admission
+        round reads as standing KV pressure)."""
+        self.counters["admission_deferrals"] += 1
+        self.gauges["queue_depth"] = queue_depth
+        now = self.clock()
+        self._defers_since_warn += 1
+        if (self._last_defer_warn is not None
+                and now - self._last_defer_warn < self.defer_warn_interval_s):
+            return
+        reason = "no free slots" if free_slots == 0 else \
+            f"KV pool pressure ({free_blocks} blocks free)"
+        logger.warning(
+            f"serve(): admission deferred ({reason}); queue_depth="
+            f"{queue_depth} frame_steps_bucket={frame_steps} "
+            f"free_slots={free_slots} free_kv_blocks={free_blocks} "
+            f"kv_blocks_reserved_this_round={reserved_blocks} "
+            f"deferral_events_since_last_warning={self._defers_since_warn}")
+        self._last_defer_warn = now
+        self._defers_since_warn = 0
+
+    def on_frame_plan(self, ewma: float, saturated: bool,
+                      chosen: int) -> None:
+        """Record one frame-size decision (EWMA input, saturated flag,
+        chosen pow2 bucket) into the bounded ring surfaced as
+        ``serve_stats['frame_steps_trace']`` and the
+        ``ds_serving_frame_steps_chosen`` gauge. Always on (one dict append
+        per frame): frame-size oscillation is exactly the thing that needs
+        debugging when telemetry is otherwise being kept cheap."""
+        self.steps_trace.append({
+            "frame": self.serve_view["frames"], "ewma": round(ewma, 4),
+            "saturated": bool(saturated), "steps": int(chosen)})
+        self.gauges["frame_steps_chosen"] = int(chosen)
+
+    # ------------------------------------------------------------------
+    # frame boundary (device counter absorption + fan-out)
+    # ------------------------------------------------------------------
+
+    def on_frame(self, *, delta: np.ndarray, width: int, steps: int,
+                 live_slots: int, kv_blocks_in_use: int,
+                 arrival_ewma: float, recompiled_programs: int,
+                 queue_depth: int) -> None:
+        """Absorb one frame's device counter DELTA (``(N_STATS,)`` int64)
+        plus the host-known frame facts, update the serve_stats view, and
+        fan out to the attached monitor. When telemetry is disabled the
+        engine calls ``frame_view_update`` instead (so even the argument
+        gathering is skipped); the guard here is defensive for other
+        callers."""
+        if not self.enabled:
+            self.frame_view_update(width, steps, arrival_ewma)
+            return
+        for i, name in enumerate(STAT_NAMES):
+            self.counters[name] += int(delta[i])
+        self.counters["frames"] += 1
+        self.lifetime_frames += 1
+        # run-average occupancy = active_row_steps / slot_steps_capacity
+        # (the gauge below is the LAST frame's figure — drain frames sit
+        # near zero, so averages must come from the counters)
+        self.counters["slot_steps_capacity"] += \
+            int(self.gauges["slot_count"]) * steps
+        self.gauges["live_slots"] = live_slots
+        self.gauges["kv_blocks_in_use"] = kv_blocks_in_use
+        # byte-denominated residency: block counts x the pool-resident
+        # block footprint, so an int8-KV engine's HBM pressure reads
+        # directly against an f32 engine's on the same dashboard panel
+        self.gauges["kv_resident_bytes"] = \
+            kv_blocks_in_use * self._kv_block_bytes
+        # instantaneous gauges go stale on the drain frames at the end of a
+        # run — the peak is the run-level KV-pressure figure
+        self.gauges["kv_blocks_in_use_peak"] = max(
+            self.gauges["kv_blocks_in_use_peak"], kv_blocks_in_use)
+        self.gauges["queue_depth"] = queue_depth
+        self.gauges["recompiled_programs"] = recompiled_programs
+        if self.gauges["slot_count"]:
+            self.gauges["occupancy"] = round(
+                int(delta[STAT_ACTIVE_STEPS])
+                / (self.gauges["slot_count"] * steps), 4)
+        self.frame_view_update(width, steps, arrival_ewma)
+        sp = self.serve_view["spec"]
+        if self._gamma:
+            sp["target_forwards"] = self.counters["target_forwards"]
+            # tokens emitted BY SPECULATIVE STEPS (the historical
+            # serve_stats semantics): every verify forward emits its column
+            # 0, plus the accepted drafts — prefill-completion tokens from
+            # wide frames are counted in tokens_emitted but not here
+            sp["emitted_tokens"] = (self.counters["target_forwards"]
+                                    + self.counters["accepted_draft_tokens"])
+            sp["accepted_drafts"] = self.counters["accepted_draft_tokens"]
+            if sp["target_forwards"]:
+                sp["acceptance_rate"] = round(
+                    sp["accepted_drafts"]
+                    / (self._gamma * sp["target_forwards"]), 4)
+                sp["tokens_per_target_forward"] = round(
+                    sp["emitted_tokens"] / sp["target_forwards"], 4)
+        if (self.monitor is not None
+                and self.counters["frames"] % self.monitor_every == 0):
+            self.monitor.write_events(self.monitor_events())
+
+    def frame_view_update(self, width: int, steps: int,
+                          arrival_ewma: float) -> None:
+        """The cheap host bookkeeping the pre-telemetry serve_stats always
+        had (frame count, frame-steps histogram, arrival EWMA) — the only
+        per-frame work that runs when telemetry is disabled."""
+        v = self.serve_view
+        v["telemetry_enabled"] = self.enabled   # stays live across toggles
+        v["frames"] += 1
+        v["frame_steps_last"] = steps
+        v["frame_steps_hist"][steps] = v["frame_steps_hist"].get(steps, 0) + 1
+        v["arrival_ewma"] = round(arrival_ewma, 4)
+
+    # ------------------------------------------------------------------
+    # export
+    # ------------------------------------------------------------------
+
+    def snapshot(self) -> Dict:
+        """Everything, as plain python (JSON-serializable)."""
+        out = {
+            "counters": dict(self.counters),
+            "gauges": dict(self.gauges),
+            "histograms": {n: h.summary() for n, h in self.hists.items()},
+            "spec": dict(self.serve_view["spec"]),
+            "labeled": {
+                name: {",".join(f"{k}={v}" for k, v in key): val
+                       for key, val in series.items()}
+                for name, series in self.labeled.items()},
+            "class_ttft_p90_ms": {
+                cls: (round(h.percentile(90) * 1e3, 3)
+                      if h.percentile(90) is not None else None)
+                for cls, h in self.class_ttft.items()},
+            "slo": dict(self.serve_view["slo"]),
+            "frame_steps_trace": list(self.steps_trace),
+        }
+        # tokens_per_target_forward lives ONLY in out["spec"] (computed from
+        # verify forwards + accepted drafts) — dividing total tokens_emitted
+        # by target_forwards would silently mix in prefill-completion
+        # emissions that no decode/verify forward produced
+        cap = self.counters["slot_steps_capacity"]
+        out["derived"] = {
+            "spec_acceptance_rate": self.serve_view["spec"]["acceptance_rate"],
+            "occupancy_avg": round(
+                self.counters["active_row_steps"] / cap, 4) if cap else None,
+        }
+        return out
+
+    def latency_ms(self) -> Dict[str, Dict]:
+        """p50/p90/p99 per histogram in milliseconds (None when empty) —
+        the shape a serving benchmark embeds in its JSON rows."""
+        out = {}
+        for n, h in self.hists.items():
+            s = h.summary()
+            out[n] = {
+                "count": s["count"],
+                **{p: (round(s[p] * 1e3, 3) if s[p] is not None else None)
+                   for p in ("p50", "p90", "p99")},
+            }
+        return out
+
+    def monitor_events(self) -> List:
+        """Frame-boundary event batch for ``Monitor.write_events``; the
+        step axis is ``lifetime_frames``, monotonic across serve() runs."""
+        step = self.lifetime_frames
+        ev = [(f"serving/{n}", float(v), step)
+              for n, v in self.counters.items()]
+        ev += [(f"serving/{n}", float(v), step)
+               for n, v in self.gauges.items()]
+        for n, h in self.hists.items():
+            for p in ("p50", "p90", "p99"):
+                q = h.percentile(float(p[1:]))
+                if q is not None:
+                    ev.append((f"serving/{n}_{p}_ms", q * 1e3, step))
+        return ev
+
+    def render_prometheus(self) -> str:
+        """Prometheus text exposition snapshot (version 0.0.4).
+
+        Counters render as ``counter``, gauges as ``gauge``, and each
+        latency histogram as a full ``histogram`` (cumulative ``le``
+        buckets + ``_sum``/``_count``) with p50/p90/p99 beside it as a
+        ``summary``-style quantile series. Serve behind any HTTP handler::
+
+            from http.server import BaseHTTPRequestHandler, HTTPServer
+            class H(BaseHTTPRequestHandler):
+                def do_GET(self):
+                    body = engine.telemetry.render_prometheus().encode()
+                    self.send_response(200); self.end_headers()
+                    self.wfile.write(body)
+        """
+        lines: List[str] = []
+
+        def fmt(v: float) -> str:
+            f = float(v)
+            return str(int(f)) if f == int(f) else repr(f)
+
+        lb = self._labelstr
+        for name, val in self.counters.items():
+            full = f"ds_serving_{name}_total"
+            lines.append(f"# TYPE {full} counter")
+            lines.append(f"{full}{lb()} {fmt(val)}")
+            # per-class/per-tenant scheduler labels share the family: one
+            # TYPE line, unlabeled total first, labeled samples after
+            for key, lval in sorted(self.labeled.get(name, {}).items()):
+                labels = ",".join(f'{k}="{v}"' for k, v in key)
+                lines.append(f"{full}{lb(labels)} {fmt(lval)}")
+        for name, val in self.gauges.items():
+            full = f"ds_serving_{name}"
+            lines.append(f"# TYPE {full} gauge")
+            lines.append(f"{full}{lb()} {fmt(val)}")
+        if self.class_ttft:
+            full = "ds_serving_class_ttft_p90_seconds"
+            lines.append(f"# TYPE {full} gauge")
+            for cls in sorted(self.class_ttft):
+                q = self.class_ttft[cls].percentile(90)
+                if q is not None:
+                    extra = f'class="{cls}"'
+                    lines.append(f"{full}{lb(extra)} {q:g}")
+        ar = self.serve_view["spec"]["acceptance_rate"]
+        lines.append("# TYPE ds_serving_spec_acceptance_rate gauge")
+        lines.append(f"ds_serving_spec_acceptance_rate{lb()} "
+                     f"{fmt(ar) if ar is not None else 'NaN'}")
+        for name, h in self.hists.items():
+            full = f"ds_serving_{name}_seconds"
+            lines.append(f"# TYPE {full} histogram")
+            cum = 0
+            for bound, cnt in zip(h.bounds, h.counts[:-1]):
+                cum += int(cnt)
+                extra = f'le="{bound:g}"'
+                lines.append(f"{full}_bucket{lb(extra)} {cum}")
+            extra = 'le="+Inf"'
+            lines.append(f"{full}_bucket{lb(extra)} {h.total}")
+            lines.append(f"{full}_sum{lb()} {h.sum:g}")
+            lines.append(f"{full}_count{lb()} {h.total}")
+            for p in (50, 90, 99):
+                q = h.percentile(p)
+                if q is not None:
+                    extra = f'quantile="0.{p}"'
+                    lines.append(f"{full}_quantile{lb(extra)} {q:g}")
+        return "\n".join(lines) + "\n"
+
+    def serve_metrics_http(self, port: int = 0, host: str = "127.0.0.1"):
+        """Serve ``render_prometheus()`` at ``/metrics`` from a stdlib
+        ``http.server`` daemon thread — the zero-dependency scrape endpoint
+        (ROADMAP telemetry follow-up (c))::
+
+            srv = engine.telemetry.serve_metrics_http(9100)
+            print(srv.metrics_port)      # bound port (pass 0 for ephemeral)
+            ...
+            srv.shutdown(); srv.server_close()
+
+        Returns the ``ThreadingHTTPServer``; each GET renders a fresh
+        snapshot, so a Prometheus scrape always sees the latest frame
+        boundary. Anything but ``/metrics`` (or ``/``) answers 404."""
+        import http.server
+        import threading
+
+        tel = self
+
+        class _MetricsHandler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                if self.path.split("?")[0].rstrip("/") in ("", "/metrics"):
+                    body = tel.render_prometheus().encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "text/plain; version=0.0.4")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                else:
+                    self.send_error(404)
+
+            def log_message(self, fmt, *args):   # scrapes are not log spam
+                pass
+
+        srv = http.server.ThreadingHTTPServer((host, port), _MetricsHandler)
+        srv.daemon_threads = True
+        srv.metrics_port = srv.server_address[1]
+        thread = threading.Thread(target=srv.serve_forever,
+                                  name="ds-serving-metrics", daemon=True)
+        thread.start()
+        return srv
+
+
+    # ------------------------------------------------------------------
+    # profiler alignment
+    # ------------------------------------------------------------------
+
+    def frame_trace(self, width: int, steps: int):
+        """Context manager wrapping one frame in a named
+        ``torch.profiler.record_function`` range (opt-in via ``trace=True``),
+        so a ``torch.profiler`` trace of a serving run shows frames as named
+        ranges that line up with the request lifecycle timestamps recorded
+        here."""
+        if not self.trace:
+            return nullcontext()
+        return torch.profiler.record_function(f"serve_frame/w{width}/s{steps}")

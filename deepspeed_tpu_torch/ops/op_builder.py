@@ -7,6 +7,10 @@ interface, ``build/lib<name>.so``, and loaded with ``ctypes``; a source may
 include shared headers ``csrc/*.cuh``. Building happens at first use,
 never at import, so the CPU tests import every module without a CUDA
 toolkit. A library newer than its source and every header is reused.
+
+Host C++ (``HOST_SOURCES``: the async I/O engine of ``ops/aio.py``) is not
+a kernel: ``load_host`` builds it with ``g++`` into the same ``build/``,
+outside the ``nvcc`` loop, so it builds on a machine with no CUDA toolkit.
 """
 
 import ctypes
@@ -14,12 +18,16 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
+GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
+# host libraries by name: their source under csrc/
+HOST_SOURCES = {"deepspeed_aio": "aio/deepspeed_aio.cpp"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -104,4 +112,41 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         build([name])
         _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+    return _LIBS[name]
+
+
+def gxx() -> str:
+    found = os.environ.get("CXX") or shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found (set CXX): the port's host C++ "
+                           "libraries are built from source at first use")
+    return found
+
+
+_HOST_LOCK = threading.Lock()
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library ``name`` (a key of ``HOST_SOURCES``), built
+    by ``g++`` first when it is missing or older than its source. Threads
+    of one process build it once (the staging file is named by the pid)."""
+    with _HOST_LOCK:
+        return _load_host(name)
+
+
+def _load_host(name: str) -> ctypes.CDLL:
+    if name not in _LIBS:
+        src = CSRC / HOST_SOURCES[name]
+        lib = _lib_path(name)
+        if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+            proc = subprocess.run([gxx(), *GXX_FLAGS, "-o", str(tmp), str(src)],
+                                  capture_output=True, text=True)
+            BUILD_LOGS[name] = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"{name}: g++ exit {proc.returncode}\n"
+                                   f"{BUILD_LOGS[name]}")
+            os.replace(tmp, lib)   # atomic: a reader never sees half a file
+        _LIBS[name] = ctypes.CDLL(str(lib))
     return _LIBS[name]

@@ -151,9 +151,10 @@ def test_generate_degrades_to_stepwise_on_small_pool(weights, cuda_graphs):
 
 
 def test_unported_calls_raise(engines):
+    """``serve_stats`` is the telemetry's serve view now; ``cancel_request``
+    rides the deadline machinery, which is still to be ported."""
     _, te, _ = engines
-    with pytest.raises(NotImplementedError, match="item 6"):
-        te.serve_stats
+    assert te.serve_stats is te.telemetry.serve_view
     with pytest.raises(NotImplementedError, match="item 6"):
         te.cancel_request(0)
     assert _drained(te)
