@@ -115,6 +115,19 @@ engine (the main path's serving config, full width and depth, graphs):
      the tier empty and the pool drained, K1 launches = layers x steps;
      preemptions, interactive and batch TTFT, pages and GB/s out and in
      through the port's aio engine, overlapped and blocking commits.
+  fault_path: serving resilience on the main path's 8 requests (a
+     llama3-8b engine and a ``nonfinite_policy="repair"`` engine over its
+     weights, graphs): a warm fault-free run (``base``, and the watchdog at
+     3x its longest replayed frame); two injected dispatch failures and a
+     slow frame (tokens bit-identical to ``base``, 2 retries, 1 slow
+     frame, no capture); a poisoned row, a deadline and a
+     ``cancel_request`` (each retired with its kind, never yielded, the
+     poisoned partial a prefix of ``base``); a crash past the retries and
+     ``serve(resume_from=last_crash_snapshot)`` on the same engine (prefixes
+     of ``base``, every row completed, recoveries counted, a resumed row's
+     logits within 5 % of the dense range); a repair blip (completed) and
+     a persistent fault (escalated). K1 launches = layers x steps and the
+     pool drained in every run.
 The training slice follows:
   8. train_kernel_check: flash attention forward, dq and dk/dv (K3, K4, K5)
      against their plain versions at gpt2-xl and llama3-8b shapes and on
@@ -671,7 +684,8 @@ def kernel_phases(torch):
 
 # ------------------------------------------------------------------ main path
 
-def serve_counted(torch, eng, arrivals, time_narrow=False, trace=False, **kw):
+def serve_counted(torch, eng, arrivals, time_narrow=False, trace=False, crash_ok=False,
+                  **kw):
     """One ``eng.serve(arrivals, **kw)`` with every count set to 0 before:
     the (uid, tokens) pairs in retirement order, frames and steps
     dispatched (wide and width-1 apart), each request's first emission
@@ -685,9 +699,11 @@ def serve_counted(torch, eng, arrivals, time_narrow=False, trace=False, **kw):
     dropped kernel records of graph replays near their start and end (1
     to 195 of a frame's, or a whole step's), so each opens and closes on an
     idle card: a sync and ``TRACE_SETTLE_S`` of waiting on both sides of
-    the frame."""
+    the frame. ``crash_ok``: a ``FrameDispatchError`` ends the run and is
+    returned as ``error``, with the pairs yielded before it."""
     from torch.profiler import ProfilerActivity, profile
     from deepspeed_tpu_torch.inference.v2 import DeviceSlotTable
+    from deepspeed_tpu_torch.inference.v2.faults import FrameDispatchError
     count = {"steps": 0, "frames": 0, "wide_steps": 0, "narrow_steps": 0}
     first_tok, narrow, traced = {}, [], {"k1": 0, "by_class": {}, "short": []}
     dispatch, absorb = DeviceSlotTable.dispatch_frame, DeviceSlotTable.absorb
@@ -696,12 +712,12 @@ def serve_counted(torch, eng, arrivals, time_narrow=False, trace=False, **kw):
         return read_counts()["paged_attention"] + (
             graphs.replayed.get("paged_attention", 0) if graphs is not None else 0)
 
-    def traced_dispatch(*args):
+    def traced_dispatch(*args, **kw_):
         before = k1_launched()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(TRACE_SETTLE_S)
-            out = dispatch(*args)
+            out = dispatch(*args, **kw_)
             torch.cuda.synchronize()
             time.sleep(TRACE_SETTLE_S)
         by_class, k1 = trace_device_ms(torch, prof, _kernel_class)
@@ -712,21 +728,24 @@ def serve_counted(torch, eng, arrivals, time_narrow=False, trace=False, **kw):
             traced["by_class"][cls] = traced["by_class"].get(cls, 0.0) + ms
         return out
 
-    def counting_dispatch(self, runner, params, kv, width, steps, greedy, draft=None):
+    def counting_dispatch(self, runner, params, kv, width, steps, greedy, draft=None,
+                          repair=False):
         count["steps"] += steps
         count["frames"] += 1
         count["wide_steps" if width > 1 else "narrow_steps"] += steps
         if trace:
-            return traced_dispatch(self, runner, params, kv, width, steps, greedy, draft)
+            return traced_dispatch(self, runner, params, kv, width, steps, greedy, draft,
+                                   repair=repair)
         if width > 1 or not time_narrow:
-            return dispatch(self, runner, params, kv, width, steps, greedy, draft)
+            return dispatch(self, runner, params, kv, width, steps, greedy, draft,
+                            repair=repair)
         # a width-1 frame timed alone: host wall time to its end, and the
         # card's time between events recorded around it
         torch.cuda.synchronize()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         t0 = time.perf_counter()
         ev[0].record()
-        out = dispatch(self, runner, params, kv, width, steps, greedy, draft)
+        out = dispatch(self, runner, params, kv, width, steps, greedy, draft, repair=repair)
         ev[1].record()
         ev[1].synchronize()
         narrow.append((steps, time.perf_counter() - t0, ev))
@@ -747,14 +766,22 @@ def serve_counted(torch, eng, arrivals, time_narrow=False, trace=False, **kw):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    got, error = [], None
     try:
-        got = list(eng.serve(arrivals, **kw))
+        try:
+            for pair in eng.serve(arrivals, **kw):
+                got.append(pair)
+        except FrameDispatchError as e:
+            if not crash_ok:
+                raise
+            error = e
         torch.cuda.synchronize()
     finally:
         DeviceSlotTable.dispatch_frame = dispatch
         DeviceSlotTable.absorb = absorb
     narrow_steps = sum(n for n, _, _ in narrow)
-    out = dict(got=got, steps=count["steps"], frames=count["frames"], first_tok=first_tok,
+    out = dict(got=got, error=error, steps=count["steps"], frames=count["frames"],
+               first_tok=first_tok,
                wide_steps=count["wide_steps"], narrow_steps=count["narrow_steps"],
                narrow_step_wall_ms=(sum(w for _, w, _ in narrow) * 1e3 / narrow_steps
                                     if narrow_steps else None),
@@ -2096,6 +2123,261 @@ def sched_path(torch, smi):
         del eng, runs, tier
     finally:
         shutil.rmtree(swap_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+FAULT_POISON_UID, FAULT_DEADLINE_UID, FAULT_CANCEL_UID = 1, 6, 7
+FAULT_BOUNDARY = 3        # the first width-1 frame of the main workload
+WATCHDOG_X = 3.0          # the watchdog: this times the longest replayed frame
+
+
+def timed_frames(eng):
+    """Wrap ``eng._run_frame_resilient`` (the dispatch with its retries,
+    the frame's replays and its one device-to-host copy) to record, per
+    frame: its index, its start (``time.perf_counter``), its host ms and
+    whether it captured a graph. Returns the list it fills; ``del
+    eng._run_frame_resilient`` unwraps."""
+    rows, inner, graphs = [], eng._run_frame_resilient, eng.runner.graphs
+
+    def timed(slots, width, steps, greedy, draft, faults, frame):
+        c0, t0 = graphs.captures, time.perf_counter()
+        try:
+            return inner(slots, width, steps, greedy, draft, faults, frame)
+        finally:
+            rows.append({"frame": frame, "width": width, "start": t0,
+                         "ms": (time.perf_counter() - t0) * 1e3,
+                         "captured": graphs.captures != c0})
+
+    eng._run_frame_resilient = timed
+    return rows
+
+
+def fault_arrivals(eng, prompts, eos_uid, eos_id, arrival_t, deadline_ms=None,
+                   cancel_at=None):
+    """The main workload's arrivals (``main_workload``), with ``deadline_ms``
+    on ``FAULT_DEADLINE_UID`` and ``eng.cancel_request(FAULT_CANCEL_UID)``
+    at the poll of boundary ``cancel_at``; empty polls until then."""
+    schedule = {0: [0, 1, 2], 1: [3, 4, 5], 2: [6, 7]}
+    for k in range(max(3, (cancel_at or 0) + 1)):
+        if k == cancel_at and not eng.cancel_request(FAULT_CANCEL_UID):
+            fail(f"fault_path: uid {FAULT_CANCEL_UID} was not in flight at boundary {k}")
+        batch = []
+        for u in schedule.get(k, []):
+            arrival_t[u] = time.perf_counter()
+            item = {"uid": u, "tokens": prompts[u]}
+            if u == eos_uid:
+                item["eos_token_id"] = eos_id
+            if u == FAULT_DEADLINE_UID and deadline_ms is not None:
+                item["deadline_ms"] = deadline_ms
+            batch.append(item)
+        yield batch
+
+
+def fault_path(torch, smi):
+    """Phase fault_path: llama3-8b at full width and depth (random weights
+    from seed 0), the main path's serving config (16 slots, CUDA graphs,
+    no retry backoff) on the main path's 8 requests, 32 greedy tokens each;
+    a second engine with ``nonfinite_policy="repair"`` over the first
+    engine's weights. Runs, each through ``serve_counted``:
+      1. warm: fault-free, capturing; its tokens are ``base``; then again
+         from the graphs alone (the same tokens), and the watchdog is set to
+         WATCHDOG_X times that run's longest frame;
+      2. transient: a ``dispatch_exception`` twice at a width-1 boundary
+         and a ``slow_frame`` past the watchdog at the next: no capture,
+         tokens bit-identical to ``base``, 2 retries and 1 slow frame;
+      3. fault: ``poison_row`` on a live row at the first width-1
+         boundary, ``deadline_ms`` on one arrival (expiring between
+         boundaries 3 and 5 by run 1's frame times) and
+         ``cancel_request`` on another at boundary 5: each retired with
+         its kind and never yielded, the poisoned row's partial a prefix
+         of its ``base`` tokens, every other row at its budget or EOS;
+      4. crash: a ``dispatch_exception`` past the retries at boundary 4
+         raises ``FrameDispatchError`` with ``last_crash_snapshot``, whose
+         committed tokens are prefixes of ``base``; ``serve(resume_from=)``
+         on the same engine completes every row, ``recoveries`` counts the
+         snapshot's rows, and a resumed row's last-position logits through
+         the paged forward over its re-prefilled stream lie within 5 % of
+         the dense forward's range;
+      5. repair: a one-boundary blip (the row completes its budget), then
+         limit + 1 consecutive poisoned boundaries (the row escalates to
+         ``poison_row``).
+    Every run: K1 launches = layers x steps, the pool drained. Reported:
+    where the rows of runs 3-5 leave ``base`` (not gated: a frozen row
+    changes K1's split and a re-prefill the bf16 rounding), the retried
+    frame's host ms beside the run's other width-1 frames, the slow frame's,
+    ``last_recovery_ms``, the resumed run's tokens/s beside ``base`` and
+    the repair engine's captures."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.faults import FaultInjector
+    from deepspeed_tpu_torch.models import build_model
+    model = build_model("llama3-8b")
+    cfg = model.cfg
+    eng = InferenceEngineV2(model, serving_config(frame_retry_backoff_s=0.0), max_seq_len=2048)
+    prompts, eos_uid, eos_id, _, arrival_t = main_workload(torch, cfg.vocab_size)
+    rows_out = {}
+
+    def served(name, e, arrivals, faults=None, **kw):
+        """One run: serve_counted with the frames timed; K1 = layers x
+        steps and the pool drained, or the phase fails."""
+        frames = timed_frames(e)
+        inj = None if faults is None else FaultInjector(faults)
+        try:
+            r = serve_counted(torch, e, arrivals, max_new_tokens=32, faults=inj, **kw)
+        finally:
+            del e._run_frame_resilient
+        if r["launches"] != cfg.num_layers * r["steps"]:
+            fail(f"fault_path ({name}): {r['launches']} K1 launches, expected "
+                 f"{cfg.num_layers} layers x {r['steps']} steps")
+        if not pool_clean(e):
+            fail(f"fault_path ({name}): the pool did not drain")
+        r["frame_rows"], r["fired"] = frames, inj.fired if inj is not None else []
+        r["faults"] = [(f.uid, f.kind, f.frame) for f in e.fault_log]
+        r["partials"] = {f.uid: f.partial or [] for f in e.fault_log if f.uid >= 0}
+        r["counters"] = dict(e.telemetry.counters)
+        e.fault_log.clear()
+        n_tok = sum(len(t) for _, t in r["got"])
+        rows_out[name] = {"serve_s": r["serve_s"], "tokens": n_tok,
+                          "tokens_per_s": n_tok / r["serve_s"], "frames": r["frames"],
+                          "steps": r["steps"], "paged_attention_launches": r["launches"],
+                          "captures": r["captures"], "faults": r["faults"]}
+        return r
+
+    def never_yielded(name, r, kinds):
+        got = dict(r["got"])
+        for uid, kind in kinds.items():
+            if uid in got or (uid, kind) not in [(u, k) for u, k, _ in r["faults"]]:
+                fail(f"fault_path ({name}): uid {uid} not retired as {kind} "
+                     f"(faults {r['faults']}, yielded {sorted(got)})")
+
+    # 1. warm, fault-free: the first run captures, the second replays
+    warm = served("warm", eng, fault_arrivals(eng, prompts, eos_uid, eos_id, arrival_t))
+    check_budgets("fault_path (warm)", warm["got"], prompts, eos_uid, eos_id, cfg.vocab_size)
+    again = served("base", eng, fault_arrivals(eng, prompts, eos_uid, eos_id, arrival_t))
+    if not same_serves(again["got"], warm["got"]) or again["captures"]:
+        fail(f"fault_path (base): tokens differ from the capturing run's, or "
+             f"{again['captures']} captures")
+    base = {u: t.tolist() for u, t in warm["got"]}
+    watchdog_ms = WATCHDOG_X * max(f["ms"] for f in again["frame_rows"])
+    if [f["width"] for f in warm["frame_rows"][FAULT_BOUNDARY - 1:FAULT_BOUNDARY + 3]] \
+            != [128, 1, 1, 1]:
+        fail(f"fault_path: boundary {FAULT_BOUNDARY} is not the first width-1 frame "
+             f"({[(f['frame'], f['width']) for f in warm['frame_rows']]})")
+
+    # 2. transient: two retries and one slow frame, the same frames
+    eng._config.watchdog_frame_ms = watchdog_ms
+    try:
+        tr = served("transient", eng, fault_arrivals(eng, prompts, eos_uid, eos_id, arrival_t),
+                    faults=[{"kind": "dispatch_exception", "frame": FAULT_BOUNDARY + 1,
+                             "times": 2},
+                            {"kind": "slow_frame", "frame": FAULT_BOUNDARY + 2,
+                             "seconds": 2 * watchdog_ms / 1e3}])
+    finally:
+        eng._config.watchdog_frame_ms = None
+    if not same_serves(tr["got"], warm["got"]) or tr["captures"]:
+        fail(f"fault_path (transient): tokens differ from base, or {tr['captures']} captures")
+    c = tr["counters"]
+    if c["frame_retries"] != 2 or c["slow_frames"] != 1:
+        fail(f"fault_path (transient): {c['frame_retries']} retries, {c['slow_frames']} "
+             "slow frames; expected 2 and 1")
+    tr_ms = {f["frame"]: f["ms"] for f in tr["frame_rows"]}
+    # the deadline: from the row's arrival to halfway between boundaries 3
+    # and 5 of this run (no capture in it; its stall comes after boundary 5)
+    starts = {f["frame"]: f["start"] for f in tr["frame_rows"]}
+    deadline_ms = ((starts[FAULT_BOUNDARY] + starts[FAULT_BOUNDARY + 2]) / 2
+                   - arrival_t[FAULT_DEADLINE_UID]) * 1e3
+    narrow_ms = [f["ms"] for f in tr["frame_rows"] if f["width"] == 1
+                 and f["frame"] not in (FAULT_BOUNDARY + 1, FAULT_BOUNDARY + 2)]
+
+    # 3. poison, deadline, cancel
+    fr = served("fault", eng, fault_arrivals(eng, prompts, eos_uid, eos_id, arrival_t,
+                                             deadline_ms=deadline_ms,
+                                             cancel_at=FAULT_BOUNDARY + 2),
+                faults=[{"kind": "poison_row", "frame": FAULT_BOUNDARY,
+                         "uid": FAULT_POISON_UID}])
+    never_yielded("fault", fr, {FAULT_POISON_UID: "poison_row",
+                                FAULT_DEADLINE_UID: "deadline_expired",
+                                FAULT_CANCEL_UID: "cancelled"})
+    partial = fr["partials"][FAULT_POISON_UID]
+    if partial != base[FAULT_POISON_UID][:len(partial)]:
+        fail(f"fault_path (fault): the poisoned row's partial {partial} is no prefix of "
+             "its base tokens")
+    rest = {u: p for u, p in prompts.items()
+            if u not in (FAULT_POISON_UID, FAULT_DEADLINE_UID, FAULT_CANCEL_UID)}
+    check_budgets("fault_path (fault)", fr["got"], rest, eos_uid, eos_id, cfg.vocab_size)
+
+    # 4. crash at boundary 4, then resume on the same engine
+    crash = served("crash", eng, fault_arrivals(eng, prompts, eos_uid, eos_id, arrival_t),
+                   faults=[{"kind": "dispatch_exception", "frame": FAULT_BOUNDARY + 1,
+                            "times": 10}], crash_ok=True)
+    snap = eng.last_crash_snapshot
+    if crash["error"] is None or snap is None or not snap["requests"]:
+        fail("fault_path (crash): no FrameDispatchError, or no snapshot of in-flight rows")
+    for r in snap["requests"]:
+        if r["generated"] != base[r["uid"]][:len(r["generated"])]:
+            fail(f"fault_path (crash): uid {r['uid']}'s committed tokens are no prefix "
+                 "of its base tokens")
+    resumed = served("resume", eng, iter([[]]), resume_from=snap)
+    done = dict(crash["got"]) | dict(resumed["got"])
+    check_budgets("fault_path (resume)", list(done.items()), prompts, eos_uid, eos_id,
+                  cfg.vocab_size)
+    if resumed["counters"]["recoveries"] != len(snap["requests"]):
+        fail(f"fault_path (resume): {resumed['counters']['recoveries']} recoveries of "
+             f"{len(snap['requests'])} rows")
+    row = max(snap["requests"], key=lambda r: len(r["generated"]))
+    stream = list(row["prompt"]) + row["generated"]
+    paged = paged_logits(torch, eng, stream)
+    dense = dense_logits(torch, eng, torch.as_tensor(stream, device=eng.device).long())
+    logit_err, span = float((paged - dense).abs().max()), float(dense.max() - dense.min())
+    if not (torch.isfinite(paged).all() and logit_err <= 0.05 * span):
+        fail(f"fault_path (resume): uid {row['uid']}'s resumed logits {logit_err} from the "
+             f"dense forward, over 5 % of its range {span}")
+    recovery_ms = eng.telemetry.gauges["last_recovery_ms"]
+
+    # 5. repair: a blip, then a persistent fault
+    rep = InferenceEngineV2(model, serving_config(frame_retry_backoff_s=0.0,
+                                                  nonfinite_policy="repair"),
+                            params=eng.params, max_seq_len=2048)
+    limit = rep._config.nonfinite_repair_limit
+    blip = served("repair_blip", rep, fault_arrivals(rep, prompts, eos_uid, eos_id, arrival_t),
+                  faults=[{"kind": "poison_row", "frame": FAULT_BOUNDARY,
+                           "uid": FAULT_POISON_UID}])
+    check_budgets("fault_path (repair_blip)", blip["got"], prompts, eos_uid, eos_id,
+                  cfg.vocab_size)
+    if [k for u, k, _ in blip["faults"]] != ["nonfinite_repaired"]:
+        fail(f"fault_path (repair_blip): faults {blip['faults']}")
+    persist = served("repair_persistent", rep,
+                     fault_arrivals(rep, prompts, eos_uid, eos_id, arrival_t),
+                     faults=[{"kind": "poison_row", "frame": FAULT_BOUNDARY + i,
+                              "uid": FAULT_POISON_UID} for i in range(limit + 1)])
+    never_yielded("repair_persistent", persist, {FAULT_POISON_UID: "poison_row"})
+    if [k for u, k, _ in persist["faults"]] != ["nonfinite_repaired"] * limit + ["poison_row"]:
+        fail(f"fault_path (repair_persistent): faults {persist['faults']}")
+    repair_keys = [k for k in rep.runner.graphs.keys() if k[0] == "frame"]
+    if not repair_keys or not all(k[3] is True for k in repair_keys):
+        fail(f"fault_path: the repair engine's frame keys {repair_keys}")
+
+    emit("fault_path", model="llama3-8b", layers=cfg.num_layers, requests=len(prompts),
+         watchdog_frame_ms=watchdog_ms, longest_replayed_frame_ms=watchdog_ms / WATCHDOG_X,
+         retried_frame_ms=tr_ms.get(FAULT_BOUNDARY + 1),
+         slow_frame_ms=tr_ms.get(FAULT_BOUNDARY + 2),
+         other_narrow_frame_ms_median=statistics.median(narrow_ms) if narrow_ms else None,
+         deadline_ms=deadline_ms, poisoned_partial_tokens=len(partial),
+         snapshot_rows=len(snap["requests"]),
+         last_recovery_ms=recovery_ms, resumed_row=row["uid"],
+         resumed_row_committed=len(row["generated"]), resumed_logit_err=logit_err,
+         resumed_logit_range=span,
+         tokens_per_s={"base": rows_out["base"]["tokens_per_s"],
+                       "resumed": rows_out["resume"]["tokens_per_s"]},
+         repair_captures=blip["captures"], repair_keys=len(repair_keys),
+         first_divergence_from_base={
+             name: divergence_from(base, r["got"])
+             for name, r in (("fault", fr), ("resume", resumed), ("repair_blip", blip),
+                             ("repair_persistent", persist))},
+         by_run=rows_out, card=smi)
+    launches = sum(r["paged_attention_launches"] for r in rows_out.values())
+    del eng, rep
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -4621,6 +4903,7 @@ def main():
     entry["launches_spec_path"] = spec_path(torch, smi, main_tokens)
     entry["launches_hier_path"] = hier_path(torch, smi)
     entry["launches_sched_path"] = sched_path(torch, smi)
+    entry["launches_fault_path"] = fault_path(torch, smi)
     phi2_path(torch, smi)
     entries = train_phases(torch, smi)
     gc.collect()

@@ -17,7 +17,17 @@ run eagerly (``model_runner.py``).
 
 Serving reports to ``ServingTelemetry`` (``telemetry.py``: ``serve_stats``,
 ``telemetry.snapshot()`` / ``render_prometheus()``) and keeps JAX's
-request ledger (``faults.LedgerEntry``); quarantined rows land in
+request ledger (``faults.LedgerEntry``). Serving resilience (``faults.py``):
+every frame is dispatched under bounded retry with backoff and the
+``watchdog_frame_ms`` watchdog (``_run_frame_resilient``); a frame that
+cannot be dispatched surfaces as ``faults.FrameDispatchError`` with
+``last_crash_snapshot`` set, and ``serve(resume_from=)`` re-admits its
+requests. Rows whose logits go non-finite are quarantined, or under
+``nonfinite_policy="repair"`` rolled back in the frame and escalated after
+``nonfinite_repair_limit`` consecutive boundaries; arrivals may carry
+``deadline_ms`` or ``generated`` (a resume); ``cancel_request`` and
+``snapshot_serving_state`` work at frame boundaries; ``serve(faults=)``
+takes a ``faults.FaultInjector``. Abnormal retirements land in
 ``fault_log`` as ``faults.FaultReason``. ``serve(scheduler=)`` runs the
 SLO-aware ``scheduler.RequestScheduler`` (priorities with aging, tenant
 fair share and quotas, shedding and deferral, frame-boundary preemption)
@@ -28,14 +38,16 @@ mid-block divergence) and starts its prefill at the watermark;
 ``kv_swap_dir=`` (or ``attach_kv_tier``) swaps a preempted row's pages to
 host files through the port's aio engine and back at re-admission.
 
+Where JAX retries a frame from its intact donated carry, the port's frame
+updates its static buffers and pools in place from its first step on: it
+retries only a failure raised before that step, and a later one goes
+straight to the crash path (ROADMAP.md section C, deliberate divergences).
+
 ``RaggedInferenceEngineConfig`` keeps every field and default of the JAX
 config. What is not ported yet raises ``NotImplementedError`` citing its
-ROADMAP.md item: tensor parallelism (``tp > 1``, item 11), roles other
-than "unified" and ``serve(yield_boundaries=True)`` (item 12), the repair
-policy, ``serve(faults=, resume_from=)``, arrivals carrying
-``deadline_ms`` or ``generated``, and ``cancel_request`` (item 6), and
-arrivals carrying a ``trace`` (item 12). The retry and watchdog fields are
-accepted and not acted on.
+ROADMAP.md item: tensor parallelism (``tp > 1``, item 11), and roles other
+than "unified", ``serve(yield_boundaries=True)`` and arrivals carrying a
+``trace`` (item 12).
 """
 
 import collections
@@ -52,7 +64,7 @@ from ...accelerator import get_device
 from ...models.transformer import CausalLM, build_model
 from ...module_inject import as_inference_model
 from ..sampling import sample_logits
-from .faults import FaultReason, LedgerEntry
+from .faults import FaultReason, FrameDispatchError, LedgerEntry, snapshot_ledger
 from .kv_cache import BlockedKVCache
 from .kv_hierarchy import KVSwapTier, PrefixCache, token_fingerprint
 from .model_implementations.quantize import quantize_params
@@ -64,8 +76,6 @@ from .telemetry import STAT_NAMES, ServingTelemetry
 logger = logging.getLogger(__name__)
 
 _ROADMAP = "not ported to deepspeed_tpu_torch yet (ROADMAP.md, section A)"
-_FAULTS = ("rides the deadline and fault machinery, which is not ported to "
-           "deepspeed_tpu_torch yet (ROADMAP.md section A, item 6)")
 _TRACING = ("distributed tracing is not ported to deepspeed_tpu_torch yet "
             "(ROADMAP.md section A, item 12)")
 
@@ -114,8 +124,8 @@ class RaggedInferenceEngineConfig:
 
 
 def _check_config(c: RaggedInferenceEngineConfig) -> None:
-    """JAX's checks of the quantized-serving fields, with its messages,
-    then the fields of paths not ported yet."""
+    """JAX's checks of the quantized-serving and non-finite fields, with its
+    messages, then the fields of paths not ported yet."""
     if c.weight_dtype not in (None, "int8"):
         raise ValueError(f"weight_dtype={c.weight_dtype!r}: expected None or 'int8'")
     if c.kv_dtype not in (None, "int8"):
@@ -123,11 +133,12 @@ def _check_config(c: RaggedInferenceEngineConfig) -> None:
     if c.tp_collective_payload not in ("int8", "fp8"):
         raise ValueError(f"tp_collective_payload={c.tp_collective_payload!r}: "
                          "expected 'int8' or 'fp8'")
-    unported = {
-        "tp": c.tp > 1,
-        "role": c.role != "unified",
-        "nonfinite_policy": c.nonfinite_policy != "quarantine",
-    }
+    if c.nonfinite_policy not in ("quarantine", "repair"):
+        raise ValueError(f"nonfinite_policy={c.nonfinite_policy!r}: expected "
+                         "'quarantine' or 'repair'")
+    if c.nonfinite_repair_limit < 1:
+        raise ValueError("nonfinite_repair_limit must be >= 1")
+    unported = {"tp": c.tp > 1, "role": c.role != "unified"}
     for name, on in unported.items():
         if on:
             raise NotImplementedError(
@@ -188,8 +199,17 @@ class InferenceEngineV2:
         self._rng = torch.Generator().manual_seed(0)
         # the sampled tokens of step(), generate() and generate_compiled()
         self._sample_rng = torch.Generator(device=self.device).manual_seed(0)
-        # abnormal retirements (non-finite rows), newest last
+        # abnormal retirements and absorbed fault events, newest last; the
+        # ledger snapshot taken when a frame dispatch fails for good
+        # (serve(resume_from=) consumes it)
         self.fault_log: collections.deque = collections.deque(maxlen=c.fault_log_max)
+        self.last_crash_snapshot: Optional[Dict] = None
+        # uids of the current serve()'s resume not yet re-admitted
+        self._resume_pending: set = set()
+        # "repair" runs the rollback steps; the host counts consecutive
+        # latched boundaries per row to escalate a persistent fault
+        self._nonfinite_repair = c.nonfinite_policy == "repair"
+        self._repair_counts: Dict[int, int] = {}
         # the in-frame counters of the last serve() run, by STAT_NAMES
         self.serve_counters: Dict[str, int] = {}
         self.telemetry = ServingTelemetry(enabled=c.telemetry, trace=c.telemetry_trace)
@@ -323,8 +343,20 @@ class InferenceEngineV2:
         self.telemetry.attach_monitor(monitor, every_frames=every_frames)
 
     def cancel_request(self, uid: int) -> bool:
-        """Cancel an in-flight request through the ledger (not ported)."""
-        raise NotImplementedError(f"cancel_request {_FAULTS}")
+        """Cancel an accepted, in-flight request (JAX ``cancel_request``):
+        mark its ledger entry cancelled and expire its deadline, so the next
+        frame boundary's deadline pass cancels it wherever it sits (popped
+        from the queue, or evicted from its slot with its KV blocks freed)
+        and retires it with a ``cancelled`` FaultReason. It writes two
+        fields of an existing entry, so it may be called from another
+        thread while a serve generator runs. False when ``uid`` is not in
+        flight."""
+        ent = self._ledger.get(uid)
+        if ent is None:
+            return False
+        ent.cancelled = True
+        ent.deadline_at = self._clock()
+        return True
 
     def can_schedule(self, uids: List[int], lengths: List[int]) -> bool:
         """Would these new sequences fit (blocks + tracking)?"""
@@ -583,24 +615,26 @@ class InferenceEngineV2:
     @staticmethod
     def _norm_arrival(item, max_new_tokens, temperature, eos_token_id):
         """Normalize one arrival to ``(uid, tokens, limit, temp, eos,
-        tenant, priority, slo_ms)`` (JAX ``_norm_arrival`` without the
-        fields of paths not ported yet).
+        tenant, priority, slo_ms, deadline_ms, generated)`` (JAX
+        ``_norm_arrival`` without ``trace``).
 
         Tuple form: ``(uid, tokens[, max_new_tokens[, temperature[,
         eos_id]]])``; None in an optional field means the serve() default
         (eos_id=-1 disables EOS for one row). Tuples carry no scheduling
         metadata. Dict form: ``{"uid", "tokens"}`` plus optional
-        ``max_new_tokens`` / ``temperature`` / ``eos_token_id`` and the
+        ``max_new_tokens`` / ``temperature`` / ``eos_token_id``, the
         scheduling fields ``tenant`` (str), ``priority`` ("interactive" |
         "batch" | "best_effort" or 0..2) and ``slo_ms`` (a per-request TTFT
-        target), which are inert without a ``scheduler=``. A dict carrying
-        ``deadline_ms`` or ``generated`` (a resume) raises, as does one
-        carrying ``trace``: those paths are not ported yet."""
+        target), which are inert without a ``scheduler=``, ``deadline_ms``
+        (a budget from enqueue, > 0: past it the request is cancelled at the
+        next frame boundary, queued or live) and ``generated`` (a resume
+        arrival, ``faults.snapshot_split``'s form: ``tokens`` is the
+        original prompt, ``generated`` the tokens already committed,
+        ``max_new_tokens`` the original budget). A dict carrying ``trace``
+        raises: distributed tracing is not ported yet."""
         if isinstance(item, dict):
-            for key, why in (("deadline_ms", _FAULTS), ("generated", _FAULTS),
-                             ("trace", _TRACING)):
-                if item.get(key) is not None:
-                    raise NotImplementedError(f"arrival field {key!r}: {why}")
+            if item.get("trace") is not None:
+                raise NotImplementedError(f"arrival field 'trace': {_TRACING}")
             uid, toks = item["uid"], item["tokens"]
             limit = item.get("max_new_tokens")
             limit = max_new_tokens if limit is None else limit
@@ -609,14 +643,24 @@ class InferenceEngineV2:
             eos = item.get("eos_token_id")
             eos = eos_token_id if eos is None else eos
             tenant, prio, slo_ms = item.get("tenant"), item.get("priority"), item.get("slo_ms")
+            deadline_ms = item.get("deadline_ms")
+            if deadline_ms is not None and deadline_ms <= 0:
+                raise ValueError(f"uid={uid}: deadline_ms must be > 0")
+            generated = item.get("generated")
+            if generated is not None:
+                generated = [int(t) for t in generated]
+                if len(generated) > int(limit):
+                    raise ValueError(
+                        f"uid={uid}: resume arrival carries {len(generated)} committed "
+                        f"tokens beyond its budget of {limit}")
         else:
             uid, toks = item[0], item[1]
             limit = item[2] if len(item) > 2 and item[2] is not None else max_new_tokens
             temp = item[3] if len(item) > 3 and item[3] is not None else temperature
             eos = item[4] if len(item) > 4 and item[4] is not None else eos_token_id
-            tenant = prio = slo_ms = None
+            tenant = prio = slo_ms = deadline_ms = generated = None
         return (uid, np.asarray(toks, np.int32).reshape(-1), int(limit), float(temp), eos,
-                tenant, prio, slo_ms)
+                tenant, prio, slo_ms, deadline_ms, generated)
 
     def serve(self, arrivals: Iterable, *, max_new_tokens: int = 32,
               temperature: float = 0.0, eos_token_id: Optional[int] = None,
@@ -652,12 +696,20 @@ class InferenceEngineV2:
         under TTFT pressure, and frame-boundary preemption, whose victims
         swap their pages to the tier when ``kv_swap_dir`` is set. Every
         request reports to ``self.telemetry``.
+
+        Fault tolerance (``faults.py``): every frame runs under bounded
+        retry with backoff and the watchdog; non-finite rows are quarantined
+        (or repaired, ``nonfinite_policy="repair"``) while their siblings
+        decode on; ``deadline_ms`` and ``cancel_request`` act at frame
+        boundaries on queued and live rows; a fatal dispatch failure leaves
+        ``last_crash_snapshot``, and ``resume_from=`` (that or a
+        ``snapshot_serving_state()``) re-admits every in-flight request by
+        re-prefilling prompt + committed tokens: greedy outputs are
+        token-identical across the restart. ``faults=`` takes a
+        ``faults.FaultInjector`` whose schedule drives these paths.
         """
-        unported = {"faults": faults is not None, "resume_from": resume_from is not None,
-                    "yield_boundaries": yield_boundaries}
-        for name, on in unported.items():
-            if on:
-                raise NotImplementedError(f"serve({name}=...): {_ROADMAP}")
+        if yield_boundaries:
+            raise NotImplementedError(f"serve(yield_boundaries=...): {_ROADMAP}")
         speculate, gamma = self._speculation(
             speculate, gamma, " (pass draft_model= at construction or call attach_draft())")
         c = self._config
@@ -672,30 +724,35 @@ class InferenceEngineV2:
             frame_rng = torch.Generator(device=self.device).manual_seed(seed)
         slots = DeviceSlotTable(n_slots, prompt_width=c.prefill_chunk_size,
                                 table_width=1, rng=frame_rng, device=self.device)
+        if faults is not None:
+            faults.begin_serve()         # rearm the scripted schedule
         self.serve_counters = dict.fromkeys(STAT_NAMES, 0)
         if self.prefix_cache is not None:
             # telemetry counters restart per serve run: rebase the cache's
             # cumulative bookkeeping
             self._pc_stats_base = dict(self.prefix_cache.stats)
+        resume = self._resume_entries(resume_from)
         if self.kv_swap is not None:
-            # request records exist solely for re-admission: a new run has
-            # abandoned its predecessors' (a shared tier never prunes)
-            self.kv_swap.prune_requests(set())
+            # request records exist solely for re-admission: a run that will
+            # not resume a uid has abandoned its pages (a shared tier never
+            # prunes)
+            self.kv_swap.prune_requests({r[0] for r in resume})
             self._tier_stats_base = dict(self.kv_swap.stats)
         self._ledger = {}
+        self._resume_pending = {r[0] for r in resume}
+        self._repair_counts = {}
         self.telemetry.begin_serve(speculate=speculate, gamma=gamma, adaptive=adaptive,
                                    n_slots=n_slots, kv_blocks_total=self.kv.num_blocks,
                                    tp_degree=c.tp, kv_block_bytes=self.kv.block_bytes)
         draft = ((self.draft_runner, self.draft_params, self.draft_kv, gamma)
                  if speculate else None)
         arrivals = iter(arrivals)
+        loop = (steps, max_new_tokens, temperature, eos_token_id, adaptive, draft, faults,
+                resume)
         if scheduler is not None:
             scheduler.begin_serve(self)
-            return self._serve_guarded_sched(slots, arrivals, scheduler, steps,
-                                             max_new_tokens, temperature, eos_token_id,
-                                             adaptive, draft)
-        return self._serve_guarded(slots, arrivals, steps, max_new_tokens,
-                                   temperature, eos_token_id, adaptive, draft)
+            return self._serve_guarded_sched(slots, arrivals, scheduler, *loop)
+        return self._serve_guarded(slots, arrivals, *loop)
 
     def _release_all(self, slots, queued_uids) -> None:
         """Abandonment (break / close() / error) must not strand state:
@@ -706,22 +763,16 @@ class InferenceEngineV2:
             self.state.flush_sequence(uid)
         self._ledger.clear()
 
-    def _serve_guarded(self, slots, arrivals, steps, max_new_tokens,
-                       temperature, eos_token_id, adaptive, draft):
+    def _serve_guarded(self, slots, arrivals, *loop):
         pending = collections.deque()
         try:
-            yield from self._serve_loop(slots, arrivals, pending, steps,
-                                        max_new_tokens, temperature,
-                                        eos_token_id, adaptive, draft)
+            yield from self._serve_loop(slots, arrivals, pending, *loop)
         finally:
             self._release_all(slots, [item[0] for item in pending])
 
-    def _serve_guarded_sched(self, slots, arrivals, sched, steps, max_new_tokens,
-                             temperature, eos_token_id, adaptive, draft):
+    def _serve_guarded_sched(self, slots, arrivals, sched, *loop):
         try:
-            yield from self._serve_loop_sched(slots, arrivals, sched, steps,
-                                              max_new_tokens, temperature,
-                                              eos_token_id, adaptive, draft)
+            yield from self._serve_loop_sched(slots, arrivals, sched, *loop)
         finally:
             self._release_all(slots, sched.queued_uids())
 
@@ -759,20 +810,23 @@ class InferenceEngineV2:
         return limit
 
     # ------------------------------------------------------------------
-    # telemetry, the request ledger and fault records
+    # telemetry, the request ledger, fault records and resilient dispatch
+    # (faults.py)
     # ------------------------------------------------------------------
 
-    def _run_frame(self, slots, width, cur_steps, ewma, queue_depth, draft):
-        """Dispatch one frame and absorb its counters (JAX's frame call and
-        ``_sync_frame_stats``): the in-frame stat vector comes back in the
-        frame's one device-to-host copy, so each boundary holds exactly
-        this frame's counts. ``recompiled_programs`` is the runner's count
-        of CUDA-graph captures (0 where nothing is captured)."""
+    def _run_frame(self, slots, width, cur_steps, ewma, queue_depth, draft, faults,
+                   frame: int):
+        """Dispatch one frame under the resilience policy and absorb its
+        counters (JAX's frame call and ``_sync_frame_stats``): the in-frame
+        stat vector comes back in the frame's one device-to-host copy, so
+        each boundary holds exactly this frame's counts.
+        ``recompiled_programs`` is the runner's count of CUDA-graph captures
+        (0 where nothing is captured). Returns (tokens, emit, the
+        finite-check latch)."""
         tel = self.telemetry
         with tel.frame_trace(width, cur_steps):
-            toks, emit, nonfinite, stats = slots.run_frame(
-                self.runner, self.params, self.kv, width, cur_steps,
-                slots.all_greedy(), draft=draft)
+            toks, emit, nonfinite, stats = self._run_frame_resilient(
+                slots, width, cur_steps, slots.all_greedy(), draft, faults, frame)
         for name, n in zip(STAT_NAMES, stats):
             self.serve_counters[name] += int(n)
         if tel.enabled:
@@ -787,11 +841,79 @@ class InferenceEngineV2:
             tel.frame_view_update(width, cur_steps, ewma)
         return toks, emit, nonfinite
 
-    def _ledger_add(self, uid, toks, limit, temp, eos, tenant=None, priority=None,
-                    slo_ms=None) -> None:
+    def _run_frame_resilient(self, slots, width, cur_steps, greedy, draft, faults,
+                             frame: int):
+        """Dispatch one frame (JAX ``_run_frame_resilient``): the injector's
+        hooks, bounded retry with exponential backoff, the wall-clock
+        watchdog and, when the frame cannot be dispatched, a ledger snapshot
+        (``last_crash_snapshot``) before ``FrameDispatchError`` surfaces.
+
+        A failure is retried only when no step of the frame began
+        (``runner.steps_begun``): every step updates the slot state and the
+        pools in place, and ``absorb`` has not run, so a retry after one
+        would advance them twice. A later failure goes straight to the crash
+        path. The snapshot reads host state only, which is the last
+        boundary's. A retry re-runs the same call: nothing falls back to
+        eager steps. The watchdog window opens before the injection hook
+        (an injected stall is a slow dispatch) and closes after the frame's
+        device-to-host copy, since replays are asynchronous."""
+        c = self._config
+        attempt = 0
+        while True:
+            begun = self.runner.steps_begun
+            try:
+                t0 = self._clock()
+                if faults is not None:
+                    faults.before_dispatch(frame, attempt)
+                out = slots.run_frame(self.runner, self.params, self.kv, width, cur_steps,
+                                      greedy, draft=draft, repair=self._nonfinite_repair)
+                dt_ms = (self._clock() - t0) * 1e3
+                if c.watchdog_frame_ms is not None and dt_ms > c.watchdog_frame_ms:
+                    self._fault_event(
+                        "slow_frame", frame,
+                        f"frame took {dt_ms:.1f} ms > watchdog {c.watchdog_frame_ms} ms "
+                        f"(width={width} steps={cur_steps})")
+                return out
+            except Exception as e:        # noqa: BLE001 (bounded, re-raised)
+                attempt += 1
+                stepped = self.runner.steps_begun != begun
+                if stepped or attempt > c.max_frame_retries:
+                    self.last_crash_snapshot = self.snapshot_serving_state()
+                    why = ("after its first step changed the slot state; not retried"
+                           if stepped else f"after {attempt} attempts")
+                    self._fault_event("dispatch_failed", frame,
+                                      f"{type(e).__name__}: {e} ({why})")
+                    raise FrameDispatchError(
+                        f"frame {frame} dispatch failed {why} ({type(e).__name__}: {e}); "
+                        "engine.last_crash_snapshot holds the request ledger — "
+                        "serve(resume_from=...) resumes the in-flight requests") from e
+                self._fault_event(
+                    "dispatch_retry", frame,
+                    f"{type(e).__name__}: {e} (attempt {attempt}/"
+                    f"{c.max_frame_retries}, retrying)")
+                backoff = c.frame_retry_backoff_s * (2 ** (attempt - 1))
+                if backoff > 0:
+                    time.sleep(backoff)
+
+    def snapshot_serving_state(self) -> Dict:
+        """The host-side request ledger of the current (or last) serve run
+        as a plain-python dict (JAX ``snapshot_serving_state``): every
+        accepted, not-yet-retired request's original prompt, committed
+        tokens, remaining budget and deadline, and scheduling metadata. No
+        device read. ``serve(..., resume_from=)`` on a restarted engine (of
+        either package) re-prefills prompt + committed tokens, so greedy
+        outputs are token-identical across the restart; sampled rows resume
+        correctly but not bit-identically (the frame generator restarts)."""
+        return snapshot_ledger(self._ledger, self.state.seqs, self._clock,
+                               swap_tier=self.kv_swap)
+
+    def _ledger_add(self, uid, toks, limit, temp, eos, deadline_ms=None, tenant=None,
+                    priority=None, slo_ms=None, resumed_from=0) -> None:
         self._ledger[uid] = LedgerEntry(
             uid=uid, prompt=[int(t) for t in toks], limit=int(limit), temp=float(temp),
-            eos=eos, tenant=tenant, priority=priority, slo_ms=slo_ms)
+            eos=eos,
+            deadline_at=None if deadline_ms is None else self._clock() + deadline_ms * 1e-3,
+            tenant=tenant, priority=priority, slo_ms=slo_ms, resumed_from=resumed_from)
 
     def _enqueue_traced(self, uid, **kw) -> None:
         """``telemetry.on_enqueue``, writing back into the ledger entry the
@@ -802,9 +924,77 @@ class InferenceEngineV2:
         if ent is not None and trace is not None:
             ent.trace = trace
 
+    def _ingest_resume(self, uid, toks, limit, gen):
+        """Mid-run resume arrival (JAX ``_ingest_resume``), for both serve
+        loops: rebuild the host sequence with the committed tokens, then
+        either retire at once (already at its budget: returns ``(None,
+        output)``, the ledger entry dropped) or return ``((folded prompt,
+        remaining budget), None)`` for re-prefill."""
+        seq = self.state.get_or_create_sequence(uid)
+        seq.generated = list(gen)
+        seq.done = False
+        remaining = limit - len(gen)
+        if remaining <= 0:
+            out = np.asarray(seq.generated, np.int64)
+            self.state.flush_sequence(uid)
+            self._ledger.pop(uid, None)
+            self.telemetry.on_retire(uid)
+            return None, out
+        folded = np.concatenate([toks, np.asarray(gen, np.int32)]) if gen else toks
+        return (folded, remaining), None
+
+    def _resume_entries(self, resume_from) -> List[Tuple]:
+        """A ``snapshot_serving_state()`` dict as resume tuples (uid, prompt,
+        limit, temp, eos, deadline_remaining_ms, generated, tenant,
+        priority, slo_ms), checked at the serve() call. A snapshot request
+        carrying a ``trace`` raises: distributed tracing is not ported."""
+        if resume_from is None:
+            return []
+        if resume_from.get("version") != 1:
+            raise ValueError("resume_from: unrecognized snapshot "
+                             f"version {resume_from.get('version')!r}")
+        out = []
+        for r in resume_from.get("requests", []):
+            uid = int(r["uid"])
+            if uid in self.state.seqs:
+                raise ValueError(f"resume_from: uid={uid} is already tracked by the "
+                                 "engine — flush it before resuming")
+            if r.get("trace") is not None:
+                raise NotImplementedError(f"resume_from: uid={uid} carries a trace: "
+                                          f"{_TRACING}")
+            out.append((uid, np.asarray(r["prompt"], np.int32), int(r["limit"]),
+                        float(r["temp"]), r["eos"], r.get("deadline_remaining_ms"),
+                        [int(t) for t in r.get("generated", [])], r.get("tenant"),
+                        r.get("priority"), r.get("slo_ms")))
+        return out
+
+    def _note_resume_truncated(self, uid, want, limit, frame: int) -> None:
+        """A resume landed on an engine whose ``max_seq_len`` cannot hold the
+        original budget: the clamp breaks token identity with the
+        no-failure run, so it is recorded as a ``resume_truncated`` fault;
+        the request still serves what fits."""
+        self.fault_log.append(FaultReason(
+            uid=uid, kind="resume_truncated", frame=frame,
+            detail=f"resume budget clamped {want}->{limit} by "
+                   f"max_seq_len={self.max_seq_len}; output will be "
+                   "shorter than the no-failure run"))
+        self.telemetry.on_fault("resume_truncated", uid=uid)
+
+    def _note_recovery_progress(self, slots, resume_t0: float, n_resumed: int) -> None:
+        """Once every resumed request has left the queue (admitted, or
+        handled for good), count the recoveries and stamp
+        ``last_recovery_ms``: how long the crashed run's clients waited on
+        the restarted engine before decoding resumed."""
+        if not self._resume_pending:
+            return
+        self._resume_pending = {u for u in self._resume_pending
+                                if u in self._ledger and u not in slots.slot_of_uid}
+        if not self._resume_pending:
+            self.telemetry.on_recover(n_resumed, (self._clock() - resume_t0) * 1e3)
+
     def _fault_event(self, kind: str, frame: int, detail: str) -> None:
-        """Frame-level fault event (no single victim request), e.g. a swap
-        tier failure that falls back to re-prefill."""
+        """Frame-level fault event (no single victim request): retries, slow
+        frames, allocation failures, crashes, swap tier failures."""
         self.fault_log.append(FaultReason(uid=-1, kind=kind, frame=frame, detail=detail))
         self.telemetry.on_fault(kind)
         logger.warning(f"serve(): {kind} at frame {frame}: {detail}")
@@ -826,13 +1016,53 @@ class InferenceEngineV2:
         logger.warning(f"serve(): uid={uid} retired with fault kind={kind} at "
                        f"frame {frame}: {detail}")
 
-    def _quarantine_rows(self, slots, flags, frame: int, sched=None) -> None:
-        """Quarantine rows whose logits went non-finite in the last frame
-        (``flags``: the frame's finite-check latch): evict, free their
+    def _expire_deadlines(self, slots, frame: int, pending=None, sched=None) -> None:
+        """Frame-boundary deadline pass over queued and live rows (JAX
+        ``_expire_deadlines``): an expired or cancelled request is dropped
+        wherever it sits (the FIFO deque or the scheduler's queue, before it
+        can be admitted, aged or preempted for; or its live slot), its KV
+        blocks freed, and retired with a ``deadline_expired`` or
+        ``cancelled`` fault."""
+        now = self._clock()
+        expired = [uid for uid, ent in self._ledger.items()
+                   if ent.deadline_at is not None and now >= ent.deadline_at]
+        for uid in expired:
+            seq = self.state.seqs.get(uid)
+            partial = list(seq.generated) if seq is not None else []
+            if uid in slots.slot_of_uid:
+                slots.evict(uid)
+                if sched is not None:
+                    sched.on_retire(uid)
+                where = f"live row ({len(partial)} tokens committed)"
+            else:
+                if sched is not None:
+                    sched.cancel(uid)
+                elif pending is not None:
+                    for item in pending:
+                        if item[0] == uid:
+                            pending.remove(item)
+                            break
+                where = "queued (never admitted)"
+            self.state.flush_sequence(uid)       # frees any KV blocks
+            if self._ledger[uid].cancelled:
+                self._fault_retire(uid, "cancelled", frame,
+                                   f"cancel_request() while {where}", partial=partial)
+            else:
+                self._fault_retire(uid, "deadline_expired", frame,
+                                   f"deadline_ms elapsed while {where}", partial=partial)
+
+    def _quarantine_rows(self, uids, slots, frame: int, sched=None,
+                         escalated: bool = False) -> None:
+        """Quarantine rows whose logits went non-finite: evict, free their
         blocks, drop what they published to the prefix cache (a poisoned
         page must never reach a healthy request) and retire them with a
         ``poison_row`` fault; the batch never dies for one row."""
-        for uid in slots.nonfinite_uids(flags):
+        detail = (f"non-finite logits persisted past nonfinite_repair_limit="
+                  f"{self._config.nonfinite_repair_limit} boundaries; row quarantined, "
+                  "siblings unaffected") if escalated else (
+            "non-finite logits (in-frame finite check); row quarantined, siblings "
+            "unaffected")
+        for uid in uids:
             seq = self.state.seqs.get(uid)
             partial = list(seq.generated) if seq is not None else []
             slots.evict(uid)
@@ -841,9 +1071,50 @@ class InferenceEngineV2:
             if self.prefix_cache is not None:
                 self.prefix_cache.invalidate_uid(uid)
             self.state.flush_sequence(uid)
-            self._fault_retire(uid, "poison_row", frame,
-                               "non-finite logits (in-frame finite check); row "
-                               "quarantined, siblings unaffected", partial=partial)
+            self._repair_counts.pop(uid, None)
+            self._fault_retire(uid, "poison_row", frame, detail, partial=partial)
+
+    def _handle_nonfinite(self, slots, flags, frame: int, sched=None) -> List[int]:
+        """The boundary's verdict on rows whose finite-check latch tripped
+        (``flags``, from the frame's one copy; JAX ``_handle_nonfinite``).
+        Under "quarantine" each is retired. Under "repair" the frame already
+        rolled each back to its pre-step carry: a row gets another chance
+        (latch and poison cleared in one batched write) until it has latched
+        ``nonfinite_repair_limit`` consecutive boundaries, then it is
+        quarantined. Returns the repaired uids, whose watermark mirrors the
+        caller resyncs after the host replay. Repaired rows keep their
+        published prefix blocks: the finite check gates the watermark."""
+        flagged = slots.nonfinite_uids(flags)
+        if not self._nonfinite_repair:
+            if flagged:
+                self._quarantine_rows(flagged, slots, frame, sched=sched)
+            return []
+        # a clean boundary resets a row's count of consecutive blips
+        for uid in [u for u in self._repair_counts if u not in flagged]:
+            self._repair_counts.pop(uid)
+        repaired, doomed = [], []
+        for uid in flagged:
+            n = self._repair_counts.get(uid, 0) + 1
+            if n > self._config.nonfinite_repair_limit:
+                doomed.append(uid)
+            else:
+                self._repair_counts[uid] = n
+                repaired.append(uid)
+        if doomed:
+            self._quarantine_rows(doomed, slots, frame, sched=sched, escalated=True)
+        if repaired:
+            slots.clear_nonfinite(repaired)
+            for uid in repaired:
+                seq = self.state.seqs.get(uid)
+                self.fault_log.append(FaultReason(
+                    uid=uid, kind="nonfinite_repaired", frame=frame,
+                    detail=f"non-finite logits; row rolled back to its pre-fault carry "
+                           f"(blip {self._repair_counts[uid]}/"
+                           f"{self._config.nonfinite_repair_limit})",
+                    tokens_emitted=len(seq.generated) if seq else 0))
+                # no uid: the request is still in flight, its span lives on
+                self.telemetry.on_fault("nonfinite_repaired")
+        return repaired
 
     # ------------------------------------------------------------------
     # KV hierarchy (kv_hierarchy.py): prefix-cache admission, copy-on-write,
@@ -899,7 +1170,8 @@ class InferenceEngineV2:
                     self.kv_swap.drop_request(uid)
                     cached0 = min(rec["tokens"], len(toks) - 1) // chunk * chunk
                     seq.resume_cached = cached0
-                    self.telemetry.on_kv_swap_in(rec["blocks"], uid=uid)
+                    self.telemetry.on_kv_swap_in(rec["blocks"],
+                                                 resume=uid in self._resume_pending, uid=uid)
                     return cached0
         # --- (2) prefix hit: the local cache first, then the tier's
         # content-addressed prefix records; one probe per enqueue ---
@@ -1105,11 +1377,14 @@ class InferenceEngineV2:
         self.telemetry.on_frame_plan(ewma, saturated, cur_steps)
         return width, cur_steps
 
-    def _absorb(self, slots, toks, emit, width):
+    def _absorb(self, slots, toks, emit, width, repaired=()):
         """Host replay of a frame: extend each row's tokens, advance its
-        committed watermark (rejected drafts never count as seen), report
-        the emissions; returns the finished uids."""
+        committed watermark (rejected drafts never count as seen; a
+        repaired row's mirror is read back first), report the emissions;
+        returns the finished uids."""
         emissions, finished = slots.absorb(toks, emit, width)
+        if repaired:
+            slots.resync_committed(repaired)
         for uid, new_toks in emissions.items():
             seq = self.state.seqs[uid]
             seq.generated.extend(new_toks)
@@ -1131,12 +1406,39 @@ class InferenceEngineV2:
         self.telemetry.on_retire(uid)
         return out
 
+    def _dispatch(self, slots, width, cur_steps, ewma, queue_depth, draft, faults,
+                  boundary, sched=None):
+        """One frame and its boundary verdicts, for both loops: arm the
+        scheduled poison, run the frame, then quarantine or repair the rows
+        whose logits went non-finite, before the host replay (a quarantined
+        row's slot is freed here, so absorb neither emits nor retires it).
+        Returns the finished uids."""
+        if faults is not None:
+            slots.set_poison(faults.poison_uids(boundary))
+        toks, emit, nonfinite = self._run_frame(slots, width, cur_steps, ewma, queue_depth,
+                                                draft, faults, boundary)
+        repaired = self._handle_nonfinite(slots, nonfinite, boundary, sched=sched)
+        return self._absorb(slots, toks, emit, width, repaired)
+
     def _serve_loop(self, slots, arrivals, pending, steps, max_new_tokens,
-                    temperature, eos_token_id, adaptive, draft):
+                    temperature, eos_token_id, adaptive, draft, faults, resume):
         tel = self.telemetry
         ewma = 0.0
         exhausted = False
-        boundary = -1
+        boundary = -1     # frame-boundary index: fault schedules key on it
+        resume_t0 = self._clock()
+        n_resumed = len(resume)
+        # crash-recovery ingestion: the snapshot's requests go ahead of any
+        # new arrival, prompt + committed tokens folded for re-prefill
+        for uid, prompt, limit, temp, eos, dl_ms, generated, *_ in resume:
+            self._ledger_add(uid, prompt, limit, temp, eos, dl_ms,
+                             resumed_from=len(generated))
+            self._enqueue_traced(uid, resumed=len(generated) > 0)
+            fold, done_out = self._ingest_resume(uid, prompt, limit, generated)
+            if done_out is not None:
+                yield uid, done_out       # finished before the crash could yield it
+                continue
+            pending.append((uid, *fold, temp, eos))
         while True:
             boundary += 1
             # commit the async swap-out writes queued at the previous boundary
@@ -1144,19 +1446,41 @@ class InferenceEngineV2:
             batch, exhausted, ewma = self._poll(arrivals, exhausted, ewma)
             # validate at enqueue, before any KV is reserved this round
             for item in (batch or []):
-                uid, toks, limit, temp, eos, *_ = self._norm_arrival(
+                uid, toks, limit, temp, eos, _, _, _, dl_ms, gen = self._norm_arrival(
                     item, max_new_tokens, temperature, eos_token_id)
+                want = limit
                 limit = self._validate_arrival(
                     uid, toks, limit,
                     in_flight=uid in slots.slot_of_uid or any(p[0] == uid for p in pending))
+                if gen is not None:
+                    # a resume arrival: the ledger keeps the originals
+                    if limit < want:
+                        self._note_resume_truncated(uid, want, limit, boundary)
+                    self._ledger_add(uid, toks, limit, temp, eos, dl_ms,
+                                     resumed_from=len(gen))
+                    self._enqueue_traced(uid, resumed=len(gen) > 0)
+                    fold, done_out = self._ingest_resume(uid, toks, limit, gen)
+                    if done_out is not None:
+                        yield uid, done_out
+                        continue
+                    pending.append((uid, *fold, temp, eos))
+                    continue
                 pending.append((uid, toks, limit, temp, eos))
-                self._ledger_add(uid, toks, limit, temp, eos)
+                self._ledger_add(uid, toks, limit, temp, eos, dl_ms)
                 self._enqueue_traced(uid)
+            # deadlines: expired work, queued or live, goes before admission
+            # can spend a slot or blocks on it
+            self._expire_deadlines(slots, boundary, pending=pending)
             # ---- admission control (FIFO; blocks reserved up front, so
             # block tables never grow mid-flight) ----
+            alloc_blocked = faults is not None and faults.kv_alloc_blocked(boundary)
+            if alloc_blocked and pending:
+                self._fault_event("kv_alloc_failed", boundary,
+                                  "injected KV-block allocation failure; admission "
+                                  "deferred this boundary")
             admits = []
             blocks_before = self.kv.free_blocks
-            while pending and len(admits) < slots.free_slots():
+            while pending and not alloc_blocked and len(admits) < slots.free_slots():
                 uid, toks, limit, temp, eos = pending[0]
                 seq = self.state.get_or_create_sequence(uid)
                 cached0 = self._admit_capacity(uid, seq, toks, limit, boundary)
@@ -1183,17 +1507,14 @@ class InferenceEngineV2:
                                     max(len(a[1].blocks) for a in admits),
                                     self.max_seq_len, self.max_blocks_per_seq)
                 slots.admit(admits)
+            self._note_recovery_progress(slots, resume_t0, n_resumed)
             if slots.live_count() == 0:
                 if exhausted and not pending:
                     return
                 continue         # arrival gap: poll again
             width, cur_steps = self._plan_frame(slots, steps, adaptive, ewma)
-            toks, emit, nonfinite = self._run_frame(slots, width, cur_steps, ewma,
-                                                    len(pending), draft)
-            # quarantine before the host replay: a poisoned row's slot is
-            # freed here, so absorb neither emits nor retires it
-            self._quarantine_rows(slots, nonfinite, boundary)
-            for uid in self._absorb(slots, toks, emit, width):
+            for uid in self._dispatch(slots, width, cur_steps, ewma, len(pending), draft,
+                                      faults, boundary):
                 yield uid, self._retire(slots, uid)
 
     def _evict_to_queue(self, uid, slots, sched, boundary: int = -1):
@@ -1239,38 +1560,81 @@ class InferenceEngineV2:
         self.telemetry.on_preempt(uid, req.tenant, PRIORITY_NAMES[req.priority])
 
     def _serve_loop_sched(self, slots, arrivals, sched, steps, max_new_tokens,
-                          temperature, eos_token_id, adaptive, draft):
+                          temperature, eos_token_id, adaptive, draft, faults, resume):
         """The scheduler-driven twin of ``_serve_loop``: the same frames and
         retirement, with enqueue and admission through the
         ``RequestScheduler``, an SLO control pass, preemption and
-        pressure-capped frame lengths at each boundary."""
+        pressure-capped frame lengths at each boundary. Deadlines expire
+        before the control pass, so expired work is never aged, preempted
+        for or admitted."""
         tel = self.telemetry
         ewma = 0.0
         exhausted = False
         boundary = -1
+        resume_t0 = self._clock()
+        n_resumed = len(resume)
+        # crash-recovery ingestion: the snapshot's requests re-enter with
+        # their class, tenant and slo, tokens folded for re-prefill; the
+        # submit bypasses the tenant quota (they were accepted once)
+        for uid, prompt, limit, temp, eos, dl_ms, generated, tenant, prio, slo_ms in resume:
+            prio = normalize_priority(prio)
+            tenant = tenant or "default"
+            self._ledger_add(uid, prompt, limit, temp, eos, dl_ms, tenant=tenant,
+                             priority=PRIORITY_NAMES[prio], slo_ms=slo_ms,
+                             resumed_from=len(generated))
+            self._enqueue_traced(uid, tenant=tenant, pclass=PRIORITY_NAMES[prio],
+                                 resumed=len(generated) > 0)
+            fold, done_out = self._ingest_resume(uid, prompt, limit, generated)
+            if done_out is not None:
+                yield uid, done_out
+                continue
+            sched.submit(Request(uid=uid, tokens=fold[0], limit=fold[1], temp=temp, eos=eos,
+                                 tenant=tenant, priority=prio, slo_ms=slo_ms,
+                                 resumed_from=len(generated), resumed=True),
+                         bypass_quota=True)
         while True:
             boundary += 1
             self._drain_swap_boundary(boundary)
             batch, exhausted, ewma = self._poll(arrivals, exhausted, ewma)
             for item in (batch or []):
-                uid, toks, limit, temp, eos, tenant, prio, slo_ms = self._norm_arrival(
-                    item, max_new_tokens, temperature, eos_token_id)
+                (uid, toks, limit, temp, eos, tenant, prio, slo_ms, dl_ms,
+                 gen) = self._norm_arrival(item, max_new_tokens, temperature, eos_token_id)
+                want = limit
                 limit = self._validate_arrival(
                     uid, toks, limit,
                     in_flight=uid in slots.slot_of_uid or sched.is_queued(uid))
+                if gen is not None and limit < want:
+                    self._note_resume_truncated(uid, want, limit, boundary)
                 prio = normalize_priority(prio)
                 tenant = tenant or "default"
-                self._ledger_add(uid, toks, limit, temp, eos, tenant=tenant,
-                                 priority=PRIORITY_NAMES[prio], slo_ms=slo_ms)
-                self._enqueue_traced(uid, tenant=tenant, pclass=PRIORITY_NAMES[prio])
+                self._ledger_add(uid, toks, limit, temp, eos, dl_ms, tenant=tenant,
+                                 priority=PRIORITY_NAMES[prio], slo_ms=slo_ms,
+                                 resumed_from=len(gen) if gen else 0)
+                self._enqueue_traced(uid, tenant=tenant, pclass=PRIORITY_NAMES[prio],
+                                     resumed=bool(gen))
+                if gen is not None:
+                    # a resume arrival bypasses the tenant quota: its
+                    # committed tokens must not be shed at a second admission
+                    fold, done_out = self._ingest_resume(uid, toks, limit, gen)
+                    if done_out is not None:
+                        yield uid, done_out
+                        continue
+                    sched.submit(Request(uid=uid, tokens=fold[0], limit=fold[1], temp=temp,
+                                         eos=eos, tenant=tenant, priority=prio,
+                                         slo_ms=slo_ms, resumed_from=len(gen),
+                                         resumed=True),
+                                 bypass_quota=True)
+                    continue
                 shed = sched.submit(Request(uid=uid, tokens=toks, limit=limit, temp=temp,
                                             eos=eos, tenant=tenant, priority=prio,
                                             slo_ms=slo_ms))
                 if shed is not None:
                     tel.on_shed(uid, shed.tenant, shed.priority, shed.reason)
                     self._ledger.pop(uid, None)
-            # ---- SLO control pass: age queues, recompute pressure, shed
-            # best-effort work under critical pressure ----
+            # ---- deadlines, then the SLO control pass: age queues,
+            # recompute pressure, shed best-effort work under critical
+            # pressure ----
+            self._expire_deadlines(slots, boundary, sched=sched)
             for shed in sched.on_boundary(tel.slo_view(), live_count=slots.live_count()):
                 tel.on_shed(shed.uid, shed.tenant, shed.priority, shed.reason)
                 # a shed request may hold a blockless descriptor left by a
@@ -1287,6 +1651,11 @@ class InferenceEngineV2:
                     self._evict_to_queue(uid, slots, sched, boundary)
             # ---- policy admission (strict priority + fair share) ----
             blocks_before = self.kv.free_blocks
+            alloc_blocked = faults is not None and faults.kv_alloc_blocked(boundary)
+            if alloc_blocked and sched.queued_count():
+                self._fault_event("kv_alloc_failed", boundary,
+                                  "injected KV-block allocation failure; admission "
+                                  "deferred this boundary")
 
             def try_reserve(req):
                 seq = self.state.get_or_create_sequence(req.uid)
@@ -1294,8 +1663,9 @@ class InferenceEngineV2:
                 return None if cached0 is None else (seq, cached0)
 
             admits = []
-            for req, (seq, cached0) in sched.pick(slots.free_slots(), try_reserve,
-                                                  live_count=slots.live_count()):
+            picked = [] if alloc_blocked else sched.pick(slots.free_slots(), try_reserve,
+                                                         live_count=slots.live_count())
+            for req, (seq, cached0) in picked:
                 seq.done = False
                 req.gen_base = len(seq.generated)
                 admits.append((req.uid, seq, req.tokens, req.limit, req.temp, req.eos,
@@ -1312,16 +1682,15 @@ class InferenceEngineV2:
                                     max(len(a[1].blocks) for a in admits),
                                     self.max_seq_len, self.max_blocks_per_seq)
                 slots.admit(admits)
+            self._note_recovery_progress(slots, resume_t0, n_resumed)
             if slots.live_count() == 0:
                 if exhausted and not sched.queued_count():
                     return
                 continue
             width, cur_steps = self._plan_frame(slots, steps, adaptive, ewma,
                                                 cap=sched.frame_steps_cap(steps))
-            toks, emit, nonfinite = self._run_frame(slots, width, cur_steps, ewma,
-                                                    sched.queued_count(), draft)
-            self._quarantine_rows(slots, nonfinite, boundary, sched=sched)
-            for uid in self._absorb(slots, toks, emit, width):
+            for uid in self._dispatch(slots, width, cur_steps, ewma, sched.queued_count(),
+                                      draft, faults, boundary, sched=sched):
                 yield uid, self._retire(slots, uid, sched)
 
 

@@ -32,15 +32,22 @@ Step graphs (``cuda_graphs.py``), the default on the card: each program's
 step runs over static buffers that it updates in place, captured into a
 CUDA graph once per key and replayed, as the JAX programs are compiled once
 per shape bucket with their state donated. Keys: ("run", B, C, MB);
-("loop", B, MB, greedy); ("frame" or "mixed", width, greedy, B, prompt
-width, table width); ("spec_frame" or "spec_mixed", the same, gamma, the
-draft runner's tag). The serving slot state (``DeviceSlotTable``) and the
-``mixed_loop`` state share one set of static buffers per (B, prompt width,
-table width); a slot table served here holds those buffers as its tensors.
+("loop", B, MB, greedy); ("frame" or "mixed", width, greedy, repair, B,
+prompt width, table width); ("spec_frame" or "spec_mixed", the same, gamma,
+the draft runner's tag). ``repair`` (``nonfinite_policy="repair"``) selects
+a non-finite row back to its pre-step carry, so it names its own graph.
+The serving slot state (``DeviceSlotTable``) and the ``mixed_loop`` state
+share one set of static buffers per (B, prompt width, table width); a slot
+table served here holds those buffers as its tensors.
 Sampled steps are never captured: they run eagerly on the same buffers, by
 the rule "any live temperature > 0" (``greedy=False``). The functional
 loops stay: they are the CPU's path and the card's with
 ``cuda_graphs=False``.
+
+``steps_begun`` counts the serving steps a runner has started (a replay,
+an eager step or a functional step): the engine retries a failed frame only
+when none of its steps began, since each one updates the slot state and the
+pools in place.
 """
 
 import itertools
@@ -99,6 +106,7 @@ class PagedModelRunner:
         self._slot_sets = {}    # (B, prompt width, table width) -> static slot buffers
         self._run_sets = {}     # run key -> static inputs and logits
         self._loop_sets = {}    # (B, MB) -> static decode_loop state
+        self.steps_begun = 0    # serving steps started, functional or in place
 
     def _forward(self, params, ids, positions, block_tables, valid_counts,
                  kpool, vpool, *, all_logits=False):
@@ -399,23 +407,26 @@ class PagedModelRunner:
 
     def frame_loop(self, params, prompts, prompt_lens, limits, eos_ids, temps,
                    tables, cached, produced, last_tok, done, poison, nonfinite,
-                   stats, rng, kpool, vpool, *, width, steps, greedy):
+                   stats, rng, kpool, vpool, *, width, steps, greedy, repair=False):
         """One K-step serving FRAME (see the JAX ``frame_loop``): all
         per-slot state is carry-in/carry-out, so the host touches the loop
-        only at frame boundaries. Returns (tokens (steps, B), emit
-        (steps, B), cached, produced, last_tok, done, poison, nonfinite,
-        stats, rng, kpool, vpool); ``rng`` is a ``torch.Generator`` advanced
-        in place by sampled steps."""
+        only at frame boundaries. ``repair`` rolls a non-finite row back to
+        its pre-step carry. Returns (tokens (steps, B), emit (steps, B),
+        cached, produced, last_tok, done, poison, nonfinite, stats, rng,
+        kpool, vpool); ``rng`` is a ``torch.Generator`` advanced in place by
+        sampled steps."""
         body = _serving_scan_body(self._forward, params, prompts, prompt_lens,
-                                  limits, eos_ids, temps, tables, width, greedy)
-        toks, emit, carry = _run_steps(body, (cached, produced, last_tok, done, poison,
-                                              nonfinite, stats, rng, kpool, vpool), steps)
+                                  limits, eos_ids, temps, tables, width, greedy,
+                                  repair=repair)
+        toks, emit, carry = _run_steps(self._counted(body),
+                                       (cached, produced, last_tok, done, poison,
+                                        nonfinite, stats, rng, kpool, vpool), steps)
         return (toks, emit) + carry
 
     def frame_loop_spec(self, draft_runner, params, draft_params, prompts, prompt_lens,
                         limits, eos_ids, temps, tables, cached, produced, last_tok,
                         penult, done, poison, nonfinite, stats, rng, kpool, vpool,
-                        dkpool, dvpool, *, width, steps, greedy, gamma):
+                        dkpool, dvpool, *, width, steps, greedy, gamma, repair=False):
         """Speculative K-step serving frame (the JAX ``frame_loop_spec``
         without its tp branch): ``frame_loop`` with the draft riding the
         carry. Wide frames run the target step unchanged while the draft
@@ -428,31 +439,42 @@ class PagedModelRunner:
         rng, kpool, vpool, dkpool, dvpool)."""
         body = _serving_scan_body(self._forward, params, prompts, prompt_lens, limits,
                                   eos_ids, temps, tables, width, greedy,
-                                  draft=(draft_runner._forward, draft_params, gamma))
-        toks, emit, carry = _run_steps(body, (cached, produced, last_tok, penult, done, poison,
-                                              nonfinite, stats, rng, kpool, vpool, dkpool,
-                                              dvpool), steps, gamma)
+                                  draft=(draft_runner._forward, draft_params, gamma),
+                                  repair=repair)
+        toks, emit, carry = _run_steps(self._counted(body),
+                                       (cached, produced, last_tok, penult, done, poison,
+                                        nonfinite, stats, rng, kpool, vpool, dkpool, dvpool),
+                                       steps, gamma)
         return (toks, emit) + carry
 
-    def frame_in_place(self, slots, params, kv, *, width, steps, greedy, draft=None):
+    def _counted(self, body):
+        """``body`` counting each step it starts in ``steps_begun``."""
+        def step(carry):
+            self.steps_begun += 1
+            return body(carry)
+        return step
+
+    def frame_in_place(self, slots, params, kv, *, width, steps, greedy, draft=None,
+                       repair=False):
         """One serving frame on the static buffers of ``slots``' shape (the
         step-graph form of ``frame_loop`` and, with ``draft=(draft_runner,
         draft_params, draft_kv, gamma)``, of ``frame_loop_spec``): the slot
         table's tensors become those buffers, with their values, and are
-        updated in place; so are the pools (the draft's too). Returns
-        (tokens, emit), each (steps, B), or (steps, B, gamma + 1) with a
-        draft."""
+        updated in place; so are the pools (the draft's too). ``repair``
+        runs the rollback steps, under keys of their own. Returns (tokens,
+        emit), each (steps, B), or (steps, B, gamma + 1) with a draft."""
         shape = (slots.n_slots, slots.prompts.shape[1], slots.tables.shape[1])
         st = self._claim_slots(shape, slots)
         if draft is None:
             self.graphs.bind(params, kv.k, kv.v)
             return self._slot_steps(st, params, kv.k, kv.v, slots.rng, "frame", width,
-                                    steps, greedy)
+                                    steps, greedy, repair=repair)
         draft_runner, draft_params, draft_kv, gamma = draft
         self.graphs.bind(params, kv.k, kv.v, draft_params, draft_kv.k, draft_kv.v)
         return self._slot_steps(st, params, kv.k, kv.v, slots.rng, "spec_frame", width,
                                 steps, greedy,
-                                (draft_runner, draft_params, draft_kv.k, draft_kv.v, gamma))
+                                (draft_runner, draft_params, draft_kv.k, draft_kv.v, gamma),
+                                repair=repair)
 
     def _claim_slots(self, shape, slots=None):
         """The static slot buffers of ``shape`` (B, prompt width, table
@@ -479,13 +501,14 @@ class PagedModelRunner:
         return st
 
     def _slot_steps(self, st, params, kpool, vpool, rng, program, width, steps, greedy,
-                    spec=None):
+                    spec=None, repair=False):
         """``steps`` serving steps of program ``program`` on the static slot
         buffers ``st``, each writing its carry back in place. ``spec``
         (draft_runner, draft_params, dkpool, dvpool, gamma) makes them
-        speculative steps, whose key adds gamma and the draft runner's tag.
-        Returns (tokens, emit), each (steps, B), or (steps, B, gamma + 1)."""
-        key = (program, width, greedy) + st.shape
+        speculative steps, whose key adds gamma and the draft runner's tag;
+        ``repair`` the rollback steps, a key of their own. Returns (tokens,
+        emit), each (steps, B), or (steps, B, gamma + 1)."""
+        key = (program, width, greedy, repair) + st.shape
         names, draft, tail, row = SLOT_CARRY, None, (rng, kpool, vpool), (st.shape[0],)
         if spec is not None:
             draft_runner, draft_params, dkpool, dvpool, gamma = spec
@@ -499,13 +522,17 @@ class PagedModelRunner:
         def one():
             body = _serving_scan_body(self._forward, params, st.prompts, st.prompt_lens,
                                       st.limits, st.eos_ids, st.temps, st.tables,
-                                      width, greedy, draft=draft)
+                                      width, greedy, draft=draft, repair=repair)
             carry, (tok, emit) = body(tuple(getattr(st, n) for n in names) + tail)
             for name, new in zip(names, carry):
                 getattr(st, name).copy_(new)
             rows.write(tok, emit)
 
-        return rows.loop(steps, lambda: self.graphs.run(key, one, capture=greedy))
+        def step():
+            self.steps_begun += 1
+            self.graphs.run(key, one, capture=greedy)
+
+        return rows.loop(steps, step)
 
 
 def _stack_rows(rows, b, dtype, device):
@@ -533,7 +560,7 @@ def _run_steps(body, carry, steps, gamma=None):
 
 
 def _serving_scan_body(fwd, params, prompts, prompt_lens, limits, eos_ids,
-                       temps, tables, width, greedy, draft=None):
+                       temps, tables, width, greedy, draft=None, repair=False):
     """One serving step over the carry (cached, produced, last_tok, done,
     poison, nonfinite, stats, rng, kpool, vpool). A row with
     ``cached < prompt_lens`` prefills up to ``width`` prompt tokens; a row
@@ -541,14 +568,22 @@ def _serving_scan_body(fwd, params, prompts, prompt_lens, limits, eos_ids,
     rows and rows at their limit freeze (width 0, positions -1, writes to
     the trash block). Emits (token or -1, emit mask) per step and adds the
     step's counters to ``stats``. ``draft=(draft_fwd, draft_params,
-    gamma)`` makes it the speculative step (``_spec_scan_body``)."""
+    gamma)`` makes it the speculative step (``_spec_scan_body``).
+
+    ``repair=True`` (``nonfinite_policy="repair"``): a row whose logits go
+    non-finite is not frozen; its carry selects back to the pre-step values
+    (the step never happened for that row; the KV it wrote lies at or above
+    the unchanged watermark, as rejected speculation does, and the retry
+    overwrites it). The ``nonfinite`` latch still reports to the host,
+    which escalates a persistent fault to quarantine."""
     if draft is not None:
         return _spec_scan_body(fwd, params, prompts, prompt_lens, limits, eos_ids,
-                               temps, tables, width, greedy, *draft)
+                               temps, tables, width, greedy, *draft, repair=repair)
 
     def body(carry):
         (cached, produced, last_tok, done, poison, nonfinite, stats, rng,
          kpool, vpool) = carry
+        prev_last, prev_done = last_tok, done
         prefilling, active, w, ids, positions = _wide_plan(
             prompts, prompt_lens, limits, width, cached, produced, last_tok,
             done)
@@ -561,8 +596,14 @@ def _serving_scan_body(fwd, params, prompts, prompt_lens, limits, eos_ids,
         emit, last_tok, done = _wide_emit(active, prefilling, cached, w,
                                           prompt_lens, eos_ids, nxt, last_tok,
                                           done)
-        emit, done, nonfinite, _bad = _finite_check(logits, active, emit, done,
-                                                    nonfinite)
+        emit, done, nonfinite, bad = _finite_check(logits, active, emit, done,
+                                                   nonfinite)
+        if repair:
+            # no progress for a bad row this step: un-freeze, un-advance
+            # (its emit is already cleared)
+            last_tok = torch.where(bad, prev_last, last_tok)
+            done = torch.where(bad, prev_done, done)
+            w = torch.where(bad, 0, w)
         stats = stats + _stat_delta(
             emitted=emit, active=active,
             prefill_toks=torch.where(prefilling, w, 0),
@@ -635,9 +676,10 @@ def _wide_emit(active, prefilling, cached, w, prompt_lens, eos_ids, nxt,
 
 
 def _spec_scan_body(fwd, params, prompts, prompt_lens, limits, eos_ids, temps, tables,
-                    width, greedy, draft_fwd, draft_params, gamma):
-    """The speculative serving step (JAX ``_spec_scan_body`` without the
-    repair policy). Carry: (cached, produced, last_tok, penult, done,
+                    width, greedy, draft_fwd, draft_params, gamma, repair=False):
+    """The speculative serving step (JAX ``_spec_scan_body``), with the
+    repair selects of ``_serving_scan_body`` in its wide and verify steps.
+    Carry: (cached, produced, last_tok, penult, done,
     poison, nonfinite, stats, rng, kpool, vpool, dkpool, dvpool); emissions
     are (B, gamma + 1). The finite check watches the target's verify
     logits.
@@ -656,6 +698,7 @@ def _spec_scan_body(fwd, params, prompts, prompt_lens, limits, eos_ids, temps, t
         def wide(carry):
             (cached, produced, last_tok, penult, done, poison, nonfinite, stats, rng,
              kpool, vpool, dkpool, dvpool) = carry
+            prev_last, prev_done = last_tok, done
             b = cached.shape[0]
             prefilling, active, w, ids, positions = _wide_plan(
                 prompts, prompt_lens, limits, width, cached, produced, last_tok, done)
@@ -676,7 +719,13 @@ def _spec_scan_body(fwd, params, prompts, prompt_lens, limits, eos_ids, temps, t
             new_penult = torch.where(prefilling, tail, last_tok)
             emit, last_tok, done = _wide_emit(active, prefilling, cached, w, prompt_lens,
                                               eos_ids, nxt, last_tok, done)
-            emit, done, nonfinite, _bad = _finite_check(logits, active, emit, done, nonfinite)
+            emit, done, nonfinite, bad = _finite_check(logits, active, emit, done, nonfinite)
+            if repair:
+                # pre-step rollback; the cleared emit keeps penult and
+                # produced as they were
+                last_tok = torch.where(bad, prev_last, last_tok)
+                done = torch.where(bad, prev_done, done)
+                w = torch.where(bad, 0, w)
             penult = torch.where(emit, new_penult, penult)
             dev = cached.device
             toks_k = torch.cat([torch.where(emit, nxt, -1)[:, None].to(torch.int32),
@@ -697,6 +746,7 @@ def _spec_scan_body(fwd, params, prompts, prompt_lens, limits, eos_ids, temps, t
     def body(carry):
         (cached, produced, last_tok, penult, done, poison, nonfinite, stats, rng,
          kpool, vpool, dkpool, dvpool) = carry
+        prev_last, prev_penult, prev_done = last_tok, penult, done
         koffs = torch.arange(k_out, dtype=torch.int32, device=cached.device)
         # speculative frames run only when no slot prefills; a prefilling
         # row here would freeze
@@ -748,7 +798,7 @@ def _spec_scan_body(fwd, params, prompts, prompt_lens, limits, eos_ids, temps, t
         eos_before = is_eos.to(torch.int32).cumsum(dim=1) - is_eos.to(torch.int32)
         emit = (active[:, None] & (koffs[None, :] <= n_acc[:, None])
                 & (produced[:, None] + koffs[None, :] < limits[:, None]) & (eos_before == 0))
-        emit, done, nonfinite, _bad = _finite_check(tlogits, active, emit, done, nonfinite)
+        emit, done, nonfinite, bad = _finite_check(tlogits, active, emit, done, nonfinite)
         m = emit.to(torch.int32).sum(dim=1, dtype=torch.int32)
         seq_toks = torch.cat([last_tok[:, None], e], dim=1)
         new_last = torch.gather(seq_toks, 1, m[:, None].long())[:, 0]
@@ -756,6 +806,12 @@ def _spec_scan_body(fwd, params, prompts, prompt_lens, limits, eos_ids, temps, t
         last_tok = torch.where(active, new_last, last_tok)
         penult = torch.where(active, new_penult, penult)
         done = done | (emit & is_eos).any(dim=1)
+        if repair:
+            # pre-step rollback; m is already 0 for a bad row (its emit
+            # columns were cleared), so cached and produced stand still
+            last_tok = torch.where(bad, prev_last, last_tok)
+            penult = torch.where(bad, prev_penult, penult)
+            done = torch.where(bad, prev_done, done)
         # verify forwards are the active rows; accepted drafts the emit
         # columns past the first
         stats = stats + _stat_delta(

@@ -8,7 +8,10 @@ the committed watermark ``committed_h``). Per-slot state (last token, cached-tok
 counts, per-row limits/EOS/temperature, padded block tables) lives on the
 device between frames as tensors the frame loop updates; the host keeps
 numpy mirrors purely for admission control and never reads slot state back
-mid-frame.
+mid-frame. The fault hooks (``set_poison``, ``clear_nonfinite``) write the
+poison flag and the finite-check latch in place at a frame boundary, and
+``resync_committed`` reads the (B,) watermark back only at a repair
+boundary.
 """
 
 import dataclasses
@@ -277,16 +280,18 @@ class DeviceSlotTable:
     # ---------------- frame execution + host replay ----------------
 
     def dispatch_frame(self, runner, params, kv, width: int, steps: int,
-                       greedy: bool, draft=None):
+                       greedy: bool, draft=None, repair=False):
         """Run one K-step frame, returning the (tokens, emit) DEVICE tensors;
         nothing is read back. ``draft=(draft_runner, draft_params, draft_kv,
         gamma)`` runs the speculative frame: the draft's pools share this
-        table's block tables. A runner with step graphs runs it in place on
-        its static buffers; otherwise the functional loop's carry becomes the
+        table's block tables. ``repair`` runs the steps that roll a
+        non-finite row back to its pre-step carry (``nonfinite_policy=
+        "repair"``). A runner with step graphs runs it in place on its
+        static buffers; otherwise the functional loop's carry becomes the
         new state."""
         if runner.graphs is not None:
-            return runner.frame_in_place(self, params, kv, width=width,
-                                         steps=steps, greedy=greedy, draft=draft)
+            return runner.frame_in_place(self, params, kv, width=width, steps=steps,
+                                         greedy=greedy, draft=draft, repair=repair)
         if draft is None:
             (toks, emit, self.cached, self.produced, self.last_tok, self.done,
              self.poison, self.nonfinite, self.stats, self.rng, kv.k,
@@ -294,7 +299,7 @@ class DeviceSlotTable:
                 params, self.prompts, self.prompt_lens, self.limits, self.eos_ids,
                 self.temps, self.tables, self.cached, self.produced, self.last_tok,
                 self.done, self.poison, self.nonfinite, self.stats, self.rng,
-                kv.k, kv.v, width=width, steps=steps, greedy=greedy)
+                kv.k, kv.v, width=width, steps=steps, greedy=greedy, repair=repair)
             return toks, emit
         draft_runner, draft_params, draft_kv, gamma = draft
         (toks, emit, self.cached, self.produced, self.last_tok, self.penult, self.done,
@@ -304,24 +309,62 @@ class DeviceSlotTable:
             self.limits, self.eos_ids, self.temps, self.tables, self.cached,
             self.produced, self.last_tok, self.penult, self.done, self.poison,
             self.nonfinite, self.stats, self.rng, kv.k, kv.v, draft_kv.k, draft_kv.v,
-            width=width, steps=steps, greedy=greedy, gamma=gamma)
+            width=width, steps=steps, greedy=greedy, gamma=gamma, repair=repair)
         return toks, emit
 
     def run_frame(self, runner, params, kv, width: int, steps: int,
-                  greedy: bool, draft=None):
+                  greedy: bool, draft=None, repair=False):
         """Dispatch one frame, then fetch everything the boundary reads in
         the one device-to-host copy a frame makes: (tokens (steps, B[,
         gamma + 1]), emit (same) bool, the finite-check latch (B,) bool, the
         in-frame counters' increment (N_STATS,) int64). The device counter
         vector restarts at zero, in place."""
         toks, emit = self.dispatch_frame(runner, params, kv, width, steps, greedy,
-                                         draft=draft)
+                                         draft=draft, repair=repair)
         n, b = toks.numel(), self.n_slots
         host = torch.cat([toks.flatten(), emit.flatten().to(torch.int32),
                           self.nonfinite.to(torch.int32), self.stats]).cpu().numpy()
         self.stats.zero_()
         return (host[:n].reshape(toks.shape), host[n:2 * n].reshape(toks.shape) != 0,
                 host[2 * n:2 * n + b] != 0, host[2 * n + b:].astype(np.int64))
+
+    def _live_rows(self, uids: List[int]):
+        """Device index of the slots of the live uids among ``uids`` (None
+        when there is none: a fault raced a normal retirement)."""
+        rows = [self.slot_of_uid[u] for u in uids if u in self.slot_of_uid]
+        return self._dev(rows, torch.long) if rows else None
+
+    def set_poison(self, uids: List[int]) -> None:
+        """Arm the poison flag of live rows (fault injection): the next frame
+        NaNs their logits, so the real finite check trips. One batched
+        host-to-device write at the boundary, in place: the captured steps
+        read this very tensor. Unknown or retired uids are ignored."""
+        idx = self._live_rows(uids)
+        if idx is not None:
+            self.poison[idx] = True
+
+    def clear_nonfinite(self, uids: List[int]) -> None:
+        """Repair-policy boundary hook: these latched rows get another
+        chance. Clears the finite-check latch and the poison flag (an
+        injected fault is a one-frame blip under repair) in place, one
+        batched write. Unknown or retired uids are ignored."""
+        idx = self._live_rows(uids)
+        if idx is not None:
+            self.poison[idx] = False
+            self.nonfinite[idx] = False
+
+    def resync_committed(self, uids: List[int]) -> None:
+        """Re-read the committed watermark of repaired rows. ``absorb``
+        cannot see which steps a repaired row rolled back (its emit mask
+        only shows that nothing was emitted), so its ``cached_h`` mirror may
+        run ahead of the device's ``cached``. One (B,) read, made only at a
+        repair boundary."""
+        rows = [self.slot_of_uid[u] for u in uids if u in self.slot_of_uid]
+        if not rows:
+            return
+        cached = self.cached.cpu().numpy()
+        for r in rows:
+            self.cached_h[r] = int(cached[r])
 
     def nonfinite_uids(self, flags: np.ndarray) -> List[int]:
         """Live uids whose logits went non-finite during the last frame,

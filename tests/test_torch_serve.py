@@ -178,27 +178,26 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
         ENTRY_POINTS[entry](model)
 
 
-# over1 (prefix_cache) and over3 (kv_swap_dir) were ported; the other
-# cases keep their ids
-@pytest.mark.parametrize("over", [{"tp": 2}, {"role": "prefill"},
-                                  {"nonfinite_policy": "repair"}],
-                         ids=["over0", "over2", "over4"])
+# over1 (prefix_cache), over3 (kv_swap_dir) and over4 (nonfinite_policy)
+# were ported; the other cases keep their ids
+@pytest.mark.parametrize("over", [{"tp": 2}, {"role": "prefill"}],
+                         ids=["over0", "over2"])
 def test_unported_config_raises(over):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngineV2(build_model("tiny"),
                           RaggedInferenceEngineConfig(**{**KW, **over}), device="cpu")
 
 
-# kw0 (scheduler) was ported; the other cases keep their ids
-@pytest.mark.parametrize("kw", [{"faults": object()}, {"resume_from": {}},
-                                {"yield_boundaries": True}],
-                         ids=["kw1", "kw2", "kw3"])
+# kw0 (scheduler), kw1 (faults) and kw2 (resume_from) were ported; kw3
+# keeps its id
+@pytest.mark.parametrize("kw", [{"yield_boundaries": True}], ids=["kw3"])
 def test_unported_serve_options_raise(engines, kw):
     _, te = engines
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         te.serve(iter([]), **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        list(te.serve(iter([[{"uid": 0, "tokens": [1, 2], "deadline_ms": 5.0}]])))
+        list(te.serve(iter([[{"uid": 0, "tokens": [1, 2],
+                              "trace": {"id": "t", "parent": None}}]])))
     assert _drained(te)
 
 
