@@ -30,9 +30,12 @@ Phases, each printing one JSON line:
      rows, and the speculative widths (the draft's C = 2 re-feed, the
      verify's C = 3 and 5) at llama3-8b's and the 1B draft's (D 64)
      attention with NaN in every slot at or beyond each row's first chunk
-     position, each also replayed from a CUDA graph bit-identical;
-  4. kernel_time: K1 on the decode, prefill and mixed steps and at the
-     speculative widths (re-feed C 2, verify C 3 and 5) by CUDA events
+     position, and one tp = 4 rank of llama2-70b (H 16, KVH 2, D 128:
+     ``tp4_decode``, ``tp4_prefill``), each also replayed from a CUDA graph
+     bit-identical;
+  4. kernel_time: K1 on the decode, prefill and mixed steps, at the
+     speculative widths (re-feed C 2, verify C 3 and 5) and at the tp = 4
+     rank's decode and prefill steps by CUDA events
      and by CUDA-graph replay (a replayed call must give the eager call's
      bits), its plain version and one PyTorch library call (pages gather +
      scaled_dot_product_attention), beside the card's bound for the same
@@ -246,6 +249,29 @@ the last line. Without CUDA, or without the package beside it, it exits 1.
 ring across them instead: one process per card over NCCL, each holding one
 8192-token shard, against the one-process ring of the four shards on its
 card; it needs four cards and is not part of the one-card run.
+
+``python3 chip_smoke.py tp-nccl`` on four cards serves tensor-parallel
+instead (one process per card, NCCL, every rank stopped when one fails):
+  tp_serve_path: llama2-70b at full width and depth, tp = 4, bf16, each
+     rank drawing only its shard, the main path's 8 greedy requests from
+     CUDA graphs (NCCL captured in them), a capturing run and a timed one:
+     the same tokens on every rank and in both runs, budgets met, the pool
+     drained, K1 = 80 x steps on every rank; a decode step's wall and
+     device ms by class (GEMMs, NCCL, K1, other), peak GB a card;
+  tp_reference_check: 8 of the 80 layers against an f32 dense forward of the
+     same bf16 weights on card 0 (no engine, no process group):
+     teacher-forced logits over the prefill and 16 decode steps, tp = 4
+     within 1.5 x tp = 1's own bf16 distance (relative Frobenius), and a
+     control with wk / wv cut at the wrong rank offset outside it; tp 4
+     vs tp 1 and greedy agreement printed;
+  tp_collectives_check: the overlap ring within the same bound; int8 and
+     fp8 collectives on JAX's probe and on the prefill's first chunk
+     within 1.5 x (the quantized scheme's own distance, computed in f32
+     on one card, + the exact tp = 4's), budgets met, JAX's contract
+     (max |q - exact| <= 0.05 max |exact|) printed for the port and the
+     scheme; every lowering on the wire against its arithmetic on one
+     card; each variant's decode step beside exact's.
+Its last line is the same ``ok`` line with ``count`` 4.
 """
 
 import gc
@@ -350,14 +376,16 @@ def case_work(case):
     """(bytes, flops) the function needs on this case's data: each live key
     and value row (pool and chunk) read once, the q rows of live positions
     read once (a pad row's output is 0 whatever its q), out written once;
-    4*D flops per (query row, visible key)."""
-    b, c = case["positions"].shape
-    live_q = int((case["positions"] >= 0).sum()) * H
+    4*D flops per (query row, visible key). Head counts and D are the
+    case's own."""
+    b, c, h, d = case["q"].shape
+    kvh = case["kpool"].shape[1]
+    live_q = int((case["positions"] >= 0).sum()) * h
     keys = sum(n + v for n, v in zip(case["ctx"], case["valid"]))
     elt = 2
-    nbytes = (keys * KVH * D * 2 * elt           # K and V rows
-              + live_q * D * elt                 # q in, live rows
-              + b * c * H * D * elt              # out, every row
+    nbytes = (keys * kvh * d * 2 * elt           # K and V rows
+              + live_q * d * elt                 # q in, live rows
+              + b * c * h * d * elt              # out, every row
               + 4 * (case["positions"].numel() + case["block_tables"].numel()))
     flops = 0
     for n, v in zip(case["ctx"], case["valid"]):
@@ -365,7 +393,7 @@ def case_work(case):
             visible = n + j + 1
             if case["window"] > 0:
                 visible = min(visible, case["window"])
-            flops += 4 * D * H * visible
+            flops += 4 * d * h * visible
     return nbytes, flops
 
 
@@ -448,6 +476,12 @@ K1_SPEC = {
 }
 DRAFT_DIMS = dict(h=32, kvh=8, d=64)     # Llama-3.2-1B's attention: the 1B draft
 
+# one rank's attention of llama2-70b served at tp = 4 (64 / 4 query heads on
+# 8 / 4 kv heads, a GQA group of 8), at the main path's decode and prefill
+# steps: the shape ``python3 chip_smoke.py tp-nccl`` serves on each card
+TP_DIMS = dict(h=16, kvh=2, d=128)
+K1_TP = {f"tp4_{name}": {**K1_MAIN[name], **TP_DIMS} for name in ("decode", "prefill")}
+
 
 def poison(torch, case):
     """NaN where no live row may look: every slot of trash block 0, every
@@ -507,7 +541,7 @@ def k1_check_cases(torch):
                          seed=18)),
         poison(torch, mk(torch, "nan_d80", ctx=[77, 0], c=16, valid=[16, 0], h=32, kvh=32, d=80,
                          bs=16, seed=19)),
-    ] + k1_spec_cases(torch)
+    ] + k1_spec_cases(torch) + [mk(torch, name, **kw) for name, kw in K1_TP.items()]
 
 
 def k1_spec_cases(torch):
@@ -631,9 +665,9 @@ def kernel_phases(torch):
     for case in k1_check_cases(torch):
         err, routes[case["name"]] = check_k1(torch, case)
         worst = max(worst, err)
-        if case["name"].startswith("spec_"):
-            # the speculative steps replay from CUDA graphs: a replay of the
-            # case must give the eager call's bits, NaN slots and all
+        if case["name"].startswith(("spec_", "tp4_")):
+            # the speculative and tp steps replay from CUDA graphs: a replay
+            # of the case must give the eager call's bits, NaN slots and all
             same = graph_bits(torch, lambda i, c=case: call(paged_ragged_attention, c))
             emit("kernel_check_graph", kernel="paged_attention", case=case["name"],
                  graph_bit_identical=same)
@@ -645,7 +679,7 @@ def kernel_phases(torch):
     # timing: 8 layers of pool cycled, so a call finds its pages cold in L2
     # as each layer of a real step does
     shapes = {}
-    for name, kw in list(K1_MAIN.items()) + list(K1_SPEC.items()):
+    for name, kw in list(K1_MAIN.items()) + list(K1_SPEC.items()) + list(K1_TP.items()):
         case = make_case(torch, name, layers=8, **kw)
         f32 = {k: case[k].float() for k in ("q", "kpool", "vpool", "chunk_k", "chunk_v")}
         plain_case = {**case, **f32}
@@ -662,7 +696,8 @@ def kernel_phases(torch):
             library_ms=cuda_ms(torch, library), library_graph_ms=graph_ms(torch, library),
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
             shape=dict(B=len(case["ctx"]), C=int(case["positions"].shape[1]),
-                       H=H, KVH=KVH, D=D, bs=BS, dtype="bfloat16"))
+                       H=int(case["q"].shape[2]), KVH=int(case["kpool"].shape[1]),
+                       D=int(case["q"].shape[3]), bs=BS, dtype="bfloat16"))
         emit("kernel_time", kernel="paged_attention", case=name,
              library="pages gathered + F.scaled_dot_product_attention (boolean mask)",
              timing="ms: back-to-back calls by CUDA events (host launch time included); "
@@ -4867,6 +4902,620 @@ def ring_nccl(torch, smi):
     print(smi, flush=True)
 
 
+# ------------------------------ tensor-parallel serving across four cards (NCCL)
+
+TP_MODEL = "llama2-70b"
+TP_RANKS = 4
+TP_REF_LAYERS = 8          # tp_reference_check / tp_collectives_check depth
+TP_FORCED = 16             # teacher-forced decode steps after the prefill
+TP_TIMEOUT_S = 900
+
+
+def tp_device(torch, rank):
+    """A tp rank's card."""
+    return torch.device("cuda", rank)
+
+
+def tp_config(**over):
+    """The tp phases' serving config: the main path's (16 slots, 128-token
+    pages and chunks, bf16) at tp = 4."""
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineConfig
+    return RaggedInferenceEngineConfig(**{"max_ragged_batch_size": 16, "kv_block_size": BS,
+                                          "prefill_chunk_size": 128, "dtype": "bfloat16",
+                                          "tp": TP_RANKS, **over})
+
+
+def _tp_class(name):
+    if "nccl" in name.lower():
+        return "nccl"
+    return _kernel_class(name)
+
+
+def tp_gather(obj):
+    """Every rank's ``obj``, in rank order, on every rank."""
+    import torch.distributed as dist
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def tp_check(ok, msg):
+    """A gate every rank takes together: the verdicts are gathered, so a
+    failure on one rank fails all four (none waits in a collective for a
+    rank that left)."""
+    oks = tp_gather(bool(ok))
+    if not all(oks):
+        fail(f"{msg} (ranks ok: {oks})")
+
+
+def tp_decode_step(torch, eng):
+    """A decode step at the main path's 16-slot shape through the engine's
+    runner (8 live rows at the K1 decode case's contexts), replayed from its
+    CUDA graph; the blocks it holds are returned by ``release``."""
+    owned = []
+    g = torch.Generator().manual_seed(2)
+    args = step_inputs(torch, eng, K1_MAIN["decode"]["ctx"][:8], 1, 16, g, owned)
+
+    def step():
+        return eng.runner.run(eng.params, *args, eng.kv.k, eng.kv.v)
+
+    return step, lambda: eng.kv.allocator.free(owned)
+
+
+def forced_logits(torch, eng, prompts, forced):
+    """Teacher-forced logits through ``eng.runner.run``: the prompts' prefill
+    in 128-token chunks (each row's last-token logits as its chunk ends),
+    then ``forced.shape[1]`` decode steps feeding ``forced`` (B, n) tokens.
+    Returns ((1 + n) x B, V) f32 logits, the first chunk's forward's
+    (B, V) logits, and frees the blocks it took."""
+    kv, dev = eng.kv, eng.device
+    lens = [len(p) for p in prompts]
+    b, n = len(prompts), forced.shape[1]
+    owned = []
+    tables = torch.zeros((b, eng.max_blocks_per_seq), dtype=torch.int32)
+    for i, ln in enumerate(lens):
+        blk = kv.allocator.allocate(kv.blocks_for(ln + n + 1))
+        owned += blk
+        tables[i, :len(blk)] = torch.tensor(blk, dtype=torch.int32)
+    tables = tables.to(dev)
+    last, first, rows = [None] * b, None, []
+    try:
+        for s0 in range(0, max(lens), 128):
+            ids = torch.zeros((b, 128), dtype=torch.int32)
+            pos = torch.full((b, 128), -1, dtype=torch.int32)
+            for i, p in enumerate(prompts):
+                seg = torch.as_tensor(p[s0:s0 + 128], dtype=torch.int32)
+                ids[i, :len(seg)] = seg
+                pos[i, :len(seg)] = torch.arange(s0, s0 + len(seg), dtype=torch.int32)
+            valid = (pos >= 0).sum(dim=1).to(torch.int32)
+            logits = eng.runner.run(eng.params, ids.to(dev), pos.to(dev), tables,
+                                    valid.to(dev), kv.k, kv.v)[0]
+            if first is None:
+                first = logits.clone()
+            for i, ln in enumerate(lens):
+                if s0 <= ln - 1 < s0 + 128:
+                    last[i] = logits[i].clone()
+        rows.append(torch.stack(last))
+        for t in range(n):
+            ids = forced[:, t:t + 1].to(torch.int32)
+            pos = torch.tensor([[ln + t] for ln in lens], dtype=torch.int32)
+            logits = eng.runner.run(eng.params, ids.to(dev), pos.to(dev), tables,
+                                    torch.ones((b,), dtype=torch.int32, device=dev),
+                                    kv.k, kv.v)[0]
+            rows.append(logits.clone())
+        torch.cuda.synchronize()
+    finally:
+        kv.allocator.free(owned)
+    return torch.cat(rows).float(), first.float()
+
+
+def rel_fro(torch, got, want):
+    return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+
+def tp_serve_path(torch, rank, smi):
+    """Phase tp_serve_path: llama2-70b at full width and depth over four
+    cards (tp = 4, bf16, random weights, each rank drawing only its own shard
+    on its card), the main path's 8 greedy requests from CUDA graphs: one
+    capturing run, then one timed run. Every rank must emit the same tokens
+    in the same order, every budget complete (uid 5 at its EOS), the pool
+    drain, and K1 launch 80 x steps on every rank. Then a decode step's wall
+    and device time by class (GEMMs, NCCL, K1, other) and the idle share.
+    Returns K1's launches in the timed run."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.tp import build_tp_context, init_params_shard
+    from deepspeed_tpu_torch.models import build_model
+    dev = tp_device(torch, rank)
+    model = build_model(TP_MODEL)
+    cfg = model.cfg
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params_shard(model, build_tp_context(model, TP_RANKS), seed=0, device=dev,
+                               dtype=torch.bfloat16)
+    eng = InferenceEngineV2(model, tp_config(), params=params, max_seq_len=2048, device=dev)
+    del params
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(eng.params)) / 1e9
+    prompts, eos_uid, eos_id, arrivals, arrival_t = main_workload(torch, cfg.vocab_size)
+    runs = {}
+    for mode in ("graph_first", "graph"):
+        runs[mode] = serve_counted(torch, eng, arrivals(), max_new_tokens=32)
+        runs[mode]["ttft_first_request_s"] = runs[mode]["first_tok"][0] - arrival_t[0]
+    r = runs["graph"]
+    mine = [(u, t.tolist()) for u, t in r["got"]]
+    every = tp_gather(mine)
+    tp_check(all(x == every[0] for x in every),
+             "tp_serve_path: the ranks' tokens or retirement order differ")
+    tp_check(mine == [(u, t.tolist()) for u, t in runs["graph_first"]["got"]],
+             "tp_serve_path: the capturing run's tokens differ from the timed run's")
+    check_budgets("tp_serve_path", r["got"], prompts, eos_uid, eos_id, cfg.vocab_size)
+    tp_check(all(x["launches"] == cfg.num_layers * x["steps"] for x in runs.values()),
+             f"tp_serve_path: K1 launches {[x['launches'] for x in runs.values()]} != "
+             f"{cfg.num_layers} x steps {[x['steps'] for x in runs.values()]}")
+    tp_check(eng.kv.free_blocks == eng.kv.num_blocks - 1 and not eng.state.seqs,
+             "tp_serve_path: the pool did not drain")
+    # what a frame boundary's deadline pass costs the host without deadlines:
+    # the one-int all-reduce that tells whether any rank holds one (taken
+    # before the trace below, which leaves CUPTI raising every launch's cost)
+    guard = [eng._any_deadline_armed() for _ in range(5)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        guard.append(eng._any_deadline_armed())
+    guard_us = (time.perf_counter() - t0) * 1e6 / 200
+    tp_check(not any(guard), "tp_serve_path: a deadline is armed with none set")
+    step, release = tp_decode_step(torch, eng)
+    try:
+        prof = profile_modes(torch, {"decode": step}, _tp_class)["decode"]
+    finally:
+        release()
+    k1 = prof["kernels_a_step_by_class"].get("paged_attention", 0)
+    tp_check(k1 == cfg.num_layers, f"tp decode step: {k1} K1 kernels a step on the card")
+    n_tok = sum(len(t) for _, t in r["got"])
+    row = dict(rank=rank, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               weights_gb=weights_gb, kv_blocks=eng.kv.num_blocks,
+               kv_gb=2 * eng.kv.k.numel() * eng.kv.k.element_size() / 1e9,
+               build_s=build_s, deadline_guard_us_a_boundary=guard_us, step=prof)
+    rows = tp_gather(row)
+    if rank == 0:
+        emit("tp_serve_path", model=TP_MODEL, tp=TP_RANKS, layers=cfg.num_layers,
+             hidden=cfg.hidden_size, heads_per_rank=cfg.num_heads // TP_RANKS,
+             kv_heads_per_rank=cfg.kv_heads // TP_RANKS, requests=len(r["got"]), tokens=n_tok,
+             cuda_graphs=True, frames=r["frames"], steps=r["steps"],
+             wide_steps=r["wide_steps"], narrow_steps=r["narrow_steps"],
+             paged_attention_launches=r["launches"], launches_per_step=r["launches"] / r["steps"],
+             serve_s=r["serve_s"], tokens_per_s=n_tok / r["serve_s"],
+             ttft_first_request_s=r["ttft_first_request_s"],
+             tokens_identical_across_ranks=True, by_mode=run_rows(runs, n_tok),
+             ranks=rows, card=smi)
+    return r["launches"]
+
+
+def probe_logits(torch, eng):
+    """JAX's contract probe (tests/test_serving_tp.py:178-199): one token
+    (id 5) at position 0 into block 1, one forward, the (1, V) logits."""
+    dev = eng.device
+    ids, pos, tbl = (torch.tensor([[v]], dtype=torch.int32, device=dev) for v in (5, 0, 1))
+    one = torch.ones((1,), dtype=torch.int32, device=dev)
+    return eng.runner._forward(eng.params, ids, pos, tbl, one, eng.kv.k, eng.kv.v)[0].float()
+
+
+def tp_dense_logits(torch, model, params, ids, at, payload=None, degree=TP_RANKS):
+    """f32 logits (len(at), V) at positions ``at`` of the token sequence
+    ``ids`` by a dense causal forward written out here: no pages, no
+    kernel, no process group, each layer's weights cast to f32 as it runs
+    (TF32 off). ``payload`` ("int8" / "fp8"): every reduction a tp =
+    ``degree`` engine makes with quantized collectives (the embedding
+    lookup split over vocab, the attention and MLP output products split
+    over heads and the intermediate dim, the logits split over vocab) is
+    made here from the ``degree`` partials stacked, through the arithmetic
+    of ``parallel.collectives`` (``psum_quantized``: per-chunk quantize,
+    sum shard 0 first, requantize; ``all_gather_quantized``): the quantized
+    scheme's function in f32 on one card. llama-style models (no biases)."""
+    from deepspeed_tpu_torch.models import layers as L
+    from deepspeed_tpu_torch.models.transformer import layer_slice
+    from deepspeed_tpu_torch.parallel import collectives as TC
+    cfg = model.cfg.replace(dtype="float32")
+    f32, n = torch.float32, degree
+    e, h, kvh, d, vocab = (cfg.hidden_size, cfg.num_heads, cfg.kv_heads, cfg.dims_per_head,
+                           cfg.vocab_size)
+    if payload is not None and cfg.use_bias:
+        raise ValueError("tp_dense_logits: the quantized scheme is written for bias-free models")
+    s, dev = len(ids), ids.device
+
+    def psum_q(parts):               # (n, ..., D) partials -> the all-reduce's result
+        chunks = parts.reshape(parts.shape[:-1] + (n, parts.shape[-1] // n))
+        q, sc = TC._quantize(chunks, payload)
+        red = TC._sum_shards(q.float() * sc, 0)
+        q2, s2 = TC._quantize(red, payload)
+        return (q2.float() * s2).reshape(parts.shape[1:])
+
+    def row_parallel(x, w):          # x (..., K) @ w (K, N), K split over the ranks
+        if payload is None:
+            return x @ w
+        k = x.shape[-1] // n
+        return psum_q(torch.stack([x[..., r * k:(r + 1) * k] @ w[r * k:(r + 1) * k]
+                                   for r in range(n)]))
+
+    tok = params["embed"]["tok"]
+    x = tok[ids].to(f32)[None]
+    if payload is not None:
+        owner = ids // (vocab // n)
+        x = psum_q(torch.stack([x * (owner == r).to(f32)[None, :, None] for r in range(n)]))
+    pos = torch.arange(s, device=dev)[None]
+    inv = model.inv_freq(dev)
+    causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    for li in range(cfg.num_layers):
+        lp = layer_slice(params["layers"], li)
+        a = L.apply_norm(lp["norm1"], x, cfg)
+        att = {k: lp["attn"][k].to(f32) for k in ("wq", "wk", "wv", "wo")}
+        q = (a @ att["wq"].reshape(e, h * d)).view(1, s, h, d)
+        k = (a @ att["wk"].reshape(e, kvh * d)).view(1, s, kvh, d)
+        v = (a @ att["wv"].reshape(e, kvh * d)).view(1, s, kvh, d)
+        q, k = L.apply_rope(q, pos, inv), L.apply_rope(k, pos, inv)
+        k = k.repeat_interleave(h // kvh, dim=2)
+        v = v.repeat_interleave(h // kvh, dim=2)
+        sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * d ** -0.5
+        pr = sc.masked_fill(~causal, float("-inf")).softmax(dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", pr, v).reshape(1, s, h * d)
+        x = x + row_parallel(o, att["wo"].reshape(h * d, e))
+        mlp = {k_: w.to(f32) for k_, w in lp["mlp"].items()}
+        y = L.apply_norm(lp["norm2"], x, cfg)
+        if payload is None:
+            x = x + L.apply_mlp(mlp, y, cfg)
+        else:
+            f = cfg.ffn_size // n
+            x = x + psum_q(torch.stack([L.apply_mlp(
+                {k_: (w[:, r * f:(r + 1) * f] if k_ != "wo" else w[r * f:(r + 1) * f])
+                 for k_, w in mlp.items()}, y, cfg) for r in range(n)]))
+    x = L.apply_norm(params["final_norm"], x, cfg)[0, at]
+    logits = x @ params["embed"]["lm_head"].to(f32)
+    if payload is not None:
+        q, sc = TC._quantize(logits.reshape(len(at), n, vocab // n), payload)
+        logits = (q.float() * sc).reshape(len(at), vocab)
+    return logits
+
+
+def tp_reference_logits(torch, model, params, prompts, forced, payload=None):
+    """``tp_dense_logits`` laid out as ``forced_logits`` lays out the
+    engine's: ((1 + n) x B, V) teacher-forced rows (step-major), and (B, V)
+    at each prompt's first-chunk end. Without ``payload`` the whole
+    sequence runs once a prompt; with it, only the first chunk (the
+    scheme is read there and at the probe)."""
+    dev, n = params["embed"]["tok"].device, forced.shape[1]
+    forced = forced.to(dev)
+    steps, first = [[] for _ in range(1 + n)], []
+    for i, p in enumerate(prompts):
+        ln, c = len(p), min(len(p), 128)
+        ids = torch.cat([torch.as_tensor(p, dtype=torch.long, device=dev),
+                         forced[i].long()])
+        if payload is None:
+            out = tp_dense_logits(torch, model, params, ids,
+                                  [c - 1] + [ln - 1 + j for j in range(1 + n)])
+            for j in range(1 + n):
+                steps[j].append(out[1 + j])
+        else:
+            out = tp_dense_logits(torch, model, params, ids[:c], [c - 1], payload)
+        first.append(out[0])
+    rows = torch.stack([r for st in steps for r in st]) if payload is None else None
+    return rows, torch.stack(first)
+
+
+def tp_wire_check(torch, rank):
+    """The tp collectives over NCCL held against the same arithmetic done on
+    this card from every rank's inputs (gathered exactly): the int8 and fp8
+    all-reduces, the ring and the quantized logit gather bit for bit, the
+    exact all-reduce within two bf16 steps of the f32 sum. Shapes: a decode
+    step's (16, 8192) bf16 activation and a (16, 8000) logit shard."""
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.parallel import collectives as TC
+    n, dev = TP_RANKS, tp_device(torch, rank)
+    g = torch.Generator(device=dev).manual_seed(11 + rank)
+    x = torch.randn(16, 8192, generator=g, device=dev).to(torch.bfloat16)
+    lg = torch.randn(16, 8000, generator=g, device=dev).to(torch.bfloat16)
+    xs = comm.all_gather_into_tensor(x[None], dim=0)             # (n, 16, 8192)
+    out = {}
+    chunks = xs.reshape(n, 16, n, 8192 // n)
+    for payload in ("int8", "fp8"):
+        got = TC.psum_quantized(x.clone(), None, n, payload)
+        q, sc = TC._quantize(chunks, payload)                      # per source rank
+        red = TC._sum_shards(q.float() * sc, 0)                    # (16, n, shard)
+        q2, s2 = TC._quantize(red, payload)
+        want = (q2.float() * s2).reshape(16, 8192).to(torch.bfloat16)
+        out["psum_" + payload] = bool(torch.equal(got, want))
+        ql, sl = TC._quantize(lg, payload)
+        qg = comm.all_gather_into_tensor(ql[None], dim=0)
+        sg = comm.all_gather_into_tensor(sl[None], dim=0)
+        want = torch.cat(list((qg.float() * sg).to(torch.bfloat16).unbind(0)), dim=-1)
+        out["gather_" + payload] = bool(torch.equal(TC.all_gather_quantized(lg, None, n, payload),
+                                                    want))
+    ring = TC.psum_ring(x.clone(), None, n)
+    want = torch.empty_like(chunks[0])
+    for j in range(n):                  # chunk j: rank j + 1 seeds it, then j + 2, ...
+        acc = chunks[(j + 1) % n][:, j]
+        for k in range(1, n):
+            acc = acc + chunks[(j + 1 + k) % n][:, j]
+        want[:, j] = acc
+    out["ring"] = bool(torch.equal(ring, want.reshape(16, 8192)))
+    exact = TC.psum_exact(x.clone(), None).float()
+    f32 = xs.float().sum(dim=0)
+    out["exact_max_abs_diff"] = float((exact - f32).abs().max())
+    out["exact_limit"] = 2 * 2.0 ** -8 * float(f32.abs().max())
+    out["exact"] = out["exact_max_abs_diff"] <= out["exact_limit"]
+    return out
+
+
+TP_REF_SLACK = 1.5          # tp 4 may sit this far from f32 beyond tp 1's bf16 distance
+
+
+def tp_reference_phases(torch, rank, smi):
+    """Phases tp_reference_check and tp_collectives_check at TP_REF_LAYERS of
+    llama2-70b's 80 layers, full width: every rank draws the whole 8-layer
+    model from one seed on its card and keeps its shard. The reference is
+    ``tp_dense_logits`` in f32 on card 0 (the same bf16 weights, no engine,
+    no process group): teacher-forced logits over the prompts' prefill and
+    TP_FORCED decode steps. bf16 has an error of its own on them, read as
+    tp = 1's distance from f32 (rank 0 serving the whole model, bf16 KV
+    pages as at tp = 4). Gates, each in relative Frobenius against f32:
+    tp = 4 within TP_REF_SLACK x tp = 1's distance, and a control that must
+    miss it (tp = 4 with every rank's wk / wv cut at the next rank's
+    offset: query heads against the wrong kv heads); the overlap ring
+    within the same bound; the int8 and fp8 collectives, on JAX's probe
+    (one token at position 0) and on the prefill's first chunk, within
+    TP_REF_SLACK x (the scheme's own distance, computed in f32 by
+    ``tp_dense_logits``, + the exact tp = 4's), and every budget met; the collectives
+    on the wire against their arithmetic on one card (``tp_wire_check``).
+    Printed beside them: tp 4 vs tp 1 in bf16 (the 1e-2 first set), greedy
+    agreement, JAX's contract (max |q - exact| / max |exact| against 0.05)
+    for the port and for the scheme in f32, and each variant's decode step
+    time beside exact's. Every reading is printed before any gate is
+    taken."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.parallel import sharding as TS
+    dev = tp_device(torch, rank)
+    model = build_model(TP_MODEL, num_layers=TP_REF_LAYERS)
+    cfg = model.cfg
+    prompts, eos_uid, eos_id, arrivals, _ = main_workload(torch, cfg.vocab_size)
+    plist = [prompts[u] for u in sorted(prompts)]
+    forced = torch.randint(0, cfg.vocab_size, (len(plist), TP_FORCED),
+                           generator=torch.Generator().manual_seed(3))
+
+    def engine(params, **over):
+        return InferenceEngineV2(model, tp_config(**over), params=params, max_seq_len=2048,
+                                 device=dev)
+
+    def step_ms(eng):
+        step, release = tp_decode_step(torch, eng)
+        try:
+            return host_rows(torch, step)["wall_ms"]
+        finally:
+            release()
+
+    def freed():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def jax_contract(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    full = model.init(torch.Generator(device=dev).manual_seed(7), device=dev,
+                      dtype=torch.bfloat16)
+    exact = engine(full)
+    # the control's shard: wk and wv at the next rank's offset
+    specs = TS.inference_tp_specs(model.abstract_params(), model.logical_axes(), TP_RANKS)
+    wrong = TS.shard_params(full, specs, rank, TP_RANKS)
+    for name in ("wk", "wv"):
+        wrong["layers"]["attn"][name] = TS.shard_leaf(
+            full["layers"]["attn"][name], specs["layers"]["attn"][name],
+            (rank + 1) % TP_RANKS, TP_RANKS)
+    if rank != 0:
+        del full
+    freed()
+    want, want_first = forced_logits(torch, exact, plist, forced)
+    want_probe = probe_logits(torch, exact)
+    served = {"exact": serve_counted(torch, exact, arrivals(), max_new_tokens=32)}
+    times = {"exact": step_ms(exact)}
+    got = {}
+    for name, over in (("int8", dict(tp_quantized_collectives=True)),
+                       ("fp8", dict(tp_quantized_collectives=True,
+                                    tp_collective_payload="fp8")),
+                       ("overlap", dict(tp_overlap_collectives=True))):
+        eng = engine(exact.params, **over)
+        logits, first = forced_logits(torch, eng, plist, forced)
+        got[name] = dict(all=logits, first=first, probe=probe_logits(torch, eng))
+        served[name] = serve_counted(torch, eng, arrivals(), max_new_tokens=32)
+        times[name] = step_ms(eng)
+        del eng
+        freed()
+    eng = engine(wrong)
+    del wrong
+    control, _ = forced_logits(torch, eng, plist, forced)
+    del eng
+    freed()
+    wire = tp_wire_check(torch, rank)
+    exact_got = [(u, t.tolist()) for u, t in served["exact"]["got"]]
+    del exact
+    freed()
+    readings = None
+    if rank == 0:
+        # the whole 8-layer model on this card, no collective, bf16 KV pages
+        one = engine(full, tp=1)
+        tp1, _ = forced_logits(torch, one, plist, forced)
+        one_got = dict((u, t.tolist()) for u, t in serve_counted(
+            torch, one, arrivals(), max_new_tokens=32)["got"])
+        del one
+        freed()
+        ref, ref_first = tp_reference_logits(torch, model, full, plist, forced)
+        ref_probe = tp_dense_logits(torch, model, full,
+                                    torch.tensor([5], dtype=torch.long, device=dev), [0])
+        exact_vs_f32 = dict(first_chunk=rel_fro(torch, want_first, ref_first),
+                            probe=rel_fro(torch, want_probe, ref_probe))
+        readings = dict(
+            f32_ref="tp_dense_logits, f32 weights and activations, one card",
+            tp1_bf16_vs_f32_rel_fro=rel_fro(torch, tp1, ref),
+            tp4_vs_f32_rel_fro=rel_fro(torch, want, ref),
+            control_vs_f32_rel_fro=rel_fro(torch, control, ref),
+            overlap_vs_f32_rel_fro=rel_fro(torch, got["overlap"]["all"], ref),
+            slack=TP_REF_SLACK,
+            tp4_vs_tp1_bf16_rel_fro=rel_fro(torch, want, tp1),
+            tp4_vs_tp1_max_abs_err=float((want - tp1).abs().max()),
+            greedy_tokens_agreeing=sum(a == b for u, t in exact_got
+                                       for a, b in zip(t, one_got[u])),
+            greedy_tokens=sum(len(t) for _, t in exact_got),
+            greedy_first_divergence={u: first_divergence(t, one_got[u])
+                                     for u, t in exact_got},
+            overlap_vs_exact_rel_fro=rel_fro(torch, got["overlap"]["all"], want),
+            overlap_decode_step_ms=times["overlap"], exact_decode_step_ms=times["exact"],
+            overlap_greedy_tokens_equal_exact=same_serves(served["overlap"]["got"],
+                                                          served["exact"]["got"]))
+        quant = {}
+        for payload in ("int8", "fp8"):
+            _, sim_first = tp_reference_logits(torch, model, full, plist, forced, payload)
+            sim_probe = tp_dense_logits(torch, model, full,
+                                        torch.tensor([5], dtype=torch.long, device=dev), [0],
+                                        payload)
+            g = got[payload]
+            row = dict(decode_step_ms=times[payload], decode_step_ms_exact=times["exact"],
+                       all_forwards_vs_exact_rel_fro=rel_fro(torch, g["all"], want),
+                       greedy_tokens_equal_exact=same_serves(served[payload]["got"],
+                                                             served["exact"]["got"]))
+            for at, mine, sim, ref_at, exact_at in (
+                    ("probe", g["probe"], sim_probe, ref_probe, want_probe),
+                    ("first_chunk", g["first"], sim_first, ref_first, want_first)):
+                row[at] = dict(
+                    vs_f32_rel_fro=rel_fro(torch, mine, ref_at),
+                    scheme_f32_vs_f32_rel_fro=rel_fro(torch, sim, ref_at),
+                    exact_tp4_vs_f32_rel_fro=exact_vs_f32[at],
+                    jax_contract_port=jax_contract(mine, exact_at),
+                    jax_contract_scheme_f32=jax_contract(sim, ref_at))
+                row[at]["limit"] = TP_REF_SLACK * (row[at]["scheme_f32_vs_f32_rel_fro"]
+                                                   + exact_vs_f32[at])
+            quant[payload] = row
+        readings["quantized"] = quant
+        del full
+        freed()
+    readings = tp_gather(readings)[0]
+    wires = tp_gather(wire)
+    if rank == 0:
+        emit("tp_reference_check", model=TP_MODEL, layers=TP_REF_LAYERS, tp=TP_RANKS,
+             forwards=1 + TP_FORCED, rows=len(plist),
+             note="teacher-forced logits against an f32 dense forward of the same bf16 "
+             "weights: tp 4 within slack x tp 1's distance, the control (wk / wv cut at the "
+             "next rank's offset) outside it, the overlap ring within it; tp 4 vs tp 1 and "
+             "greedy agreement printed", **{k: v for k, v in readings.items()
+                                            if k != "quantized"}, card=smi)
+        emit("tp_collectives_check", model=TP_MODEL, layers=TP_REF_LAYERS, tp=TP_RANKS,
+             gate="rel. Frobenius against f32 <= slack x (the scheme's own, in f32, + "
+             "the exact tp 4's), on JAX's probe (one token at position 0) and the prefill's first "
+             "chunk; jax_contract_*: max |q - exact| / max |exact| (JAX's 0.05, "
+             "tests/test_serving_tp.py:196-199), printed",
+             slack=TP_REF_SLACK, variants=readings["quantized"], wire_by_rank=wires,
+             card=smi)
+    for name in ("int8", "fp8"):
+        check_budgets(f"tp_collectives_check ({name})", served[name]["got"], prompts, eos_uid,
+                      eos_id, cfg.vocab_size)
+    check_budgets("tp_reference_check (tp 4)", served["exact"]["got"], prompts, eos_uid, eos_id,
+                  cfg.vocab_size)
+    # every gate's verdict, then one failure naming each that missed
+    missed = []
+    if not all(v for w in wires for v in w.values() if isinstance(v, bool)):
+        missed.append(f"tp_collectives_check: the collectives on the wire differ from their "
+                      f"arithmetic {wires}")
+    bound = TP_REF_SLACK * readings["tp1_bf16_vs_f32_rel_fro"]
+    for key, what in (("tp4_vs_f32_rel_fro", "tp_reference_check: tp 4"),
+                      ("overlap_vs_f32_rel_fro", "tp_collectives_check (overlap)")):
+        if not readings[key] <= bound:
+            missed.append(f"{what} is {readings[key]} from f32 > {TP_REF_SLACK} x tp 1's "
+                          f"{readings['tp1_bf16_vs_f32_rel_fro']}")
+    if not readings["control_vs_f32_rel_fro"] > bound:
+        missed.append(f"tp_reference_check: the control (wk / wv at the wrong rank offset) is "
+                      f"{readings['control_vs_f32_rel_fro']} from f32, within {bound}: the "
+                      "gate does not tell a wrong split")
+    for name, row in readings["quantized"].items():
+        for at in ("probe", "first_chunk"):
+            if not row[at]["vs_f32_rel_fro"] <= row[at]["limit"]:
+                missed.append(f"tp_collectives_check ({name}, {at}): {row[at]['vs_f32_rel_fro']}"
+                              f" from f32 > {row[at]['limit']}")
+    tp_check(not missed, "; ".join(missed))
+
+
+def tp_nccl_rank(torch):
+    """One rank of ``python3 chip_smoke.py tp-nccl``: its card, NCCL over
+    tcp://localhost, then the three tp phases. The process ends with
+    ``os._exit``, its code 0 only when every phase passed: tearing down a
+    NCCL group whose collectives CUDA graphs captured can hang, and a rank
+    that fails must leave at once so the launcher stops the others."""
+    import datetime
+    import os
+    import traceback
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.comm import comm
+    code = 1
+    try:
+        rank = int(os.environ["RANK"])
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        comm.init_distributed(dist_backend="nccl",
+                              timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+        smi = nvidia_smi()
+        launches = tp_serve_path(torch, rank, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp_reference_phases(torch, rank, smi)
+        if rank == 0:
+            print(json.dumps({"kernels": [{"name": "paged_attention", "route": "cuda",
+                                           "source": SOURCE, "replaces": REPLACES,
+                                           "launches_tp_serve_path_rank0": launches,
+                                           "note": "timed in the one-card run (tp4_* cases)"}]}),
+                  flush=True)
+        dist.barrier()
+        code = 0
+    except SystemExit as e:            # fail(): its message is printed already
+        code = e.code or 1
+    except BaseException:              # noqa: BLE001 (reported, then the rank exits)
+        traceback.print_exc()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def tp_nccl(torch, smi):
+    """``python3 chip_smoke.py tp-nccl`` on a machine with four cards: builds
+    K1, starts one process per card (RANK 0-3, NCCL over tcp://localhost),
+    and stops them all as soon as one fails or at TP_TIMEOUT_S."""
+    import os
+    import socket
+    from deepspeed_tpu_torch.ops import op_builder
+    if torch.cuda.device_count() < TP_RANKS:
+        fail(f"tp-nccl needs {TP_RANKS} cards, found {torch.cuda.device_count()}")
+    op_builder.build(["paged_attention"])
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "WORLD_SIZE": str(TP_RANKS), "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port)}
+    procs = [subprocess.Popen([sys.executable, __file__, "tp-nccl-rank"],
+                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
+             for r in range(TP_RANKS)]
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    try:
+        while any(p_.poll() is None for p_ in procs):
+            if time.monotonic() > deadline or any(p_.poll() for p_ in procs):
+                break
+            time.sleep(1.0)
+    finally:
+        for p_ in procs:
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+    codes = [p_.returncode for p_ in procs]
+    if any(codes):
+        fail(f"tp-nccl ranks exited {codes}")
+    print(smi, flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4878,15 +5527,18 @@ def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else None
     if mode == "ring-nccl-rank":
         return ring_nccl_rank(torch)
+    if mode == "tp-nccl-rank":
+        return tp_nccl_rank(torch)
     smi = nvidia_smi()
-    if mode == "ring-nccl":
-        ring_nccl(torch, smi)
+    if mode in ("ring-nccl", "tp-nccl"):
+        (ring_nccl if mode == "ring-nccl" else tp_nccl)(torch, smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return
     if mode is not None:
-        fail(f"unknown mode {mode!r}: run with no argument, or ring-nccl on four cards")
+        fail(f"unknown mode {mode!r}: run with no argument, or ring-nccl / tp-nccl on four "
+             "cards")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
 """Communication over ``torch.distributed`` (``comm.py``)."""
 
-from .comm import (all_reduce, all_to_all_single, barrier, get_rank, get_world_size,  # noqa: F401
+from .comm import (all_gather_into_tensor, all_reduce, all_to_all_single,  # noqa: F401
+                   barrier, broadcast, broadcast_object, get_rank, get_world_size,
                    init_distributed, ring_send_recv)

@@ -1,12 +1,15 @@
 """Module-level communication API over ``torch.distributed``.
 
 Mirrors the names of ``deepspeed_tpu/comm/comm.py`` that the sequence-
-parallel slice uses, as thin wrappers: ``init_distributed``, ``get_rank``,
-``get_world_size``, ``all_reduce``, ``all_to_all_single``, ``barrier``, and
+parallel and tensor-parallel slices use, as thin wrappers:
+``init_distributed``, ``get_rank``, ``get_world_size``, ``all_reduce``,
+``all_to_all_single``, ``all_gather_into_tensor`` (the JAX tiled
+``all_gather``), ``broadcast``, ``broadcast_object``, ``barrier``, and
 ``ring_send_recv``, the ring exchange (the JAX ``ppermute`` by one step
 around an axis). Processes talk over NCCL on cards and gloo on the CPU.
 A process that never joined a process group is a world of one: every
-collective is then the identity, as on a one-device JAX axis.
+collective is then the identity, as on a one-device JAX axis. Neither
+backend has an fp8 dtype: fp8 payloads travel as their ``uint8`` bytes.
 """
 
 import os
@@ -50,6 +53,15 @@ def get_world_size(group=None) -> int:
     return dist.get_world_size(group) if _joined() else 1
 
 
+_FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def _wire(t):
+    """``t`` as the backends can carry it: fp8 tensors as a ``uint8`` view
+    of their bytes, anything else as it is."""
+    return t.view(torch.uint8) if t.dtype in _FP8 else t
+
+
 def all_reduce(tensor, op=dist.ReduceOp.SUM, group=None):
     """In place, as ``torch.distributed.all_reduce``; returns the tensor."""
     if get_world_size(group) > 1:
@@ -70,8 +82,44 @@ def all_to_all_single(tensor, scatter_dim=0, gather_dim=0, group=None):
     chunks = [c.contiguous() for c in tensor.chunk(n, dim=scatter_dim)]
     send = torch.stack(chunks)
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
+    dist.all_to_all_single(_wire(recv), _wire(send), group=group)
     return torch.cat(list(recv.unbind(0)), dim=gather_dim)
+
+
+def all_gather_into_tensor(tensor, dim=0, group=None):
+    """Every rank's ``tensor`` concatenated along ``dim`` in rank order (the
+    JAX ``all_gather`` with ``tiled=True``). Returns a new tensor."""
+    n = get_world_size(group)
+    if n == 1:
+        return tensor
+    send = tensor.contiguous()
+    recv = torch.empty((n * send.numel(),), dtype=send.dtype, device=send.device)
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    gather(_wire(recv), _wire(send.reshape(-1)), group=group)
+    return torch.cat(list(recv.view((n,) + tuple(send.shape)).unbind(0)), dim=dim)
+
+
+def _global(group, r):
+    """Global rank of rank ``r`` of ``group`` (None: the world)."""
+    return r if group is None else dist.get_global_rank(group, r)
+
+
+def broadcast(tensor, src=0, group=None):
+    """In place, rank ``src`` of ``group``'s values to every rank; returns
+    the tensor."""
+    if get_world_size(group) > 1:
+        dist.broadcast(_wire(tensor), src=_global(group, src), group=group)
+    return tensor
+
+
+def broadcast_object(obj, src=0, group=None):
+    """Rank ``src``'s picklable ``obj`` on every rank (its own elsewhere
+    ignored): a host value that one rank decided, made every rank's."""
+    if get_world_size(group) == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=_global(group, src), group=group)
+    return box[0]
 
 
 def barrier(group=None):
@@ -89,14 +137,11 @@ def ring_send_recv(tensors, group=None, shift=1):
         return list(tensors)
     rank = get_rank(group)
 
-    def peer(r):   # P2POp takes global ranks
-        return r % n if group is None else dist.get_global_rank(group, r % n)
-
-    dst, src = peer(rank + shift), peer(rank - shift)
+    dst, src = _global(group, (rank + shift) % n), _global(group, (rank - shift) % n)
     sends = [t.contiguous() for t in tensors]
     recvs = [torch.empty_like(t) for t in sends]
-    ops = [dist.P2POp(dist.isend, t, dst, group) for t in sends]
-    ops += [dist.P2POp(dist.irecv, t, src, group) for t in recvs]
+    ops = [dist.P2POp(dist.isend, _wire(t), dst, group) for t in sends]
+    ops += [dist.P2POp(dist.irecv, _wire(t), src, group) for t in recvs]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return recvs

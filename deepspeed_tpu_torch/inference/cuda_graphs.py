@@ -28,6 +28,19 @@ On the CPU there is nothing to capture, so every step runs eagerly on the
 same static buffers; the CPU tests hold this path against the functional
 loops and count its keys.
 
+Tensor parallelism: a step holds the tp collectives (NCCL), captured with
+it; the engine runs one collective before any capture, so the communicator
+exists. Every rank must run the same keys in the same order, or their
+collectives wait on each other forever. With ``agree_keys`` set (rank 0's
+value of a host object, ``tp.TPContext.agree``), a key's first use on a
+rank checks that rank 0 is at the same key and raises if it is not. The
+check is itself a collective, so it raises only when the ranks diverge
+onto new keys together: a rank at a new key while rank 0 replays a key it
+has seen meets the collectives of rank 0's graph instead, and hangs until
+the process group's timeout. Replicated host state is what keeps the ranks
+on one sequence of keys; the check catches a first divergence, not every
+one.
+
 Launch counts: a kernel wrapper adds to its ``.launches`` when it runs.
 Capture only records, so the counts it adds are taken back, and every
 replay adds the launches its graph recorded to ``StepGraphs.replayed``.
@@ -64,6 +77,7 @@ class StepGraphs:
         self.capture_s = 0.0
         self.replays = 0
         self.replayed = collections.Counter()
+        self.agree_keys = None         # under tp: rank 0's value of an object
 
     def keys(self):
         """Every key a step ran under, captured or not, in first-use order."""
@@ -100,6 +114,12 @@ class StepGraphs:
         """Run ``step()`` once as program ``key``: replay its graph, or on the
         key's first call run it eagerly and capture it. ``capture=False``
         (a sampled step) and the CPU run it eagerly every time."""
+        if key not in self._seen and self.agree_keys is not None:
+            first = self.agree_keys(key)
+            if first != key:
+                raise RuntimeError(f"step key {key} on this rank, {first} on rank 0: the tp "
+                                   "ranks' host state diverged and their collectives would "
+                                   "hang")
         self._seen.setdefault(key, None)
         if not (self.capture and capture):
             step()
@@ -125,8 +145,12 @@ class StepGraphs:
         before = {name: (fn.launches, dict(getattr(fn, "routes", {})))
                   for name, fn in COUNTED.items()}
         graph = torch.cuda.CUDAGraph()
+        # under tp, NCCL's watchdog thread queries events while this thread
+        # captures: only this thread's calls may end the capture
+        mode = "global" if self.agree_keys is None else "thread_local"
         try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                                  capture_error_mode=mode):
                 step()
         finally:
             launched = {name: fn.launches - before[name][0]

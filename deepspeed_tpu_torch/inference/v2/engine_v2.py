@@ -43,10 +43,19 @@ updates its static buffers and pools in place from its first step on: it
 retries only a failure raised before that step, and a later one goes
 straight to the crash path (ROADMAP.md section C, deliberate divergences).
 
+Tensor-parallel serving (``tp > 1``; ``tp.py``): one process a card, each
+running this engine over its shard of the weights and its kv heads' pools
+(SPMD), in a process group of ``tp`` ranks joined with
+``comm.init_distributed``; the runner's forward issues the collectives, and
+the ranks' host state stays identical, so they return the same tokens.
+Boundary decisions that read the wall clock (deadlines, the watchdog, the
+scheduler's SLO view) are rank 0's, broadcast (``TPContext.agree``). tp = 1
+never touches a collective.
+
 ``RaggedInferenceEngineConfig`` keeps every field and default of the JAX
 config. What is not ported yet raises ``NotImplementedError`` citing its
-ROADMAP.md item: tensor parallelism (``tp > 1``, item 11), and roles other
-than "unified", ``serve(yield_boundaries=True)`` and arrivals carrying a
+ROADMAP.md item: the swap tier under tp > 1 (item 11), and roles other than
+"unified", ``serve(yield_boundaries=True)`` and arrivals carrying a
 ``trace`` (item 12).
 """
 
@@ -63,6 +72,7 @@ import torch
 from ...accelerator import get_device
 from ...models.transformer import CausalLM, build_model
 from ...module_inject import as_inference_model
+from ...parallel.sharding import is_shard_tree
 from ..sampling import sample_logits
 from .faults import FaultReason, FrameDispatchError, LedgerEntry, snapshot_ledger
 from .kv_cache import BlockedKVCache
@@ -72,10 +82,14 @@ from .model_runner import PagedModelRunner
 from .ragged_manager import DeviceSlotTable, DSStateManager
 from .scheduler import PRIORITY_NAMES, Request, normalize_priority
 from .telemetry import STAT_NAMES, ServingTelemetry
+from .tp import build_tp_context, local_device
 
 logger = logging.getLogger(__name__)
 
 _ROADMAP = "not ported to deepspeed_tpu_torch yet (ROADMAP.md, section A)"
+_TP_SWAP = ("the KV swap tier under tensor parallelism (tp > 1) is not ported yet: a tier "
+            "record holds every kv head, a rank holds KVH / tp (ROADMAP.md section A, "
+            "item 11)")
 _TRACING = ("distributed tracing is not ported to deepspeed_tpu_torch yet "
             "(ROADMAP.md section A, item 12)")
 
@@ -138,11 +152,11 @@ def _check_config(c: RaggedInferenceEngineConfig) -> None:
                          "'quarantine' or 'repair'")
     if c.nonfinite_repair_limit < 1:
         raise ValueError("nonfinite_repair_limit must be >= 1")
-    unported = {"tp": c.tp > 1, "role": c.role != "unified"}
-    for name, on in unported.items():
-        if on:
-            raise NotImplementedError(
-                f"RaggedInferenceEngineConfig.{name}={getattr(c, name)!r}: {_ROADMAP}")
+    if c.role != "unified":
+        raise NotImplementedError(f"RaggedInferenceEngineConfig.role={c.role!r}: {_ROADMAP}")
+    if c.tp > 1 and c.kv_swap_dir:
+        raise NotImplementedError(f"RaggedInferenceEngineConfig.kv_swap_dir with tp={c.tp}: "
+                                  f"{_TP_SWAP}")
 
 
 class InferenceEngineV2:
@@ -157,26 +171,32 @@ class InferenceEngineV2:
         is no GPU; ``cuda_graphs``: the runner's (None: graphs on the card,
         the functional loops on the CPU; False: eager on the card too);
         ``draft_model`` / ``draft_params``: attach a draft at once
-        (``attach_draft``)."""
+        (``attach_draft``).
+
+        With ``config.tp > 1`` the process is one rank of a tp group (the
+        world joined with ``comm.init_distributed``, of exactly ``tp``
+        ranks), and the engine runs on the card of its local rank unless
+        ``device`` is given. ``params`` is then the full tree, whose shard
+        this rank keeps (cut from it; int8 weights are quantized whole
+        first, so each shard keeps the scales of the whole weight), or this
+        rank's shard already (float leaves at their shard's shapes, e.g.
+        from ``tp.init_params_shard``). Random weights when omitted are the
+        full seed-0 tree's shard."""
         self._config = config or RaggedInferenceEngineConfig()
         c = self._config
         _check_config(c)
-        self.device = get_device(device)
         self.model = model if isinstance(model, CausalLM) else build_model(model)
         if self.model.cfg.dtype != c.dtype:
             self.model.cfg = self.model.cfg.replace(dtype=c.dtype)
         cfg = self.model.cfg
+        # tensor-parallel serving context (tp.TPContext), None at tp = 1
+        self.tp_ctx = build_tp_context(self.model, c.tp, quantized=c.tp_quantized_collectives,
+                                       overlap=c.tp_overlap_collectives,
+                                       payload=c.tp_collective_payload)
+        self.device = (local_device(device) if self.tp_ctx is not None
+                       else get_device(device))
         self.max_seq_len = max_seq_len or cfg.max_seq_len
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(0)
-            self.params = self.model.init(gen, device=self.device, dtype=cfg.act_dtype)
-        else:
-            self.params = _to_device(params, self.device)
-        if c.weight_dtype and not _is_quantized(self.params):
-            # the engine owns this tree: each float leaf goes as soon as its
-            # int8 form replaces it
-            self.params, _ = quantize_params(self.params, self.model.logical_axes(),
-                                             weight_dtype=c.weight_dtype, inplace=True)
+        self.params, self.tp_ctx = self._serving_params(self.model, params, self.tp_ctx, seed=0)
 
         bs = c.kv_block_size
         max_blocks_per_seq = (self.max_seq_len + bs - 1) // bs
@@ -185,7 +205,8 @@ class InferenceEngineV2:
         conc = min(c.expected_concurrency or c.max_ragged_batch_size,
                    c.max_ragged_batch_size)
         num_blocks = c.num_kv_blocks or (conc * per_seq + 1)
-        self.kv = BlockedKVCache(cfg.num_layers, cfg.kv_heads, cfg.dims_per_head,
+        # under tp each rank's pools hold its KVH / tp kv heads
+        self.kv = BlockedKVCache(cfg.num_layers, self._local_kv_heads(cfg), cfg.dims_per_head,
                                  num_blocks=num_blocks, block_size=bs,
                                  dtype=cfg.act_dtype, device=self.device,
                                  kv_dtype=c.kv_dtype)
@@ -194,6 +215,13 @@ class InferenceEngineV2:
         self.state = DSStateManager(self.kv, c.max_tracked_sequences)
         self.runner = PagedModelRunner(self.model, bs, max_blocks_per_seq, self.device,
                                        cuda_graphs=cuda_graphs)
+        if self.tp_ctx is not None:
+            self.runner.set_tp(self.tp_ctx)
+            self.tp_ctx.warm_up(self.device)
+            logger.info(f"InferenceEngineV2: tensor-parallel serving tp={c.tp} rank "
+                        f"{self.tp_ctx.rank} (vocab_sharded={self.tp_ctx.vocab_sharded} "
+                        f"quantized={c.tp_quantized_collectives} "
+                        f"overlap={c.tp_overlap_collectives})")
         self.max_blocks_per_seq = max_blocks_per_seq
         # host stream the per-serve frame generators are seeded from
         self._rng = torch.Generator().manual_seed(0)
@@ -233,9 +261,45 @@ class InferenceEngineV2:
         logger.info(f"InferenceEngineV2: blocks={num_blocks}x{bs} "
                     f"chunk={c.prefill_chunk_size} device={self.device}")
 
+    def _local_kv_heads(self, cfg) -> int:
+        """The kv heads this rank's pools hold: KVH / tp."""
+        return cfg.kv_heads if self.tp_ctx is None else self.tp_ctx.kv_heads(cfg.kv_heads)
+
+    def _serving_params(self, model, params, ctx, seed: int, inplace: bool = True):
+        """The params this rank serves for ``model``: ``params`` on the
+        engine's device (random from ``seed`` when None), int8 under
+        ``weight_dtype`` (``inplace``: the tree's own leaves are replaced)
+        and, under the tp context ``ctx``, this rank's shard. The full tree
+        is quantized with its spec tree before the cut (JAX
+        ``_init_tensor_parallel``), so a float tree already cut to shards
+        cannot take int8 weights, and a quantized tree must come whole."""
+        c = self._config
+        cfg = model.cfg
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            tree = model.init(gen, device=self.device, dtype=cfg.act_dtype)
+        else:
+            tree = _to_device(params, self.device)
+        if ctx is None:
+            if c.weight_dtype and not _is_quantized(tree):
+                tree, _ = quantize_params(tree, model.logical_axes(),
+                                          weight_dtype=c.weight_dtype, inplace=inplace)
+            return tree, None
+        full = model.abstract_params()
+        specs = ctx.param_specs
+        if c.weight_dtype:
+            if _is_quantized(tree) or is_shard_tree(tree, specs, full):
+                raise ValueError("tensor-parallel int8 weights are quantized from the full "
+                                 "float params (each shard keeps the scales of the whole "
+                                 "weight): pass the full float tree")
+            tree, specs = quantize_params(tree, model.logical_axes(), specs,
+                                          weight_dtype=c.weight_dtype, inplace=inplace)
+            ctx = dataclasses.replace(ctx, param_specs=specs)
+        return ctx.shard_params(tree, full), ctx
+
     def attach_draft(self, draft_model, draft_params=None) -> None:
         """Attach a small draft model for speculative decoding (JAX
-        ``attach_draft`` without its tp branch). ``draft_model``: a port
+        ``attach_draft``). ``draft_model``: a port
         ``CausalLM``, a preset name or a config. The draft gets its OWN
         paged pools with the target's block count, block size and
         ``kv_dtype``, addressed by the SAME per-slot block tables, so
@@ -243,7 +307,9 @@ class InferenceEngineV2:
         fresh weights from seed 1; pass the target's params for a self-draft
         (the 100 %-acceptance bound). The draft is quantized under the
         target's ``weight_dtype``. A re-attach drops the speculative graphs
-        captured over the previous draft."""
+        captured over the previous draft. Under tp the draft rides the
+        target's process group: validated with ``role="draft"``, its params
+        cut by its own specs, its pools holding this rank's kv heads."""
         c = self._config
         self.draft_model, converted = as_inference_model(draft_model, None)
         if draft_params is not None:
@@ -271,19 +337,18 @@ class InferenceEngineV2:
                 f"length {self.max_seq_len}; proposals beyond the draft's "
                 "trained context will likely be rejected (throughput, not "
                 "correctness, degrades)")
-        if converted is None:
-            gen = torch.Generator(device=self.device).manual_seed(1)
-            self.draft_params = self.draft_model.init(gen, device=self.device,
-                                                      dtype=dcfg.act_dtype)
-        else:
-            self.draft_params = _to_device(converted, self.device)
-        if c.weight_dtype and not _is_quantized(self.draft_params):
-            # a self-draft shares the target's float leaves: quantize a
-            # copy of the tree, never the caller's
-            self.draft_params, _ = quantize_params(
-                self.draft_params, self.draft_model.logical_axes(),
-                weight_dtype=c.weight_dtype, inplace=converted is None)
-        self.draft_kv = BlockedKVCache(dcfg.num_layers, dcfg.kv_heads, dcfg.dims_per_head,
+        dctx = None
+        if self.tp_ctx is not None:
+            dctx = build_tp_context(self.draft_model, c.tp, quantized=c.tp_quantized_collectives,
+                                    overlap=c.tp_overlap_collectives,
+                                    payload=c.tp_collective_payload, role="draft",
+                                    group=self.tp_ctx.group)
+        # a self-draft shares the target's float leaves: quantize a copy of
+        # the tree, never the caller's
+        self.draft_params, dctx = self._serving_params(self.draft_model, converted, dctx, seed=1,
+                                                       inplace=converted is None)
+        self.draft_kv = BlockedKVCache(dcfg.num_layers, self._local_kv_heads(dcfg),
+                                       dcfg.dims_per_head,
                                        num_blocks=self.kv.num_blocks,
                                        block_size=c.kv_block_size, dtype=dcfg.act_dtype,
                                        device=self.device, kv_dtype=c.kv_dtype)
@@ -292,6 +357,8 @@ class InferenceEngineV2:
         self.draft_runner = PagedModelRunner(self.draft_model, c.kv_block_size,
                                              self.max_blocks_per_seq, self.device,
                                              cuda_graphs=False)
+        if dctx is not None:
+            self.draft_runner.set_tp(dctx)
         if self.runner.graphs is not None:
             self.runner.graphs.evict("spec_frame", "spec_mixed")
         if self.prefix_cache is not None:
@@ -323,6 +390,8 @@ class InferenceEngineV2:
         any tier built from ``kv_swap_dir``. ``tag`` namespaces this
         engine's prefix-cache spill keys inside a shared tier (default:
         the engine's id)."""
+        if self.tp_ctx is not None:
+            raise NotImplementedError(f"attach_kv_tier with tp={self._config.tp}: {_TP_SWAP}")
         self.kv_swap = tier
         if self.prefix_cache is not None:
             self.prefix_cache.swap = tier
@@ -723,7 +792,8 @@ class InferenceEngineV2:
                 torch.randint(0, 2 ** 62, (1,), generator=self._rng))
             frame_rng = torch.Generator(device=self.device).manual_seed(seed)
         slots = DeviceSlotTable(n_slots, prompt_width=c.prefill_chunk_size,
-                                table_width=1, rng=frame_rng, device=self.device)
+                                table_width=1, rng=frame_rng, device=self.device, tp=self.tp_ctx,
+                                debug_replicas=c.tp_debug_replica_check)
         if faults is not None:
             faults.begin_serve()         # rearm the scripted schedule
         self.serve_counters = dict.fromkeys(STAT_NAMES, 0)
@@ -868,6 +938,8 @@ class InferenceEngineV2:
                 out = slots.run_frame(self.runner, self.params, self.kv, width, cur_steps,
                                       greedy, draft=draft, repair=self._nonfinite_repair)
                 dt_ms = (self._clock() - t0) * 1e3
+                if c.watchdog_frame_ms is not None:
+                    dt_ms = self._agree(dt_ms)      # rank 0's reading, every rank's
                 if c.watchdog_frame_ms is not None and dt_ms > c.watchdog_frame_ms:
                     self._fault_event(
                         "slow_frame", frame,
@@ -894,6 +966,21 @@ class InferenceEngineV2:
                 backoff = c.frame_retry_backoff_s * (2 ** (attempt - 1))
                 if backoff > 0:
                     time.sleep(backoff)
+
+    def _any_deadline_armed(self) -> bool:
+        """Under tp, whether some rank's ledger holds a deadline, by a one-int
+        all-reduce: the deadline pass broadcasts rank 0's verdicts only then.
+        Arrivals reach every rank alike, but ``cancel_request``, called from
+        another thread, can reach the ranks at different boundaries, so a
+        rank cannot tell from its own ledger alone."""
+        armed = any(ent.deadline_at is not None for ent in self._ledger.values())
+        return self.tp_ctx.any_rank(armed, self.device)
+
+    def _agree(self, obj):
+        """Rank 0's value of a host decision that reads the clock, on every
+        tp rank (a decision taken on one rank only would send the ranks into
+        different collectives); ``obj`` itself at tp = 1."""
+        return obj if self.tp_ctx is None else self.tp_ctx.agree(obj)
 
     def snapshot_serving_state(self) -> Dict:
         """The host-side request ledger of the current (or last) serve run
@@ -1024,9 +1111,12 @@ class InferenceEngineV2:
         blocks freed, and retired with a ``deadline_expired`` or
         ``cancelled`` fault."""
         now = self._clock()
-        expired = [uid for uid, ent in self._ledger.items()
+        expired = [(uid, ent.cancelled) for uid, ent in self._ledger.items()
                    if ent.deadline_at is not None and now >= ent.deadline_at]
-        for uid in expired:
+        if self.tp_ctx is not None:
+            # rank 0's verdicts, so every rank evicts the same rows
+            expired = self.tp_ctx.agree(expired) if self._any_deadline_armed() else []
+        for uid, cancelled in expired:
             seq = self.state.seqs.get(uid)
             partial = list(seq.generated) if seq is not None else []
             if uid in slots.slot_of_uid:
@@ -1044,7 +1134,7 @@ class InferenceEngineV2:
                             break
                 where = "queued (never admitted)"
             self.state.flush_sequence(uid)       # frees any KV blocks
-            if self._ledger[uid].cancelled:
+            if cancelled:
                 self._fault_retire(uid, "cancelled", frame,
                                    f"cancel_request() while {where}", partial=partial)
             else:
@@ -1635,7 +1725,9 @@ class InferenceEngineV2:
             # recompute pressure, shed best-effort work under critical
             # pressure ----
             self._expire_deadlines(slots, boundary, sched=sched)
-            for shed in sched.on_boundary(tel.slo_view(), live_count=slots.live_count()):
+            # the SLO view reads the wall clock: under tp, rank 0's
+            for shed in sched.on_boundary(self._agree(tel.slo_view()),
+                                          live_count=slots.live_count()):
                 tel.on_shed(shed.uid, shed.tenant, shed.priority, shed.reason)
                 # a shed request may hold a blockless descriptor left by a
                 # failed capacity probe: drop it (and any swap record)

@@ -7,7 +7,9 @@ with the tokens actually held instead of max_seq_len per slot.
 Layout: k/v pools are (L, KVH, num_blocks, block_size, lanes),
 kv-head-major, so the paged attention kernel (``ops/paged_attention.py``)
 reads each (page, head) slab contiguously in place. Block 0 is the trash
-block that padded rows write to.
+block that padded rows write to. Under tensor parallelism a rank's pools
+hold its KVH / tp kv heads (``kv_heads`` is the local count); block ids,
+the allocator and ``blocks_for`` are the same on every rank.
 
 Quantized pages (``kv_dtype="int8"``): the pools are int8 and each
 (token, head) row is D quantized values followed by its f32 absmax scale

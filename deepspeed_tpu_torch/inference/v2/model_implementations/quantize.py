@@ -27,7 +27,12 @@ key) stays as it is. Contracted positions are found by NAME in the model's
 scale per layer. A stacked leaf is quantized one layer at a time (the
 reduction never spans the layer axis), so the f32 temporaries are one
 layer's, not the whole stack's (7.5 GB for llama3-8b's ``wi_gate``).
-Tensor-parallel spec trees are not ported (ROADMAP.md section A, item 11).
+Under tensor parallelism the full tree is quantized with its spec tree
+(``parallel/sharding.py`` ``inference_tp_specs``: a leaf's split dim or
+None), so every rank's shard carries the scales of the whole weight: the
+int8 ``q`` keeps the weight's dim, the keepdims scale drops it when it is
+a contracted dim (wo and the MLP output projection), as JAX's
+``_scale_spec`` nulls it.
 """
 
 from typing import Any, Optional, Tuple
@@ -46,10 +51,6 @@ _CONTRACTED = {
     ("mlp", "wo"): ("mlp",),
     ("embed", "lm_head"): ("embed",),
 }
-
-NOT_PORTED_TP = ("quantize_params(specs=...): tensor-parallel serving is not ported "
-                 "to deepspeed_tpu_torch yet (ROADMAP.md section A, item 11)")
-
 
 def _quantize_slab(w, red_dims: Tuple[int, ...]):
     """(q int8, s f32) of one slab: absmax over ``red_dims`` (keepdims)
@@ -87,39 +88,46 @@ def quantize_params(params, logical_axes, specs=None, weight_dtype: str = "int8"
     """Quantize the serving param tree (JAX ``quantize_params``).
 
     ``logical_axes``: the model's ``logical_axes()`` tree (mirrors params;
-    leaves are tuples of axis names). Returns ``(qparams, None)``.
-    ``specs`` (the tensor-parallel PartitionSpec tree) raises
-    ``NotImplementedError``. ``inplace=True`` replaces the leaves in
-    ``params`` itself, so each float leaf is dropped as soon as its int8
-    form replaces it (the engine quantizes the tree it owns this way)."""
+    leaves are tuples of axis names). ``specs``: the tensor-parallel spec
+    tree (each leaf's split dim or None), or None at tp = 1. Returns
+    ``(qparams, qspecs)``, ``qspecs`` None iff ``specs`` was None; a
+    quantized leaf's spec is ``{"q": dim, "s": dim, or None when dim is
+    contracted}``. ``inplace=True`` replaces the leaves in ``params``
+    itself, so each float leaf is dropped as soon as its int8 form replaces
+    it (the engine quantizes the tree it owns this way)."""
     if weight_dtype != "int8":
         raise ValueError(
             f"weight_dtype must be 'int8', got {weight_dtype!r} "
             "(fp8 is a collective wire format, not a storage format — "
             "see tp_collective_payload)")
-    if specs is not None:
-        raise NotImplementedError(NOT_PORTED_TP)
-
-    def walk(p, ax, parent):
+    def walk(p, ax, sp, parent):
         if "router" in p:   # MoE expert stack: no dequant hook, skip
-            return p
+            return p, sp
         out = p if inplace else {}
+        out_s = None if sp is None else {}
         for k in list(p):
             v = p[k]
+            sk = None if sp is None else sp[k]
             if isinstance(v, dict):
-                out[k] = walk(v, ax[k], k)
+                out[k], sub = walk(v, ax[k], sk, k)
+                if sp is not None:
+                    out_s[k] = sub
                 continue
             names = _CONTRACTED.get((parent, k))
             red = () if names is None else tuple(
                 i for i, a in enumerate(ax[k]) if a in names)
+            if sp is not None:
+                out_s[k] = sk
             if not red or len(red) != len(names):
                 out[k] = v          # not a target, or an unexpected layout
                 continue
             out[k] = _quantize_leaf(v, red)
+            if sp is not None:
+                out_s[k] = {"q": sk, "s": None if sk in red else sk}
             del v
-        return out
+        return out, out_s
 
-    return walk(params, logical_axes, ""), None
+    return walk(params, logical_axes, specs, "")
 
 
 def quantized_param_bytes(params) -> Tuple[int, int]:

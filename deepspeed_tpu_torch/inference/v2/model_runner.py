@@ -1,9 +1,18 @@
 """Paged forward execution for ragged inference.
 
-Mirrors ``deepspeed_tpu/inference/v2/model_runner.py`` for the tp=1
-serving paths. One forward handles a batch of sequence chunks: prefill
-chunks (C > 1) and decode steps (C = 1) are the same code at different
-chunk widths (Dynamic SplitFuse).
+Mirrors ``deepspeed_tpu/inference/v2/model_runner.py``. One forward
+handles a batch of sequence chunks: prefill chunks (C > 1) and decode steps
+(C = 1) are the same code at different chunk widths (Dynamic SplitFuse).
+
+Tensor parallelism (``set_tp``, a ``tp.TPContext``): the params and pools
+are this rank's shards, the forward runs the local heads (H / tp query,
+KVH / tp kv heads, on K1 or the int8 gather route alike) and issues the
+collectives of JAX's tp branches: a masked lookup and all-reduce for the
+vocab-split embedding, an all-reduce after the attention and MLP output
+projections (their biases added once, after it) and an all-gather of the
+vocab-split logits, so every rank sees the same logits. Every rank runs the
+same steps in the same order, and the collectives sit inside the captured
+step graphs.
 
 Per layer: project q/k/v, RoPE at absolute positions, then attention with
 the chunk's own KV riding beside the pools. Float pools are read in place
@@ -103,13 +112,27 @@ class PagedModelRunner:
                              if self.cfg.embed_scale != 1.0 else None)
         use = self.device.type == "cuda" if cuda_graphs is None else bool(cuda_graphs)
         self.graphs = StepGraphs(self.device) if use else None
+        self.tp = None          # a tp.TPContext under tensor parallelism (set_tp)
         self._slot_sets = {}    # (B, prompt width, table width) -> static slot buffers
         self._run_sets = {}     # run key -> static inputs and logits
         self._loop_sets = {}    # (B, MB) -> static decode_loop state
         self.steps_begun = 0    # serving steps started, functional or in place
 
+    def set_tp(self, tp_ctx) -> None:
+        """Bind a ``tp.TPContext`` (engine set-up, before any step runs):
+        the forward then runs this rank's heads with ALiBi slopes of those
+        heads. Graphs captured before are dropped."""
+        self.tp = tp_ctx
+        if self._slopes is not None:
+            h = self.cfg.num_heads // tp_ctx.degree
+            self._slopes = L.alibi_slopes(self.cfg.num_heads, self.device)[
+                tp_ctx.rank * h:(tp_ctx.rank + 1) * h].contiguous()
+        if self.graphs is not None:
+            self.graphs.reset()
+            self.graphs.agree_keys = tp_ctx.agree
+
     def _forward(self, params, ids, positions, block_tables, valid_counts,
-                 kpool, vpool, *, all_logits=False):
+                 kpool, vpool, *, all_logits=False, tp=None):
         """ids/positions: (B, C) int32; block_tables: (B, MB) int32;
         valid_counts: (B,) real (non-pad) tokens in each chunk; kpool/vpool:
         (L, KVH, NB, bs, lanes). Returns (last-valid-token logits (B, V)
@@ -123,14 +146,34 @@ class PagedModelRunner:
         dequantizes them and attends with ``_paged_attention``, the JAX
         runner's own route for int8 pools (``model_runner.py:186-212``),
         not a fallback; the chunk's KV leaves the layer quantized
-        (``quantize_kv_lanes``), so the commit scatter is dtype-blind."""
+        (``quantize_kv_lanes``), so the commit scatter is dtype-blind.
+
+        ``tp``: the tensor-parallel context the forward runs under, the
+        runner's (``set_tp``) by default; None at tp = 1, which issues no
+        collective. Under tp the params and pools are this rank's shards
+        and the collectives of JAX's tp branches run here
+        (``model_runner.py:103-113``, ``:146-150``, ``:221-226``, ``:241``,
+        ``:317-318``)."""
         cfg = self.cfg
+        tp = self.tp if tp is None else tp
         bs = self.block_size
         dt = cfg.act_dtype
         b, c = ids.shape
         e, nh, kvh, d = cfg.hidden_size, cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
         emb = params["embed"]
-        h = emb["tok"][ids].to(dt)
+        if tp is not None:
+            nh, kvh = nh // tp.degree, kvh // tp.degree
+        if tp is not None and tp.vocab_sharded:
+            # vocab-parallel lookup: this rank holds rows [r V / tp, (r + 1)
+            # V / tp); other ids read 0 here and the all-reduce picks the one
+            # rank holding each token's row
+            vs = emb["tok"].shape[0]
+            lo = tp.rank * vs
+            mine = (ids >= lo) & (ids < lo + vs)
+            h = emb["tok"][(ids - lo).clamp(0, vs - 1)].to(dt)
+            h = tp.coll.psum_embed(torch.where(mine[..., None], h, torch.zeros_like(h)))
+        else:
+            h = emb["tok"][ids].to(dt)
         if self._embed_scale is not None:
             h = h * self._embed_scale
         if cfg.position == "learned":
@@ -197,6 +240,10 @@ class PagedModelRunner:
                     layer=li, scale=cfg.attn_scale, window=win,
                     alibi_slopes=self._slopes, softcap=cfg.attn_softcap)
             y = (out.reshape(b * c, nh * d) @ L.dq(att["wo"], dt).reshape(nh * d, e)).view(b, c, e)
+            if tp is not None:
+                # row-parallel: the product covers this rank's heads; the
+                # bias goes in once, after the all-reduce
+                y = tp.coll.psum_attn(y)
             if "bo" in att:   # presence-keyed: out_bias may differ from use_bias
                 y = y + L.bcast(att["bo"].to(dt), y.dim())
             if cfg.sandwich_norm:   # Gemma-2 post-attn output norm
@@ -206,7 +253,8 @@ class PagedModelRunner:
             else:
                 h = h + y
                 m_in = L.apply_norm(lp["norm2"], h, cfg)
-            mlp_out = L.apply_mlp(lp["mlp"], m_in, cfg)
+            mlp_out = L.apply_mlp(lp["mlp"], m_in, cfg,
+                                  reduce=tp.coll.psum_mlp if tp is not None else None)
             if cfg.sandwich_norm:
                 mlp_out = L.apply_norm(lp["norm4"], mlp_out, cfg)
             h = h + y + mlp_out if cfg.parallel_block else h + mlp_out
@@ -215,7 +263,7 @@ class PagedModelRunner:
         h, kpool, vpool = self._run_layers(layer, h, params, kpool, vpool,
                                            windows, blk, off)
         h = L.apply_norm(params["final_norm"], h, cfg)
-        return self._head(params, h, valid_counts, all_logits), kpool, vpool
+        return self._head(params, h, valid_counts, all_logits, tp), kpool, vpool
 
     def _run_layers(self, layer, h, params, kpool, vpool, windows, blk, off):
         """Drive ``layer`` over the stack; the pools stay read-only during
@@ -232,9 +280,11 @@ class PagedModelRunner:
         vpool[:, :, blk, off] = cv_all.permute(0, 3, 1, 2, 4)
         return h, kpool, vpool
 
-    def _head(self, params, h, valid_counts, all_logits=False):
+    def _head(self, params, h, valid_counts, all_logits=False, tp=None):
         """Last-valid-token logits (B, V) f32 from normed hidden states, or
-        the logits at every position (B, C, V) with ``all_logits``."""
+        the logits at every position (B, C, V) with ``all_logits``. Under a
+        vocab-split ``tp`` the product is this rank's V / tp columns; bias
+        and softcap apply to them, and one all-gather assembles the vocab."""
         cfg = self.cfg
         dt = cfg.act_dtype
         if all_logits:
@@ -251,6 +301,8 @@ class PagedModelRunner:
             logits = logits + L.bcast(emb["lm_head_bias"].to(logits.dtype), logits.dim())
         if cfg.logit_softcap:
             logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+        if tp is not None and tp.vocab_sharded:
+            logits = tp.coll.gather_logits(logits)
         return logits.float()
 
     def run(self, params, ids, positions, block_tables, valid_counts, kpool, vpool):

@@ -12,6 +12,13 @@ mid-frame. The fault hooks (``set_poison``, ``clear_nonfinite``) write the
 poison flag and the finite-check latch in place at a frame boundary, and
 ``resync_committed`` reads the (B,) watermark back only at a repair
 boundary.
+
+Tensor parallelism (``tp``, a ``tp.TPContext``): every rank holds the whole
+slot state (JAX replicates the slot-table carry over the mesh) and counts
+the frame's stats itself; the counts agree by construction, so a rank reads
+its own (JAX reads shard 0's), and ``debug_replicas``
+(``tp_debug_replica_check``) all-gathers every rank's and asserts that they
+agree (JAX ``stats_delta``).
 """
 
 import dataclasses
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...comm import comm
 from .kv_cache import BlockedKVCache
 from .telemetry import zero_stats
 
@@ -148,9 +156,11 @@ class DeviceSlotTable:
     """
 
     def __init__(self, n_slots: int, prompt_width: int, table_width: int,
-                 rng: torch.Generator, device):
+                 rng: torch.Generator, device, tp=None, debug_replicas: bool = False):
         self.n_slots = n_slots
         self.device = torch.device(device)
+        self.tp = tp
+        self.debug_replicas = debug_replicas and tp is not None
         for name, t in slot_state(n_slots, prompt_width, table_width, self.device).items():
             setattr(self, name, t)
         self.rng = rng
@@ -322,11 +332,24 @@ class DeviceSlotTable:
         toks, emit = self.dispatch_frame(runner, params, kv, width, steps, greedy,
                                          draft=draft, repair=repair)
         n, b = toks.numel(), self.n_slots
+        stats = self.stats
+        if self.debug_replicas:
+            # every rank's counters, (tp, N_STATS), in the same one copy
+            stats = comm.all_gather_into_tensor(self.stats[None], dim=0,
+                                                group=self.tp.group).flatten()
         host = torch.cat([toks.flatten(), emit.flatten().to(torch.int32),
-                          self.nonfinite.to(torch.int32), self.stats]).cpu().numpy()
+                          self.nonfinite.to(torch.int32), stats]).cpu().numpy()
         self.stats.zero_()
+        delta = host[2 * n + b:].astype(np.int64)
+        if self.debug_replicas:
+            rows = delta.reshape(self.tp.degree, -1)
+            if not (rows == rows[0]).all():
+                raise AssertionError(
+                    "frame stats diverged across tp shards — a shard-"
+                    f"varying value leaked into the counters:\n{rows}")
+            delta = rows[0]
         return (host[:n].reshape(toks.shape), host[n:2 * n].reshape(toks.shape) != 0,
-                host[2 * n:2 * n + b] != 0, host[2 * n + b:].astype(np.int64))
+                host[2 * n:2 * n + b] != 0, delta)
 
     def _live_rows(self, uids: List[int]):
         """Device index of the slots of the live uids among ``uids`` (None

@@ -310,7 +310,11 @@ def _mm(x, w):
     return (x.reshape(-1, x.shape[-1]) @ w).reshape(*x.shape[:-1], w.shape[-1])
 
 
-def apply_mlp(params, x, cfg: TransformerConfig):
+def apply_mlp(params, x, cfg: TransformerConfig, reduce=None):
+    """``reduce`` (tensor-parallel serving): applied to the w_out product
+    before the output bias. With the intermediate dim split over ranks the
+    product is a partial sum the caller all-reduces, and the bias, whole on
+    every rank, must be added once, after the reduce (JAX ``apply_mlp``)."""
     dt = cfg.act_dtype
     mlp_bias = cfg.use_bias if cfg.mlp_bias is None else cfg.mlp_bias
     if cfg.activation in ("swiglu", "geglu"):
@@ -328,6 +332,8 @@ def apply_mlp(params, x, cfg: TransformerConfig):
         else:  # "gelu" = tanh approximation (gelu_new); "gelu_exact" = erf
             h = F.gelu(h, approximate="none" if cfg.activation == "gelu_exact" else "tanh")
     y = _mm(h, dq(params["wo"], dt))
+    if reduce is not None:
+        y = reduce(y)
     if mlp_bias:
         y = y + bcast(params["bo"].to(dt), y.dim())
     return y

@@ -153,8 +153,13 @@ def test_quantize_params_skips_router_stacks_and_checks_its_arguments():
     assert not isinstance(got["layers"]["mlp"]["wi_gate"], dict)
     with pytest.raises(ValueError, match="weight_dtype must be 'int8'"):
         TQ.quantize_params(_torch(tree), axes, weight_dtype="fp8")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TQ.quantize_params(_torch(tree), axes, specs={})
+    # with a tensor-parallel spec tree (each leaf's split dim) the specs come
+    # back jointly: q keeps the weight's dim, the scale drops a contracted one
+    specs = {"layers": {"mlp": {"router": None, "wi_gate": 3}, "attn": {"wq": 2}}}
+    got, qspecs = TQ.quantize_params(_torch(tree), axes, specs=specs)
+    _same_tree(got, want)
+    assert qspecs == {"layers": {"mlp": {"router": None, "wi_gate": 3},
+                                 "attn": {"wq": {"q": 2, "s": 2}}}}
 
 
 # ---------------------------------------------------------------------------

@@ -179,8 +179,9 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
 
 
 # over1 (prefix_cache), over3 (kv_swap_dir) and over4 (nonfinite_policy)
-# were ported; the other cases keep their ids
-@pytest.mark.parametrize("over", [{"tp": 2}, {"role": "prefill"}],
+# were ported; the other cases keep their ids. tp > 1 was ported too: over0
+# now holds what of it is not, the swap tier under tp
+@pytest.mark.parametrize("over", [{"tp": 2, "kv_swap_dir": "unused"}, {"role": "prefill"}],
                          ids=["over0", "over2"])
 def test_unported_config_raises(over):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
