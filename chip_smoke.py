@@ -272,6 +272,33 @@ instead (one process per card, NCCL, every rank stopped when one fails):
      scheme; every lowering on the wire against its arithmetic on one
      card; each variant's decode step beside exact's.
 Its last line is the same ``ok`` line with ``count`` 4.
+
+``python3 chip_smoke.py zero-nccl`` on four cards trains data-parallel
+instead (one process per card, NCCL, every rank stopped when one fails);
+rank 0 first runs the reference check's one-card run alone, before it
+joins the group:
+  zero_train_path: llama2-7b at full width and depth, ZeRO stage 3 over
+     the four ranks (each drawing the seeded init whole and keeping its
+     shard), bf16 activations over f32 parameters and Adam state, full
+     recompute, S 4096, micro-batch 1 a rank, gas 2; 1 warm-up and 4 timed
+     ``train_batch`` steps, counts set to 0 just before and read just
+     after: the loss finite, falling and the same on every rank, K3 / K4
+     / K5 = 128 / 64 / 64 and K10 one a leaf a step on every rank, the
+     bytes the engine's tensors hold within its shards plus whole leaves;
+     tokens/s, ms a step, MFU, peak GB a card, one step's device ms by
+     class (GEMMs, NCCL all-gather, NCCL reduce-scatter, K3, K4 + K5, K10,
+     other) and the idle share;
+  zero_reference_check: 4 of its 32 layers, stages 0-3 over the four
+     ranks, three steps each on 8 x 4096 tokens, against the one-card run
+     (gas 8, the same batch and seed): step 1's reduced gradient within
+     1e-5 (relative Frobenius, gathered) and each loss within 2e-4; a
+     control that shifts every rank to the next rank's rows (the last
+     keeps its own) must miss the gradient gate; the parameters' distance
+     after three steps printed;
+then on rank 0 K3-K5 at llama2-7b's attention and K10 at the largest
+shard, each held against its plain version and timed beside it, and the
+kernel line with the zero path's launches. The last line is the ``ok``
+line with ``count`` 4.
 """
 
 import gc
@@ -2573,38 +2600,13 @@ def adam_inputs(torch, n, seed=0):
 ADAM_KW = dict(step=3.0, lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1)
 
 
-def train_kernel_phases(torch, largest_leaf):
-    """train_kernel_check and train_kernel_time. Returns the kernel entries
-    (without launches) for K3, K4, K5 and K10."""
-    import torch.nn.functional as F
-    from deepspeed_tpu_torch.ops import flash_attention as FA
+def check_adam(torch, n, case):
+    """K10 once on a mid-training state of ``n`` elements against its plain
+    version (ADAM_REL / ADAM_FLOOR of each buffer's change); one
+    train_kernel_check line. Returns (the four state tensors after the
+    kernel's step, the largest error)."""
     from deepspeed_tpu_torch.ops.fused_adam import fused_adam_flat, fused_adam_flat_plain
-
-    main = dict(b=TRAIN_MICRO, s=TRAIN_SEQ, h=25, kvh=25, d=64)     # gpt2-xl, causal
-    cases = [
-        ("gpt2xl_causal", main),
-        ("llama3_8b_gqa", dict(b=1, s=2048, h=32, kvh=8, d=128, seed=1)),
-        ("d256", dict(b=1, s=512, h=4, kvh=2, d=256, seed=2)),
-        ("window256", dict(b=2, s=1024, h=8, kvh=8, d=64, window=256, seed=3)),
-        ("alibi", dict(b=2, s=512, h=8, kvh=4, d=64, alibi=True, seed=4)),
-        ("segments", dict(b=2, s=512, h=4, kvh=2, d=128, seg=True, seed=5)),
-        ("noncausal", dict(b=2, s=512, h=4, kvh=4, d=64, causal=False, seed=6)),
-        ("tail_s1000", dict(b=2, s=1000, h=4, kvh=2, d=64, seed=7)),
-        ("d128_noncausal_gqa_segments", dict(b=2, s=512, h=8, kvh=2, d=128, causal=False,
-                                             seg=True, seed=8)),
-        ("d128_window_gqa", dict(b=2, s=1024, h=16, kvh=4, d=128, window=384, seed=9)),
-        ("d128_tail_gqa", dict(b=1, s=1000, h=8, kvh=2, d=128, seed=10)),
-    ]
-    worst = {"out": 0.0, "dq": 0.0, "dkv": 0.0}
-    for name, kw in cases:
-        row = check_flash(torch, flash_case(torch, name, **kw))
-        worst["out"] = max(worst["out"], row["out"])
-        worst["dq"] = max(worst["dq"], row["dq"])
-        worst["dkv"] = max(worst["dkv"], row["dk"], row["dv"])
-        torch.cuda.empty_cache()
-
-    # K10 at the largest leaf of the main path, from a mid-training state
-    ap, ag, am, av = adam_inputs(torch, largest_leaf)
+    ap, ag, am, av = adam_inputs(torch, n)
     ref = [t.clone() for t in (ap, ag, am, av)]
     start = [t.clone() for t in (ap, am, av)]
     before = fused_adam_flat.launches
@@ -2626,17 +2628,21 @@ def train_kernel_phases(torch, largest_leaf):
                              share_of_limit=used)
         adam_ok &= used <= 1.0
         del change, err
-    del start
-    emit("train_kernel_check", kernel="fused_adam", case=f"{TRAIN_MODEL}_largest_leaf",
-         n=largest_leaf, max_abs_err=adam_err, per_buffer=adam_rows,
-         rel=ADAM_REL, floor=ADAM_FLOOR, within=adam_ok)
+    del start, ref
+    emit("train_kernel_check", kernel="fused_adam", case=case, n=n, max_abs_err=adam_err,
+         per_buffer=adam_rows, rel=ADAM_REL, floor=ADAM_FLOOR, within=adam_ok)
     if not adam_ok:
         fail(f"fused adam: {adam_rows}")
-    del ref
+    return (ap, ag, am, av), adam_err
 
-    # timing at the main path's shapes
+
+def flash_time_entries(torch, case, errs, shape):
+    """K3, K4, K5 on ``case`` by CUDA events beside their plain versions,
+    one SDPA call and their bounds; one train_kernel_time line each.
+    Returns their kernel entries (without launches)."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import flash_attention as FA
     entries = []
-    case = flash_case(torch, "gpt2xl_causal", **main)
     q, k, v, do, kw = case["q"], case["k"], case["v"], case["do"], case["kw"]
     f32 = [t.float() for t in (q, k, v, do)]
     out, lse = FA.flash_attention_fwd(q, k, v, **kw)
@@ -2664,8 +2670,6 @@ def train_kernel_phases(torch, largest_leaf):
             lambda i: FA.flash_attention_bwd_plain(*f32, lse, delta, **kw), "bwd"),
     }
     work = flash_work(case)
-    errs = {"flash_attention_fwd": worst["out"], "flash_attention_dq": worst["dq"],
-            "flash_attention_dkv": worst["dkv"]}
     for name, (kern, plain, lib) in timed.items():
         nbytes, flops = work[name]
         b_ms, b_by = bound(nbytes, flops)
@@ -2674,9 +2678,9 @@ def train_kernel_phases(torch, largest_leaf):
                    library_ms=library_ms[lib],
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
         row["tflops"] = flops / row["ms"] / 1e9
-        emit("train_kernel_time", kernel=name, case="gpt2xl_causal",
-             variant=FA.kernel_info(name.split("_")[-1], 64)["variant"],
-             shape=dict(B=TRAIN_MICRO, S=TRAIN_SEQ, H=25, KVH=25, D=64, dtype="bfloat16"),
+        emit("train_kernel_time", kernel=name, case=case["name"],
+             variant=FA.kernel_info(name.split("_")[-1], shape["D"])["variant"],
+             shape=shape,
              library=("F.scaled_dot_product_attention forward" if name.endswith("fwd") else
                       "autograd backward of F.scaled_dot_product_attention (dq, dk and dv "
                       "together)"), **row)
@@ -2684,10 +2688,19 @@ def train_kernel_phases(torch, largest_leaf):
                         "replaces": FLASH_REPLACES[name], "max_abs_err": errs[name],
                         **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                   "library_ms")}})
-    del case, f32, out, lse, delta, qt, kt, vt, lib_out, timed
+    del f32, out, lse, delta, qt, kt, vt, lib_out, timed
     torch.cuda.empty_cache()
+    return entries
 
-    nbytes, flops = 28 * largest_leaf, 15 * largest_leaf
+
+def adam_time_entry(torch, state, adam_err, case):
+    """K10 on ``state`` (``check_adam``'s) by CUDA events beside its plain
+    version, ``AdamW(fused=True).step()`` and its bound; one
+    train_kernel_time line. Returns its kernel entry (without launches)."""
+    from deepspeed_tpu_torch.ops.fused_adam import fused_adam_flat, fused_adam_flat_plain
+    ap, ag, am, av = state
+    n = ap.numel()
+    nbytes, flops = 28 * n, 15 * n
     b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
     lib_p = torch.nn.Parameter(ap)
     lib_p.grad = ag
@@ -2700,13 +2713,52 @@ def train_kernel_phases(torch, largest_leaf):
                                 reps=3, iters=3),
                library_ms=cuda_ms(torch, lambda i: lib_opt.step(), reps=3, iters=10),
                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
-    emit("train_kernel_time", kernel="fused_adam", case=f"{TRAIN_MODEL}_largest_leaf",
-         n=largest_leaf, library="torch.optim.AdamW(fused=True).step()", **row)
-    entries.append({"name": "fused_adam", "route": "cuda", "source": ADAM_SOURCE,
-                    "replaces": ADAM_REPLACES, "max_abs_err": adam_err,
-                    **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                              "library_ms")}})
-    del ap, ag, am, av, lib_p, lib_opt
+    emit("train_kernel_time", kernel="fused_adam", case=case, n=n,
+         library="torch.optim.AdamW(fused=True).step()", **row)
+    del lib_p, lib_opt
+    torch.cuda.empty_cache()
+    return {"name": "fused_adam", "route": "cuda", "source": ADAM_SOURCE,
+            "replaces": ADAM_REPLACES, "max_abs_err": adam_err,
+            **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+
+
+def train_kernel_phases(torch, largest_leaf):
+    """train_kernel_check and train_kernel_time. Returns the kernel entries
+    (without launches) for K3, K4, K5 and K10."""
+    main = dict(b=TRAIN_MICRO, s=TRAIN_SEQ, h=25, kvh=25, d=64)     # gpt2-xl, causal
+    cases = [
+        ("gpt2xl_causal", main),
+        ("llama3_8b_gqa", dict(b=1, s=2048, h=32, kvh=8, d=128, seed=1)),
+        ("d256", dict(b=1, s=512, h=4, kvh=2, d=256, seed=2)),
+        ("window256", dict(b=2, s=1024, h=8, kvh=8, d=64, window=256, seed=3)),
+        ("alibi", dict(b=2, s=512, h=8, kvh=4, d=64, alibi=True, seed=4)),
+        ("segments", dict(b=2, s=512, h=4, kvh=2, d=128, seg=True, seed=5)),
+        ("noncausal", dict(b=2, s=512, h=4, kvh=4, d=64, causal=False, seed=6)),
+        ("tail_s1000", dict(b=2, s=1000, h=4, kvh=2, d=64, seed=7)),
+        ("d128_noncausal_gqa_segments", dict(b=2, s=512, h=8, kvh=2, d=128, causal=False,
+                                             seg=True, seed=8)),
+        ("d128_window_gqa", dict(b=2, s=1024, h=16, kvh=4, d=128, window=384, seed=9)),
+        ("d128_tail_gqa", dict(b=1, s=1000, h=8, kvh=2, d=128, seed=10)),
+    ]
+    worst = {"out": 0.0, "dq": 0.0, "dkv": 0.0}
+    for name, kw in cases:
+        row = check_flash(torch, flash_case(torch, name, **kw))
+        worst["out"] = max(worst["out"], row["out"])
+        worst["dq"] = max(worst["dq"], row["dq"])
+        worst["dkv"] = max(worst["dkv"], row["dk"], row["dv"])
+        torch.cuda.empty_cache()
+
+    # K10 at the largest leaf of the main path, from a mid-training state
+    state, adam_err = check_adam(torch, largest_leaf, f"{TRAIN_MODEL}_largest_leaf")
+
+    # timing at the main path's shapes
+    errs = {"flash_attention_fwd": worst["out"], "flash_attention_dq": worst["dq"],
+            "flash_attention_dkv": worst["dkv"]}
+    entries = flash_time_entries(
+        torch, flash_case(torch, "gpt2xl_causal", **main), errs,
+        dict(B=TRAIN_MICRO, S=TRAIN_SEQ, H=25, KVH=25, D=64, dtype="bfloat16"))
+    entries.append(adam_time_entry(torch, state, adam_err, f"{TRAIN_MODEL}_largest_leaf"))
+    del state
     torch.cuda.empty_cache()
     return entries
 
@@ -5516,6 +5568,424 @@ def tp_nccl(torch, smi):
     print(smi, flush=True)
 
 
+# --------------------------------- data-parallel ZeRO training across four cards (NCCL)
+
+ZERO_MODEL = "llama2-7b"
+ZERO_RANKS = 4
+ZERO_SEQ, ZERO_GAS = 4096, 2          # micro-batch 1 a rank: 8 x 4096 tokens a step
+ZERO_WARM, ZERO_TIMED = 1, 4
+ZERO_REF_LAYERS, ZERO_REF_ROWS, ZERO_REF_STEPS = 4, 8, 3
+ZERO_GRAD_TOL = 1e-5       # step 1's reduced gradient vs one card, relative Frobenius
+ZERO_LOSS_TOL = 2e-4       # each loss vs one card, relative (JAX tests/test_engine.py:54-59)
+ZERO_TIMEOUT_S = 480
+
+
+def zero_config(stage, gas, dp=ZERO_RANKS):
+    """The zero phases' training config: micro-batch 1 a rank, bf16
+    activations over f32 parameters and Adam state (train_config's
+    optimizer, schedule and clipping)."""
+    return {"train_batch_size": gas * dp, "train_micro_batch_size_per_gpu": 1,
+            "gradient_accumulation_steps": gas, "bf16": {"enabled": True},
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.1}},
+            "scheduler": {"type": "WarmupLR", "params": {"warmup_num_steps": 8}},
+            "gradient_clipping": 1.0, "zero_optimization": {"stage": stage},
+            "steps_per_print": 10 ** 9, "seed": 0}
+
+
+def _zero_class(name):
+    """A device event's class, or None for c10d's ``nccl:*`` ranges, which
+    span the NCCL kernels already counted."""
+    low = name.lower()
+    if low.startswith("nccl:"):
+        return None
+    if "nccl" in low:
+        for key, cls in (("allgather", "nccl_all_gather"),
+                         ("reducescatter", "nccl_reduce_scatter"),
+                         ("allreduce", "nccl_all_reduce")):
+            if key in low:
+                return cls
+        return "nccl_other"
+    return _train_kernel_class(name)
+
+
+def zero_held_bytes(engine):
+    """(bytes the engine's tensors hold on this card: parameters, optimizer
+    slots, gradients; the bytes of this rank's shards of them, whole leaves
+    counted whole, from the full shapes and split dims; the full state's)."""
+    from deepspeed_tpu_torch.ops.optimizers import is_slot
+    from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_paths
+    part = engine.partition
+    held = 0
+    for p, slot in zip(tree_leaves(engine.module_params),
+                       tree_leaves(engine.opt_state["slots"], is_leaf=is_slot)):
+        held += p.numel() * p.element_size()
+        held += sum(t.numel() * t.element_size() for t in slot.values())
+        if p.grad is not None:
+            held += p.grad.numel() * p.grad.element_size()
+    held += sum(g.numel() * g.element_size() for g in part.grad_shards.values())
+    shapes = dict(tree_paths(part.full_shapes))
+    allowed = full = 0
+    for path, pd, od, gd in part.dims():
+        n = math.prod(shapes[path])
+        # f32 parameter, m and v, and the f32 gradient
+        allowed += 4 * (n // (ZERO_RANKS if pd is not None else 1)
+                        + 2 * n // (ZERO_RANKS if od is not None else 1)
+                        + n // (ZERO_RANKS if gd is not None else 1))
+        full += 16 * n
+    return held, allowed, full
+
+
+def zero_train_path(torch, rank, smi):
+    """zero_train_path: ``initialize()`` on llama2-7b at full width and depth
+    (random weights from seed 0, every rank drawing them whole and keeping
+    its shard), ZeRO stage 3 over the four ranks, bf16 activations over f32
+    parameters and Adam state, full recompute, S 4096, micro-batch 1 a rank,
+    gas 2: one warm-up and four timed ``train_batch`` steps on one batch,
+    every count set to 0 just before and read just after; then one step
+    under torch.profiler. Returns K3 / K4 / K5 / K10 launches (this rank's)."""
+    import torch.distributed as dist
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.ops import flash_attention as FA
+    from deepspeed_tpu_torch.ops.fused_adam import fused_adam_flat
+    from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_paths
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, _, _, _ = dst.initialize(model=build_model(ZERO_MODEL, remat="full"),
+                                     config=zero_config(3, ZERO_GAS))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = engine.model.cfg
+    n_params = sum(math.prod(s) for _, s in tree_paths(engine.partition.full_shapes))
+    rows = ZERO_GAS * ZERO_RANKS
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (rows, ZERO_SEQ + 1), generator=g)
+    batch = {"input_ids": ids[:, :-1].cuda(), "labels": ids[:, 1:].cuda()}
+
+    counters = [FA.flash_attention_fwd, FA.flash_attention_dq, FA.flash_attention_dkv,
+                fused_adam_flat]
+    for f in counters:
+        f.launches = 0
+    losses = [engine.train_batch(batch) for _ in range(ZERO_WARM)]
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    losses += [engine.train_batch(batch) for _ in range(ZERO_TIMED)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in counters}
+    losses = [float(x) for x in losses]
+    held, allowed, full = zero_held_bytes(engine)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    steps = ZERO_WARM + ZERO_TIMED
+    micro = steps * ZERO_GAS
+    leaves = len(tree_leaves(engine.module_params))
+    want = {"flash_attention_fwd": 2 * cfg.num_layers * micro,     # forward and recompute
+            "flash_attention_dq": cfg.num_layers * micro,
+            "flash_attention_dkv": cfg.num_layers * micro,
+            "fused_adam_flat": leaves * steps}
+    ms_step = wall * 1e3 / ZERO_TIMED
+    tokens_s = rows * ZERO_SEQ * ZERO_TIMED / wall
+    flops_token = 6 * n_params + 12 * cfg.num_layers * cfg.hidden_size * ZERO_SEQ
+
+    # one step under the profiler: device time by class
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+    by_class, by_name = {}, {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        cls = _zero_class(ev.name)
+        if cls is None:
+            continue
+        by_class[cls] = by_class.get(cls, 0.0) + us
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + us
+    busy_ms = sum(by_class.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:8]
+
+    mine = dict(rank=rank, losses=losses, launches=launches, held_gb=held / 1e9,
+                allowed_gb=allowed / 1e9, peak_gb=peak_gb, ms_step=ms_step, init_s=init_s,
+                device_busy_ms=busy_ms, idle_share=max(0.0, 1 - busy_ms / ms_step),
+                device_ms_by_class={k: v / 1e3 for k, v in sorted(by_class.items())},
+                top_kernels_ms=[(k[:80], v / 1e3) for k, v in top])
+    every = tp_gather(mine)
+    if rank == 0:
+        emit("zero_train_path", model=ZERO_MODEL, ranks=ZERO_RANKS, zero_stage=3,
+             layers=cfg.num_layers, hidden=cfg.hidden_size, heads=cfg.num_heads,
+             ffn=cfg.ffn_size, vocab=cfg.vocab_size, params=n_params, seq=ZERO_SEQ,
+             micro_batch_per_rank=1, gas=ZERO_GAS, train_batch_size=rows,
+             tokens_per_step=rows * ZERO_SEQ, remat="full",
+             dtype="bfloat16 activations, f32 params and Adam state", warmup_steps=ZERO_WARM,
+             timed_steps=ZERO_TIMED, launches_expected=want, ms_per_step=ms_step,
+             tokens_per_s=tokens_s,
+             mfu=flops_token * tokens_s / (BF16_FLOPS * ZERO_RANKS),
+             mfu_formula="(6 * params + 12 * layers * hidden * seq) * tokens/s / "
+                         "(989e12 * ranks)",
+             full_state_gb=full / 1e9, per_rank=every, card=smi)
+    tp_check(all(math.isfinite(x) for r in every for x in r["losses"]),
+             "zero_train_path: a loss is not finite")
+    tp_check(all(r["losses"] == every[0]["losses"] for r in every),
+             "zero_train_path: the ranks' losses differ")
+    tp_check(losses[-1] < losses[0], f"zero_train_path: the loss did not fall: {losses}")
+    tp_check(launches == want, f"zero_train_path: launches {launches}, expected {want}")
+    tp_check(held <= allowed, f"zero_train_path: the engine holds {held} bytes, its shards "
+                              f"and whole leaves {allowed}")
+    del engine, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def zero_ref_model():
+    from deepspeed_tpu_torch.models import build_model
+    return build_model(ZERO_MODEL, num_layers=ZERO_REF_LAYERS, remat="full")
+
+
+def zero_ref_batch(torch, vocab, shifted=False):
+    """The reference check's global batch, 8 x 4096 tokens (seed 2).
+    ``shifted``: each rank's slot of a global micro-batch holds the next
+    rank's row and the last rank keeps its own (no wrap: a cyclic shift is
+    a permutation of the rows and leaves the summed gradient as it was)."""
+    g = torch.Generator().manual_seed(2)
+    ids = torch.randint(0, vocab, (ZERO_REF_ROWS, ZERO_SEQ + 1), generator=g)
+    if shifted:
+        ids = ids[[j + min(r + 1, ZERO_RANKS - 1)
+                   for j in range(0, ZERO_REF_ROWS, ZERO_RANKS) for r in range(ZERO_RANKS)]]
+    return {"input_ids": ids[:, :-1].cuda(), "labels": ids[:, 1:].cuda()}
+
+
+def capture_first_grads(engine, n=2):
+    """A list that receives, at the engine's first ``n`` updates, the
+    gradients the optimizer is handed (reduced, unscaled, divided and
+    clipped; f32, in the optimizer's layout), by dotted path."""
+    from deepspeed_tpu_torch.utils.tree import tree_paths
+    box = []
+    apply = engine.optimizer.apply
+
+    def first(grads, state, params, lr=None):
+        if len(box) < n:
+            box.append({k: t.clone() for k, t in tree_paths(grads)})
+        return apply(grads, state, params, lr=lr)
+
+    engine.optimizer.apply = first
+    return box
+
+
+def zero_reference_world1(torch):
+    """The reference check's one-card run, in rank 0's process before it
+    joins the group: 4 of llama2-7b's 32 layers at its widths, the engine
+    at world 1 (gas 8 over the 8 rows), three steps on the global batch.
+    Returns its losses, its first two reduced gradients and its parameters
+    after each step (on the host)."""
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    from deepspeed_tpu_torch.utils.tree import tree_paths
+    engine = DeepSpeedEngine(model=zero_ref_model(), config=zero_config(0, ZERO_REF_ROWS, 1),
+                             device=torch.device("cuda", torch.cuda.current_device()))
+    box = capture_first_grads(engine)
+    batch = zero_ref_batch(torch, engine.model.cfg.vocab_size)
+    losses, params = [], []
+    for _ in range(ZERO_REF_STEPS):
+        losses.append(float(engine.train_batch(batch)))
+        params.append({k: t.detach().to("cpu", copy=True)
+                       for k, t in tree_paths(engine.module_params)})
+    ref = {"losses": losses, "grads": [{k: t.cpu() for k, t in g.items()} for g in box],
+           "params": params}
+    del engine, box, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def zero_distance(torch, part, tree, dims, ref, rank):
+    """(relative Frobenius distance over all leaves of ``tree`` (this rank's
+    layout, split along ``dims``) from rank 0's whole ``ref``, the three
+    leaves farthest from theirs by their own relative distance), each leaf
+    gathered whole in turn; every rank gets both."""
+    from deepspeed_tpu_torch.utils.tree import tree_paths
+    dims = dict(tree_paths(dims))
+    num = den = 0.0
+    by_leaf = {}
+    for path, t in tree_paths(tree):
+        whole = part.gather(t.detach().float(), dims[path])
+        if rank == 0:
+            want = ref[path].to(whole.device).float()
+            d, w = float((whole - want).square().sum()), float(want.square().sum())
+            num, den = num + d, den + w
+            by_leaf[path] = math.sqrt(d / w) if w else math.sqrt(d)
+        del whole
+    worst = sorted(by_leaf.items(), key=lambda kv_: -kv_[1])[:3]
+    return tp_gather((math.sqrt(num / den), worst) if rank == 0 else None)[0]
+
+
+def zero_reference_check(torch, rank, smi, ref):
+    """zero_reference_check: stages 0-3 over the four ranks, three steps each
+    on the one-card run's batch and weights (the same seed), against rank
+    0's one-card run: step 1's reduced gradient within ZERO_GRAD_TOL
+    (relative Frobenius, gathered) and each loss within ZERO_LOSS_TOL; a
+    control (``zero_ref_batch(shifted=True)``, stage 0, one step) must miss
+    the gradient gate. Step 2's gradient distance and the parameters'
+    distance after each step are printed, with the farthest leaves."""
+    import deepspeed_tpu_torch as dst
+    ref_losses = tp_gather(ref["losses"] if rank == 0 else None)[0]
+    rows = []
+    for name, stage, shifted in (("stage0", 0, False), ("stage1", 1, False),
+                                 ("stage2", 2, False), ("stage3", 3, False),
+                                 ("control_next_rank_rows", 0, True)):
+        engine, _, _, _ = dst.initialize(model=zero_ref_model(),
+                                         config=zero_config(stage, ZERO_REF_ROWS // ZERO_RANKS))
+        box = capture_first_grads(engine)
+        batch = zero_ref_batch(torch, engine.model.cfg.vocab_size, shifted)
+        steps = 1 if shifted else ZERO_REF_STEPS
+        part = engine.partition
+        losses, param_rel, wall = [], [], 0.0
+        for i in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            wall += time.perf_counter() - t0
+            if not shifted:
+                param_rel.append(zero_distance(torch, part, engine.module_params,
+                                               part.param_dims,
+                                               ref["params"][i] if rank == 0 else None, rank))
+        grad_rel = [zero_distance(torch, part, got, part.opt_dims,
+                                  ref["grads"][i] if rank == 0 else None, rank)
+                    for i, got in enumerate(box)]
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+        rows.append(dict(case=name, stage=stage, losses=losses, one_card_losses=ref_losses,
+                         loss_rel=loss_rel, grad_rel_fro=grad_rel[0][0],
+                         grad_rel_fro_by_step=[g[0] for g in grad_rel],
+                         grad_worst_leaves_by_step=[g[1] for g in grad_rel],
+                         param_rel_fro=param_rel[-1][0] if param_rel else None,
+                         param_rel_fro_by_step=[p_[0] for p_ in param_rel],
+                         param_worst_leaves_by_step=[p_[1] for p_ in param_rel],
+                         wall_s=wall))
+        del engine, box, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        emit("zero_reference_check", model=ZERO_MODEL, layers=ZERO_REF_LAYERS,
+             rows_per_step=ZERO_REF_ROWS, seq=ZERO_SEQ, ranks=ZERO_RANKS,
+             one_card="world 1, gas 8, the same batch and seed", grad_tol=ZERO_GRAD_TOL,
+             loss_tol=ZERO_LOSS_TOL, cases=rows, card=smi)
+    for r in rows:
+        if r["case"].startswith("control"):
+            tp_check(r["grad_rel_fro"] > ZERO_GRAD_TOL,
+                     f"zero_reference_check: the control met the gradient gate: {r}")
+        else:
+            tp_check(r["grad_rel_fro"] <= ZERO_GRAD_TOL and max(r["loss_rel"]) <= ZERO_LOSS_TOL,
+                     f"zero_reference_check: {r}")
+
+
+def zero_kernel_phases(torch):
+    """K3-K5 at llama2-7b's attention (B 1, S 4096, H 32, D 128, causal)
+    and K10 at the zero path's largest shard, each checked against its plain
+    version and timed beside it, SDPA / AdamW and the bound. Returns their
+    kernel entries (without launches)."""
+    from deepspeed_tpu_torch.models import build_model
+    cfg = build_model(ZERO_MODEL).cfg
+    shape = dict(b=1, s=ZERO_SEQ, h=cfg.num_heads, kvh=cfg.kv_heads, d=cfg.dims_per_head)
+    row = check_flash(torch, flash_case(torch, "llama2_7b_causal", **shape))
+    errs = {"flash_attention_fwd": row["out"], "flash_attention_dq": row["dq"],
+            "flash_attention_dkv": max(row["dk"], row["dv"])}
+    torch.cuda.empty_cache()
+    entries = flash_time_entries(
+        torch, flash_case(torch, "llama2_7b_causal", **shape), errs,
+        dict(B=1, S=ZERO_SEQ, H=cfg.num_heads, KVH=cfg.kv_heads, D=cfg.dims_per_head,
+             dtype="bfloat16"))
+    shard = cfg.num_layers * cfg.hidden_size * cfg.ffn_size // ZERO_RANKS   # mlp.wi_* / wo
+    state, adam_err = check_adam(torch, shard, f"{ZERO_MODEL}_largest_shard")
+    entries.append(adam_time_entry(torch, state, adam_err, f"{ZERO_MODEL}_largest_shard"))
+    del state
+    torch.cuda.empty_cache()
+    return entries
+
+
+def zero_nccl_rank(torch):
+    """One rank of ``python3 chip_smoke.py zero-nccl``: its card; rank 0
+    first runs the reference check's one-card run alone, then every rank
+    joins the NCCL group over tcp://localhost and runs zero_train_path and
+    zero_reference_check; rank 0 then checks and times the kernels at the
+    path's shapes and prints the kernel line. The process ends with
+    ``os._exit``, its code 0 only when every phase passed, so a rank that
+    fails leaves at once and the launcher stops the others."""
+    import datetime
+    import os
+    import traceback
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.comm import comm
+    code = 1
+    try:
+        rank = int(os.environ["RANK"])
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        ref = zero_reference_world1(torch) if rank == 0 else None
+        comm.init_distributed(dist_backend="nccl",
+                              timeout=datetime.timedelta(seconds=ZERO_TIMEOUT_S))
+        smi = nvidia_smi()
+        launches = zero_train_path(torch, rank, smi)
+        zero_reference_check(torch, rank, smi, ref)
+        del ref
+        if rank == 0:
+            entries = zero_kernel_phases(torch)
+            for e in entries:
+                e["launches"] = launches["fused_adam_flat" if e["name"] == "fused_adam"
+                                         else e["name"]]
+                e["launches_counted_on"] = "zero_train_path, rank 0"
+            print(json.dumps({"kernels": entries}), flush=True)
+        dist.barrier()
+        code = 0
+    except SystemExit as e:            # fail(): its message is printed already
+        code = e.code or 1
+    except BaseException:              # noqa: BLE001 (reported, then the rank exits)
+        traceback.print_exc()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def zero_nccl(torch, smi):
+    """``python3 chip_smoke.py zero-nccl`` on a machine with four cards:
+    builds K3-K5 and K10, prints the cards' links (``nvidia-smi topo -m``),
+    starts one process per card (RANK 0-3, NCCL over tcp://localhost), and
+    stops them all as soon as one fails or at ZERO_TIMEOUT_S."""
+    import os
+    import socket
+    from deepspeed_tpu_torch.ops import op_builder
+    if torch.cuda.device_count() < ZERO_RANKS:
+        fail(f"zero-nccl needs {ZERO_RANKS} cards, found {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    op_builder.build(["flash_attention", "fused_adam"])
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True)
+    emit("zero_build", seconds=time.perf_counter() - t0, topology=topo.stdout.splitlines())
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "WORLD_SIZE": str(ZERO_RANKS), "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port)}
+    procs = [subprocess.Popen([sys.executable, __file__, "zero-nccl-rank"],
+                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
+             for r in range(ZERO_RANKS)]
+    deadline = time.monotonic() + ZERO_TIMEOUT_S
+    try:
+        while any(p_.poll() is None for p_ in procs):
+            if time.monotonic() > deadline or any(p_.poll() for p_ in procs):
+                break
+            time.sleep(1.0)
+    finally:
+        for p_ in procs:
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+    codes = [p_.returncode for p_ in procs]
+    if any(codes):
+        fail(f"zero-nccl ranks exited {codes}")
+    print(smi, flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5529,16 +5999,18 @@ def main():
         return ring_nccl_rank(torch)
     if mode == "tp-nccl-rank":
         return tp_nccl_rank(torch)
+    if mode == "zero-nccl-rank":
+        return zero_nccl_rank(torch)
     smi = nvidia_smi()
-    if mode in ("ring-nccl", "tp-nccl"):
-        (ring_nccl if mode == "ring-nccl" else tp_nccl)(torch, smi)
+    if mode in ("ring-nccl", "tp-nccl", "zero-nccl"):
+        {"ring-nccl": ring_nccl, "tp-nccl": tp_nccl, "zero-nccl": zero_nccl}[mode](torch, smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return
     if mode is not None:
-        fail(f"unknown mode {mode!r}: run with no argument, or ring-nccl / tp-nccl on four "
-             "cards")
+        fail(f"unknown mode {mode!r}: run with no argument, or ring-nccl / tp-nccl / "
+             "zero-nccl on four cards")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),

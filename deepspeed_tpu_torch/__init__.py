@@ -1,10 +1,27 @@
 """PyTorch/CUDA port of deepspeed_tpu.
 
-``initialize()`` returns a training engine over one card;
+``initialize()`` returns a training engine, one process a card, data
+parallel with ZeRO stages 0-3 across the processes of a group
+(``init_distributed`` joins one);
 ``init_inference()`` the v1 inference engine (``generate``); the serving
 engine is ``inference.v2.InferenceEngineV2``; weight-only quantization is
 ``inference.quantization``.
 """
+
+from .comm.comm import init_distributed  # noqa: F401
+
+
+def _local_device():
+    """``cuda:LOCAL_RANK`` (made the current device) where the launcher set
+    ``LOCAL_RANK`` and a GPU is present, else None (the current device)."""
+    import os
+
+    import torch
+    local = os.environ.get("LOCAL_RANK")
+    if local is None or not torch.cuda.is_available():
+        return None
+    torch.cuda.set_device(int(local))
+    return torch.device("cuda", int(local))
 
 
 def initialize(args=None,
@@ -26,11 +43,15 @@ def initialize(args=None,
         model: a ``deepspeed_tpu_torch`` ``CausalLM`` (``models.build_model``).
         optimizer: optional optimizer name or instance overriding the config.
         config: DeepSpeed-style JSON config (dict, path, or JSON string).
-        device: where to train; None means the current CUDA device and
+        device: where to train; None means ``cuda:LOCAL_RANK`` where the
+            launcher set ``LOCAL_RANK``, else the current CUDA device, and
             raises without a GPU (``"cpu"`` runs the plain PyTorch path).
 
-    Returns: ``engine, optimizer, training_dataloader, lr_scheduler``. The
-    engine's dataloader is not ported yet: ``training_data`` raises.
+    Joins the process group of ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR``
+    / ``MASTER_PORT`` (``init_distributed``) when the caller has not; a
+    world of one joins nothing. Returns: ``engine, optimizer,
+    training_dataloader, lr_scheduler``. The engine's dataloader is not
+    ported yet: ``training_data`` raises.
     """
     from .runtime.engine import DeepSpeedEngine
 
@@ -40,6 +61,10 @@ def initialize(args=None,
         config = getattr(args, "deepspeed_config", None)
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize requires a model")
+    if device is None:
+        device = _local_device()
+    cpu = device is not None and str(device).startswith("cpu")
+    init_distributed(dist_backend="gloo" if cpu else None, distributed_port=distributed_port)
     engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
                              model_parameters=model_parameters, training_data=training_data,
                              lr_scheduler=lr_scheduler, mpu=mpu, collate_fn=collate_fn,

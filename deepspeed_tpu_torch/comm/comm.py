@@ -4,7 +4,8 @@ Mirrors the names of ``deepspeed_tpu/comm/comm.py`` that the sequence-
 parallel and tensor-parallel slices use, as thin wrappers:
 ``init_distributed``, ``get_rank``, ``get_world_size``, ``all_reduce``,
 ``all_to_all_single``, ``all_gather_into_tensor`` (the JAX tiled
-``all_gather``), ``broadcast``, ``broadcast_object``, ``barrier``, and
+``all_gather``), ``reduce_scatter_tensor`` (the JAX tiled ``psum_scatter``,
+the ZeRO gradient reduction), ``broadcast``, ``broadcast_object``, ``barrier``, and
 ``ring_send_recv``, the ring exchange (the JAX ``ppermute`` by one step
 around an axis). Processes talk over NCCL on cards and gloo on the CPU.
 A process that never joined a process group is a world of one: every
@@ -97,6 +98,25 @@ def all_gather_into_tensor(tensor, dim=0, group=None):
     gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
     gather(_wire(recv), _wire(send.reshape(-1)), group=group)
     return torch.cat(list(recv.view((n,) + tuple(send.shape)).unbind(0)), dim=dim)
+
+
+def reduce_scatter_tensor(tensor, dim=0, group=None):
+    """The sum over ranks of ``tensor``, cut into one block per rank along
+    ``dim``: rank r gets block r (the JAX ``psum_scatter`` with
+    ``tiled=True``). The blocks travel as one contiguous (ranks, ...) stack,
+    so any ``dim`` reduces on dim 0 of a contiguous buffer. Returns a new
+    contiguous tensor of the block's shape."""
+    n = get_world_size(group)
+    if n == 1:
+        return tensor
+    if tensor.shape[dim] % n:
+        raise ValueError(f"reduce_scatter_tensor: dim {dim} of {tuple(tensor.shape)} does not "
+                         f"split over {n} ranks")
+    send = torch.stack(tensor.chunk(n, dim=dim))
+    recv = torch.empty(send.shape[1:], dtype=send.dtype, device=send.device)
+    # flat buffers: gloo wants the input's dim 0 to be ranks x the output's
+    dist.reduce_scatter_tensor(recv.view(-1), send.view(-1), group=group)
+    return recv
 
 
 def _global(group, r):

@@ -142,30 +142,35 @@ class CausalLM:
                 params[nm] = L.init_norm(cfg, dtype, device)
         return params
 
-    def init(self, gen=None, *, device=None, dtype=None):
+    def init(self, gen=None, *, device=None, dtype=None, cut=None):
         """Random parameters: ``{"embed", "layers", "final_norm"}`` with each
         layer leaf stacked to (L, ...). ``gen`` is a ``torch.Generator`` on
         ``device`` (seeded 0 when omitted); ``device`` defaults to the
         current CUDA device and raises without a GPU (``get_device``);
         ``dtype`` is the storage dtype (default the config's
         ``param_dtype``). Layers are drawn one at a time into preallocated
-        stacks, so the peak is one layer over the final size."""
+        stacks, so the peak is one layer over the final size. ``cut(path,
+        leaf)`` (ZeRO stage 3) keeps a part of each drawn leaf, a layer
+        leaf without its layer dim: every leaf is drawn whole, in the same
+        order, so the kept parts are those of the uncut draw."""
         cfg = self.cfg
         device = get_device(device)
         dtype = cfg.p_dtype if dtype is None else dtype
         if gen is None and device.type != "meta":
             gen = torch.Generator(device=device).manual_seed(0)
-        emb = L.init_embeddings(gen, cfg, dtype, device)
+        keep = (lambda tree, root: tree) if cut is None else (
+            lambda tree, root: _map_paths(cut, tree, (root,)))
+        emb = keep(L.init_embeddings(gen, cfg, dtype, device), "embed")
         stacked = None
         for i in range(cfg.num_layers):
-            layer = self._init_layer(gen, dtype, device)
+            layer = keep(self._init_layer(gen, dtype, device), "layers")
             if stacked is None:
                 stacked = _map(lambda t: torch.empty(
                     (cfg.num_layers,) + tuple(t.shape), dtype=t.dtype,
                     device=t.device), layer)
             _zip_copy(stacked, layer, i)
         return {"embed": emb, "layers": stacked,
-                "final_norm": L.init_norm(cfg, dtype, device)}
+                "final_norm": keep(L.init_norm(cfg, dtype, device), "final_norm")}
 
     def abstract_params(self, dtype=None):
         """The params tree on the meta device: shapes and dtypes, no memory."""
@@ -224,11 +229,16 @@ class CausalLM:
             return h + attn_out + mlp_out
         return h + mlp_out
 
-    def hidden_states(self, params, input_ids, *, positions=None, segment_ids=None):
+    def hidden_states(self, params, input_ids, *, positions=None, segment_ids=None,
+                      gather=None):
         """Embed + layer stack + final norm: (B, S) -> (B, S, E).
 
         ``cfg.remat``: "none", or "full" (each layer recomputed in the
-        backward through ``torch.utils.checkpoint``)."""
+        backward through ``torch.utils.checkpoint``). ``gather`` (ZeRO stage
+        3, ``runtime/zero/partition.py`` ``LayerGather``): ``params`` holds
+        the whole embedding and final norm (``gather.outer``) and the layer
+        shards; each layer's weights are gathered inside its layer function,
+        so the recomputation under "full" gathers them again."""
         cfg = self.cfg
         if cfg.act_quant_bits or cfg.post_norm:
             raise NotImplementedError(
@@ -243,14 +253,24 @@ class CausalLM:
             positions = positions.long()
         inv_freq = self.inv_freq(h.device)
         windows = self._layer_windows() or [None] * cfg.num_layers
-        views = training_layer_views(params["layers"], cfg.num_layers, cfg.act_dtype)
-        for lp, win in zip(views, windows):
+        if gather is None:
+            layer = training_layer_views(params["layers"], cfg.num_layers,
+                                         cfg.act_dtype).__getitem__
+        else:
+            layer = gather.layer
+        for i, win in enumerate(windows):
             if cfg.remat == "full":
-                h = checkpoint(self._layer_fn, lp, h, positions, segment_ids, inv_freq, win,
+                h = checkpoint(self._layer_at, layer, i, h, positions, segment_ids, inv_freq, win,
                                use_reentrant=False)
             else:
-                h = self._layer_fn(lp, h, positions, segment_ids, inv_freq, win)
+                h = self._layer_at(layer, i, h, positions, segment_ids, inv_freq, win)
         return L.apply_norm(params["final_norm"], h, cfg)
+
+    def _layer_at(self, layer, i, h, positions, segment_ids, inv_freq, window):
+        """Layer ``i`` on the weights ``layer(i)`` returns: the unbound views,
+        or (ZeRO stage 3) the weights gathered whole, inside the layer
+        function so that the recomputation gathers them again."""
+        return self._layer_fn(layer(i), h, positions, segment_ids, inv_freq, window)
 
     def _lm_head_weight(self, params):
         """(w, transpose): logits = h @ (w.T if not transpose else w)."""
@@ -276,33 +296,39 @@ class CausalLM:
         logits = lm_head_logits(h, w, transpose, cfg.act_dtype, softcap=cfg.logit_softcap)
         return masked_token_nll(logits, labels, loss_mask)
 
-    def apply(self, params, input_ids, *, positions=None, segment_ids=None):
-        """input_ids: (B, S) -> logits (B, S, V)."""
+    def apply(self, params, input_ids, *, positions=None, segment_ids=None, gather=None):
+        """input_ids: (B, S) -> logits (B, S, V). ``gather``: ZeRO stage 3's
+        parameter gathers (``hidden_states``)."""
+        if gather is not None:
+            params = gather.outer(params)
         h = self.hidden_states(params, input_ids, positions=positions,
-                               segment_ids=segment_ids)
+                               segment_ids=segment_ids, gather=gather)
         w, transpose = self._lm_head_weight(params)
         return lm_head_logits(h, w, transpose, self.cfg.act_dtype,
                               bias=params["embed"].get("lm_head_bias"),
                               softcap=self.cfg.logit_softcap)
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, gather=None):
         """batch: dict(input_ids (B, S), labels (B, S), optional loss_mask,
         positions, segment_ids). f32 cross-entropy; past
         ``loss_chunk_threshold_bytes`` of logits the vocab-chunked fused loss
-        takes over and the (B, S, V) logits never exist."""
+        takes over and the (B, S, V) logits never exist. ``gather``: ZeRO
+        stage 3's parameter gathers (``hidden_states``)."""
         cfg = self.cfg
         labels = batch["labels"]
         mask = batch.get("loss_mask")
         if self._chunked_loss(batch["input_ids"].numel()):
+            if gather is not None:
+                params = gather.outer(params)
             h = self.hidden_states(params, batch["input_ids"],
                                    positions=batch.get("positions"),
-                                   segment_ids=batch.get("segment_ids"))
+                                   segment_ids=batch.get("segment_ids"), gather=gather)
             w, transpose = self._lm_head_weight(params)
             return lm_cross_entropy(h, w.to(h.dtype), labels, loss_mask=mask,
                                     n_chunks=cfg.loss_chunks, transpose_w=transpose,
                                     softcap=cfg.logit_softcap)
         logits = self.apply(params, batch["input_ids"], positions=batch.get("positions"),
-                            segment_ids=batch.get("segment_ids"))
+                            segment_ids=batch.get("segment_ids"), gather=gather)
         return masked_token_nll(logits, labels, mask)
 
     # -- decode (KV cache) --
@@ -412,6 +438,12 @@ def _leaf_axes(path, leaf):
 
 def _map(fn, tree):
     return {k: _map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _map_paths(fn, tree, path):
+    """``fn(path, leaf)`` over a tree, ``path`` the keys from the root."""
+    return {k: _map_paths(fn, v, path + (k,)) if isinstance(v, dict) else fn(path + (k,), v)
+            for k, v in tree.items()}
 
 
 def _zip_copy(stacked, layer, i):

@@ -58,7 +58,13 @@ def fused_adam_flat(params, grads, exp_avg, exp_avg_sq, *, step, lr,
     tensors of one size (any shape).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel and
-    count the launch in ``fused_adam_flat.launches``."""
+    count the launch in ``fused_adam_flat.launches``. A tensor that is not
+    contiguous (a strided view of a ZeRO shard) raises on either device:
+    the kernel reads each buffer as flat memory."""
+    for name, t in (("params", params), ("grads", grads), ("exp_avg", exp_avg),
+                    ("exp_avg_sq", exp_avg_sq)):
+        if not t.is_contiguous():
+            raise ValueError(f"fused_adam_flat: {name} must be contiguous")
     if params.device.type == "cpu":
         return fused_adam_flat_plain(params, grads, exp_avg, exp_avg_sq,
                                      step=step, lr=lr, betas=betas, eps=eps,
@@ -74,8 +80,6 @@ def fused_adam_flat(params, grads, exp_avg, exp_avg_sq, *, step, lr,
         if t.numel() != params.numel():
             raise ValueError(f"fused_adam_flat: {name} has {t.numel()} elements, "
                              f"params {params.numel()}")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_adam_flat: {name} must be contiguous")
     err = _lib()(params.data_ptr(), grads.data_ptr(), exp_avg.data_ptr(),
                  exp_avg_sq.data_ptr(), params.numel(), float(lr), float(betas[0]),
                  float(betas[1]), float(eps), float(weight_decay), float(step),

@@ -9,7 +9,11 @@ functional protocol over nested dicts of tensors:
 
 Where JAX returns new trees, the port updates the parameters and the slots
 in place (no second copy of 16 bytes per parameter) and returns the same
-trees. Update math is f32 whatever the parameter dtype; with
+trees. Under ZeRO the trees are the rank's shards (``runtime/zero/
+partition.py``): ``init`` makes each slot, ``master`` included, at its
+leaf's shard shape, and ``apply`` updates each shard in place; a shard is
+a contiguous tensor of its own, and a strided one raises in the kernel's
+wrapper on either device. Update math is f32 whatever the parameter dtype; with
 ``master_weights`` each low-precision leaf keeps an f32 master in its slot
 dict, updated there and cast back into the leaf.
 

@@ -1,7 +1,9 @@
-"""Which dim of each parameter leaf tensor-parallel serving splits.
+"""Which dim of each parameter leaf a 1-D mesh splits: tensor-parallel
+serving's tp axis, and ZeRO's data axis.
 
 Mirrors what ``deepspeed_tpu/parallel/sharding.py`` gives serving over a
-1-D tp mesh (``inference_tp_specs``). Every parameter leaf carries a tuple
+1-D tp mesh (``inference_tp_specs``) and training over a 1-D data mesh
+(``zero_rules`` / ``optimizer_state_rules`` through ``tree_specs``). Every parameter leaf carries a tuple
 of logical axis names (``CausalLM.logical_axes()``). JAX maps them through
 its training rules to ``PartitionSpec`` trees that ``device_put`` lays over
 a mesh; over one tp axis only the heads / kv_heads / mlp / vocab rules can
@@ -11,20 +13,31 @@ it is split along, or None when every rank holds it whole, and
 (JAX's ``device_put`` shard r). Megatron's layout falls out of the names:
 wq / wk / wv and the MLP input columns split over heads / kv heads / mlp,
 wo and the MLP output over their contraction dim (which carries the same
-name), the embedding and LM head over vocab.
+name), the embedding and LM head over vocab. ZeRO splits the first
+``embed`` dim of every leaf of at least ``MIN_SHARD_SIZE`` elements: the
+parameters at stage 3, the optimizer state (and, from stage 2, the
+gradients) from stage 1.
 """
 
+import math
 from typing import Optional, Sequence, Tuple
 
 # the logical axes a tp mesh axis splits (JAX ``BASE_RULES``' ``tensor`` rows)
 SPLIT_AXES = ("heads", "kv_heads", "mlp")
+# the logical axis ZeRO splits over the data axis (JAX ``FSDP_AXIS`` rows)
+ZERO_AXES = ("embed",)
+# leaves below this many elements stay whole (JAX ``shard_spec_for``)
+MIN_SHARD_SIZE = 2 ** 11
 
 
 def _leaf_dim(shape: Sequence[int], axes: Sequence[Optional[str]], degree: int,
-              split: Tuple[str, ...]) -> Optional[int]:
+              split: Tuple[str, ...], min_size: int = 0) -> Optional[int]:
     """The first dim whose logical name is in ``split`` (JAX: a mesh axis
     serves one dim a leaf), or None; None also when ``degree`` does not
-    divide that dim (JAX ``shard_spec_for``)."""
+    divide that dim or the leaf has fewer than ``min_size`` elements (JAX
+    ``shard_spec_for``)."""
+    if math.prod(int(n) for n in shape) < min_size:
+        return None
     for i, ax in enumerate(axes):
         if ax in split:
             return i if int(shape[i]) % degree == 0 else None
@@ -50,6 +63,33 @@ def inference_tp_specs(abstract_params, logical_tree, degree: int,
         if isinstance(p, dict):
             return {k: walk(v, ax[k]) for k, v in p.items()}
         return _leaf_dim(tuple(p.shape), ax, degree, split)
+
+    return walk(abstract_params, logical_tree)
+
+
+def zero_rules(stage: int) -> Tuple[str, ...]:
+    """The logical axes ZeRO splits the *parameters* along at ``stage``
+    (JAX ``zero_rules``): ``embed`` from stage 3."""
+    return ZERO_AXES if stage >= 3 else ()
+
+
+def optimizer_state_rules(stage: int) -> Tuple[str, ...]:
+    """The logical axes ZeRO splits the *optimizer state* along at ``stage``
+    (JAX ``optimizer_state_rules``): ``embed`` from stage 1."""
+    return ZERO_AXES if stage >= 1 else ()
+
+
+def zero_specs(abstract_params, logical_tree, rules: Tuple[str, ...], degree: int):
+    """The split dim of every leaf over a data axis of ``degree`` under
+    ``rules`` (``zero_rules`` or ``optimizer_state_rules``), as a tree
+    mirroring ``abstract_params``: JAX ``tree_specs`` over a 1-D data mesh,
+    each ``PartitionSpec`` read as the index of its data entry or None."""
+    def walk(p, ax):
+        if isinstance(p, dict):
+            return {k: walk(v, ax[k]) for k, v in p.items()}
+        if degree == 1:
+            return None
+        return _leaf_dim(tuple(p.shape), ax, degree, rules, MIN_SHARD_SIZE)
 
     return walk(abstract_params, logical_tree)
 

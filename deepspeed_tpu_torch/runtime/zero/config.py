@@ -1,9 +1,11 @@
 """ZeRO configuration.
 
 Mirrors ``deepspeed_tpu/runtime/zero/config.py`` on dataclasses: the same
-JSON keys (and aliases) and defaults. The port's engine runs one process on
-one card, where stages 0, 1 and 2 hold the same full state; it refuses
-stage 3, every offload, ZeRO++ and MiCS (ROADMAP.md section A, item 16).
+JSON keys (and aliases) and defaults. The port's engine reads ``stage`` and
+``param_persistence_threshold``, as the JAX engine does; the bucket sizes
+are parsed and not acted on (XLA schedules JAX's collectives; the port
+issues one a leaf). It refuses every offload, ZeRO++ and MiCS (ROADMAP.md
+section A, item 16).
 """
 
 import dataclasses

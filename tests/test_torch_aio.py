@@ -31,6 +31,16 @@ from deepspeed_tpu_torch.runtime.swap_tensor.swapper import (AsyncTensorSwapper,
                                                              dtype_name)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_host_library_is_built_by_gxx_outside_the_kernel_loop():
     assert "deepspeed_aio" not in op_builder.kernel_names()
     lib = op_builder.load_host("deepspeed_aio")

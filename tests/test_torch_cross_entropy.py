@@ -22,6 +22,16 @@ from deepspeed_tpu_torch.module_inject import params_from_numpy
 from deepspeed_tpu_torch.ops.cross_entropy import lm_cross_entropy
 from deepspeed_tpu_torch.utils.tree import tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 LOSS_TOL, GRAD_TOL = 1e-5, 2e-5
 V, E = 4100, 32
 

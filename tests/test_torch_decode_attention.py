@@ -31,6 +31,16 @@ from deepspeed_tpu_torch.ops import attention as port_attention
 from deepspeed_tpu_torch.ops.attention import decode_attention
 from deepspeed_tpu_torch.ops.decode_attention import fused_decode_attention
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 TOL = 2e-5
 B, S_MAX, H, KVH, D = 3, 256, 8, 2, 64
 LENS = {"short": [0, 127, 256], "edges": [1, 128, 200]}

@@ -25,6 +25,16 @@ from deepspeed_tpu_torch.ops import evoformer as tevo
 from deepspeed_tpu_torch.ops import evoformer_flash as tef
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(b, n, s, h, d, seed=0):
     """q, k, v (B, N, S, H, D), a mask bias with -1e9 entries and a pair bias."""
     rng = np.random.default_rng(seed)

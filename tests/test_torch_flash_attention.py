@@ -25,6 +25,16 @@ from deepspeed_tpu.ops.pallas import flash_attention as jax_flash
 from deepspeed_tpu_torch.ops import attention as port_attention
 from deepspeed_tpu_torch.ops import flash_attention as port_flash
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 FWD_TOL, BWD_TOL = 2e-5, 5e-4
 BLOCK = 64
 

@@ -28,6 +28,16 @@ from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import sparse_flash as SF
 from deepspeed_tpu_torch.sequence import ring_flash as RF
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "deepspeed_tpu_torch" / "ops" / "csrc"
 

@@ -28,6 +28,16 @@ import torch
 from deepspeed_tpu.ops.pallas import fp_quantizer as jfp
 from deepspeed_tpu_torch.ops import fp_quantizer as tfp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 FMTS = {"e4m3": (ml_dtypes.float8_e4m3fn, 448.0), "e5m2": (ml_dtypes.float8_e5m2, 57344.0)}
 DTYPES = {"float32": (np.float32, torch.float32), "bfloat16": (ml_dtypes.bfloat16, torch.bfloat16)}
 GS = 64

@@ -33,7 +33,8 @@ def test_every_module_imports_without_jax():
               "ops.evoformer_flash", "ops.evoformer", "comm.comm", "utils.groups",
               "sequence.ring_flash", "sequence.ring_attention", "sequence.layer",
               "sequence.cross_entropy", "parallel.collectives", "parallel.sharding",
-              "inference.v2.tp", "inference.v2.model_implementations.archs"):
+              "inference.v2.tp", "inference.v2.model_implementations.archs",
+              "runtime.zero", "runtime.zero.partition"):
         assert f"deepspeed_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -18,6 +18,16 @@ from deepspeed_tpu_torch.inference.v2.blocked_allocator import BlockedAllocator
 from deepspeed_tpu_torch.inference.v2.kv_cache import BlockedKVCache
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_allocator_refcounts():
     a = BlockedAllocator(6)
     got = a.allocate(3)

@@ -22,6 +22,16 @@ from deepspeed_tpu_torch.models import config as port_config
 from deepspeed_tpu_torch.models import layers as TL
 from deepspeed_tpu_torch.module_inject import params_from_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ATOL = 1e-5
 
 

@@ -21,6 +21,16 @@ from deepspeed_tpu_torch.ops import optimizers as port_opt
 from deepspeed_tpu_torch.ops.fused_adam import fused_adam_flat, fused_adam_flat_plain
 from deepspeed_tpu_torch.utils.tree import tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 TOL = 1e-6
 
 

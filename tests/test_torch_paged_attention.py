@@ -24,6 +24,16 @@ from deepspeed_tpu.ops.pallas.paged_attention import \
     paged_ragged_attention as jax_paged
 from deepspeed_tpu_torch.ops.paged_attention import paged_ragged_attention
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 TOL = 2e-5
 B, D, BS, NB, MB, L = 3, 16, 8, 16, 4, 2
 # decode: a live row, a frozen (pad) row, a live row at a page boundary;

@@ -21,6 +21,16 @@ import torch
 from deepspeed_tpu.ops.pallas import quantizer as jq
 from deepspeed_tpu_torch.ops import quantizer as tq
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 DTYPES = {"float32": (np.float32, torch.float32, jnp.float32),
           "bfloat16": (ml_dtypes.bfloat16, torch.bfloat16, jnp.bfloat16)}
 

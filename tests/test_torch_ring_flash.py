@@ -36,6 +36,16 @@ from deepspeed_tpu_torch.sequence import ring_attention as port_ring
 from deepspeed_tpu_torch.sequence import ring_flash as port_rf
 from deepspeed_tpu_torch.utils import groups
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 STEP_TOL = 2e-5
 OUT_TOL, GRAD_TOL = 2e-5, 3e-5
 B, H, S_SHARD, D = 1, 4, 16, 64

@@ -21,6 +21,16 @@ from deepspeed_tpu_torch.inference.v2.telemetry import zero_stats
 from deepspeed_tpu_torch.models import build_model
 from deepspeed_tpu_torch.module_inject import params_from_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 BS, NB, MB = 8, 12, 4
 TABLES = np.array([[3, 5, 1, 7], [2, 9, 0, 0], [4, 6, 8, 10]], np.int32)
 

@@ -48,6 +48,16 @@ from deepspeed_tpu_torch.sequence.cross_entropy import sequence_parallel_cross_e
 from deepspeed_tpu_torch.sequence.layer import DistributedAttention, seq_all_to_all
 from deepspeed_tpu_torch.utils import groups
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 REPO = Path(__file__).resolve().parents[1]
 CHILD_TIMEOUT_S = 120
 

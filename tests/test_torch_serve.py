@@ -26,6 +26,16 @@ from deepspeed_tpu_torch.inference.v2.model_runner import PagedModelRunner
 from deepspeed_tpu_torch.models import build_model
 from deepspeed_tpu_torch.module_inject import params_from_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 KW = dict(kv_block_size=16, prefill_chunk_size=16, max_tokens_per_step=256,
           dtype="float32", max_ragged_batch_size=8, frame_steps=4)
 

@@ -26,6 +26,16 @@ import deepspeed_tpu_torch.inference.v2.faults as tfaults
 import deepspeed_tpu_torch.inference.v2.telemetry as ttel
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class TickClock:
     def __init__(self):
         self.n = 0

@@ -38,6 +38,16 @@ from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as port_scaler
 from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_paths
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _batch(seed, bs=16, seq=32, vocab=256):
     ids = np.random.default_rng(seed).integers(0, vocab, (bs, seq)).astype(np.int32)
     return {"input_ids": ids, "labels": np.roll(ids, -1, axis=1)}
@@ -164,7 +174,8 @@ def test_zero_stages_hold_the_full_state_on_one_card(stage):
 
 
 NOT_PORTED = {
-    "zero3": {"zero_optimization": {"stage": 3}},
+    "zero3_offload_param": {"zero_optimization": {"stage": 3,
+                                                  "offload_param": {"device": "cpu"}}},
     "offload_optimizer": {"zero_optimization": {"stage": 2,
                                                 "offload_optimizer": {"device": "cpu"}}},
     "nvme_params": {"zero_optimization": {"stage": 2, "offload_param": {"device": "nvme"}}},
@@ -172,7 +183,7 @@ NOT_PORTED = {
     "onebit": {"optimizer": {"type": "OneBitAdam", "params": {}}},
     "sparse_gradients": {"sparse_gradients": True},
     "pipeline": {"mesh": {"pipe": 2}},
-    "data_parallel": {"mesh": {"data": 4}},
+    "tensor_parallel": {"mesh": {"tensor": 2}},
     "remat_dots": {"activation_checkpointing": {"policy": "dots"}},
 }
 
@@ -181,6 +192,13 @@ NOT_PORTED = {
 def test_unported_configurations_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_engine(**NOT_PORTED[name])
+
+
+def test_data_mesh_must_match_the_world():
+    """A ``mesh.data`` other than the world's process count is a config
+    error (JAX ``build_mesh``'s MeshBuildError), not a refusal."""
+    with pytest.raises(ValueError, match="world of 1"):
+        _port_engine(mesh={"data": 4})
 
 
 def test_entry_points_default_to_cuda():

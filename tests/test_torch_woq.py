@@ -35,6 +35,16 @@ from deepspeed_tpu_torch.module_inject import (params_from_numpy,
 from deepspeed_tpu_torch.ops import woq_matmul as tw
 from deepspeed_tpu_torch.utils.tree import tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread while this module runs: the suite's workers share
+    the machine's cores, and tiny ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 M, K, N, G = 3, 512, 256, 128
 BITS = [8, 4, 6]
 
