@@ -241,6 +241,34 @@ The public ops are then freed, and the ring (sequence-parallel) slice runs:
  25. ring_reference_check: the sequence through the ring and through
      ``attn_impl="flash"`` on one shard (K3-K5): loss, gradient norm and
      per-leaf cosines.
+The ring engine is then freed, and the ZeRO-Offload and checkpoint slice
+runs:
+ 26. offload_path: ``initialize()`` on llama2-7b at full width, its depth
+     cut to what the host's memory allows (the host state, f32 masters, m
+     and v at 12 bytes an element, within half of MemTotal), one card,
+     stage 2 with ``offload_optimizer: {device: cpu}`` (the host Adam of
+     ``ops/csrc/adam/cpu_adam.cpp`` on every leaf), bf16 activations over f32
+     parameters, S 4096, micro-batch 1, gas 2, full recompute, AdamW +
+     WarmupLR, clipping 1.0: three ``train_batch`` steps, the first a
+     warm-up, every count set to 0 just before and read just after (K3 /
+     K4 / K5 = 2 / 1 / 1 a layer a micro-step, K10 0), the last under
+     torch.profiler: the step's wall, tokens/s and MFU, host Adam seconds,
+     GB and GB/s card -> host and host -> card, peak card GB, peak host RSS,
+     MemTotal, the profiled step's device ms by class;
+ 27. offload_reference_check: 4 of its layers, three steps from the seeded
+     weights on the card (K10), with the host Adam, Twin-Flow at 0.5,
+     ``native: false`` and NVMe (a temporary directory): each loss within
+     2e-4 of the card's run and every leaf after step 2 within 1e-5
+     (relative Frobenius; WarmupLR's first lr is 0, so step 2 is the first
+     that moves the weights); a control with a doubled lr must miss the
+     gate; K10 launches 0 with the host Adam and the device half's leaves x
+     steps under Twin-Flow;
+ 28. checkpoint_check: the same 4 layers on the card's optimizer and with
+     the host Adam: ``save_checkpoint`` after step 2, a fresh engine's
+     ``load_checkpoint``, and its step 3 equal to the unbroken run's bit for
+     bit; with the host Adam also a universal round trip (bit for bit, the
+     lr schedule set from the meta's step count) and ``zero_to_fp32`` equal
+     to the host masters; bytes and seconds of each save and load.
 Then the kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
 the last line. Without CUDA, or without the package beside it, it exits 1.
@@ -295,6 +323,15 @@ joins the group:
      control that shifts every rank to the next rank's rows (the last
      keeps its own) must miss the gradient gate; the parameters' distance
      after three steps printed;
+  zero_offload_check: 4 layers, stage 2 over the four ranks with the host
+     Adam (each rank hosting its quarter) against stage 2 on the cards,
+     three steps: each loss within 2e-4, every leaf after step 2 within
+     1e-5;
+  zero_checkpoint_check: 4 layers at stage 3: ``save_checkpoint`` (each
+     rank its shards) and ``ds_to_universal`` after step 2; a fresh stage-3
+     engine's load resumes step 3 bit for bit on every rank, and a stage-1
+     engine over the same ranks loads the universal checkpoint, its step 3
+     loss within 2e-4 of stage 3's;
 then on rank 0 K3-K5 at llama2-7b's attention and K10 at the largest
 shard, each held against its plain version and timed beside it, and the
 kernel line with the zero path's launches. The last line is the ``ok``
@@ -4848,6 +4885,369 @@ def ring_phases(torch, smi):
             for name, replaces in RING_REPLACES.items()]
 
 
+# ------------------------------------------- ZeRO-Offload and checkpoints slice
+
+OFFLOAD_MODEL = "llama2-7b"
+OFFLOAD_SEQ, OFFLOAD_GAS = 4096, 2     # micro-batch 1: 2 x 4096 tokens a step
+OFFLOAD_STEPS = 3                      # the first a warm-up
+OFFLOAD_HOST_BYTES = 12                # f32 master, m and v on the host, an element
+OFFLOAD_REF_LAYERS = 4
+OFFLOAD_PARAM_TOL = 1e-5   # each leaf after step 2 vs the card's run, relative Frobenius
+OFFLOAD_LOSS_TOL = 2e-4    # each loss vs the card's run, relative (ZERO_LOSS_TOL)
+OFFLOAD_CASES = (("device", None), ("host", {"device": "cpu"}),
+                 ("twinflow", {"device": "cpu", "ratio": 0.5}),
+                 ("native_false", {"device": "cpu", "native": False}),
+                 ("nvme", {"device": "nvme"}))
+
+
+def meminfo_bytes(key="MemTotal"):
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024
+    return None
+
+
+def peak_rss_bytes():
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def dir_bytes(path):
+    import os
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def model_elements(layers, model=OFFLOAD_MODEL):
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+    return sum(math.prod(p.shape) for p in
+               tree_leaves(build_model(model, num_layers=layers).abstract_params()))
+
+
+def offload_depth():
+    """The most layers (up to the preset's) whose host optimizer state, 12
+    bytes an element, fits in half of the machine's MemTotal."""
+    from deepspeed_tpu_torch.models import build_model
+    full = build_model(OFFLOAD_MODEL).cfg.num_layers
+    one, two = model_elements(1), model_elements(2)
+    per, rest = two - one, one - (two - one)
+    fit = int((meminfo_bytes() / 2 / OFFLOAD_HOST_BYTES - rest) // per)
+    return max(1, min(full, fit)), per, rest
+
+
+def offload_config(offload, gas=OFFLOAD_GAS, stage=2, dp=1, **over):
+    """zero_config's training config (bf16 activations over f32 parameters,
+    AdamW + WarmupLR, clipping 1.0) with ``offload_optimizer``."""
+    cfg = zero_config(stage, gas, dp)
+    if offload is not None:
+        cfg["zero_optimization"]["offload_optimizer"] = dict(offload)
+    cfg["optimizer"]["params"].update(over)
+    return cfg
+
+
+def offload_batch(torch, vocab, rows=OFFLOAD_GAS, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, vocab, (rows, OFFLOAD_SEQ + 1), generator=g)
+    return {"input_ids": ids[:, :-1].cuda(), "labels": ids[:, 1:].cuda()}
+
+
+def offload_counters():
+    from deepspeed_tpu_torch.ops import flash_attention as FA
+    from deepspeed_tpu_torch.ops.fused_adam import fused_adam_flat
+    return [FA.flash_attention_fwd, FA.flash_attention_dq, FA.flash_attention_dkv,
+            fused_adam_flat]
+
+
+def host_adam_scaling(torch, n=1 << 28):
+    """The host Adam on one 2**28-element state (28 bytes of host traffic an
+    element) at 1, 2, 4 and 8 threads, beside a host tensor copy of the same
+    bytes read and written (torch's threads): GB/s of each, best of two."""
+    from deepspeed_tpu_torch.ops.cpu_adam_native import cpu_adam_step
+    p, g, m, v = (torch.rand(n) for _ in range(4))
+    rows = {}
+    for threads in (1, 2, 4, 8):
+        best = float("inf")
+        for step in (1, 2):
+            t0 = time.perf_counter()
+            cpu_adam_step(p, g, m, v, step, 1e-4, threads=threads)
+            best = min(best, time.perf_counter() - t0)
+        rows[f"adam_{threads}_threads_gb_s"] = 28 * n / best / 1e9
+    src, dst = torch.rand(3 * n), torch.empty(3 * n)
+    best = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        dst.copy_(src)
+        best = min(best, time.perf_counter() - t0)
+    rows["copy_gb_s"] = 24 * n / best / 1e9
+    return rows
+
+
+def offload_path(torch, smi):
+    """offload_path: ``initialize()`` on llama2-7b at full width, the depth
+    the host's memory allows (offload_depth), one card, stage 2 with
+    ``offload_optimizer: {device: cpu}`` (the host Adam on f32 masters and
+    moments), zero_config otherwise; three ``train_batch`` steps on 2 x 4096
+    tokens, the first a warm-up, every count set to 0 just before and read
+    just after, the last step under torch.profiler. Returns the launches."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import build_model
+    from torch.profiler import ProfilerActivity, profile
+
+    layers, per_layer, rest = offload_depth()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, _, _, _ = dst.initialize(
+        model=build_model(OFFLOAD_MODEL, num_layers=layers, remat="full"),
+        config=offload_config({"device": "cpu"}))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = engine.model.cfg
+    n_params = per_layer * layers + rest
+    host = engine._host_optimizer
+    batch = offload_batch(torch, cfg.vocab_size)
+    counters = offload_counters()
+    for f in counters:
+        f.launches = 0
+    rows, prof = [], None
+    for i in range(OFFLOAD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == OFFLOAD_STEPS - 1:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                loss = float(engine.train_batch(batch))
+                torch.cuda.synchronize()
+        else:
+            loss = float(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = dict(host.stats)
+        rows.append(dict(step=i + 1, loss=loss, wall_s=wall, profiled=prof is not None,
+                         host_adam_s=st["adam_s"], d2h_wait_s=st["d2h_wait_s"],
+                         d2h_gb=st["d2h_bytes"] / 1e9, h2d_gb=st["h2d_bytes"] / 1e9,
+                         d2h_gb_s=st["d2h_bytes"] / 1e9 / st["d2h_s"] if st.get("d2h_s") else None,
+                         h2d_gb_s=st["h2d_bytes"] / 1e9 / st["h2d_s"] if st.get("h2d_s") else None))
+    launches = {f.__name__: f.launches for f in counters}
+    scaling = host_adam_scaling(torch)
+    by_class = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            cls = _train_kernel_class(ev.name)
+            if "memcpy" in ev.name.lower():
+                cls = "memcpy_" + ("d2h" if "dtoh" in ev.name.lower() else "h2d"
+                                   if "htod" in ev.name.lower() else "other")
+            by_class[cls] = by_class.get(cls, 0.0) + ev.time_range.elapsed_us() / 1e3
+    tokens = OFFLOAD_GAS * OFFLOAD_SEQ
+    clean = rows[1]                       # the first timed step, not profiled
+    tokens_s = tokens / clean["wall_s"]
+    flops_token = 6 * n_params + 12 * cfg.num_layers * cfg.hidden_size * OFFLOAD_SEQ
+    micro = OFFLOAD_STEPS * OFFLOAD_GAS
+    want = {"flash_attention_fwd": 2 * layers * micro, "flash_attention_dq": layers * micro,
+            "flash_attention_dkv": layers * micro, "fused_adam_flat": 0}
+    emit("offload_path", model=OFFLOAD_MODEL, layers=layers,
+         layers_cut_from=build_model(OFFLOAD_MODEL).cfg.num_layers,
+         depth_rule="host state (12 B an element) within half of MemTotal", params=n_params,
+         host_state_gb=n_params * OFFLOAD_HOST_BYTES / 1e9, mem_total_gb=meminfo_bytes() / 1e9,
+         peak_host_rss_gb=peak_rss_bytes() / 1e9, host_adam_threads=torch.get_num_threads(),
+         zero_stage=2, offload="cpu, native host Adam", seq=OFFLOAD_SEQ, micro_batch=1,
+         gas=OFFLOAD_GAS, tokens_per_step=tokens, remat="full", init_s=init_s,
+         dtype="bfloat16 activations, f32 params on the card, f32 masters and Adam on the host",
+         steps=rows, ms_per_step=clean["wall_s"] * 1e3, tokens_per_s=tokens_s,
+         mfu=flops_token * tokens_s / BF16_FLOPS,
+         mfu_formula="(6 * params + 12 * layers * hidden * seq) * tokens/s / 989e12",
+         peak_card_gb=torch.cuda.max_memory_allocated() / 1e9,
+         profiled_step_device_ms_by_class=by_class, host_adam_scaling=scaling,
+         launches=launches, launches_expected=want, card=smi)
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"offload_path: losses {losses}")
+    if launches != want:
+        fail(f"offload_path: launches {launches}, expected {want}")
+    del engine, batch, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ref_engine(torch, offload, **over):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import build_model
+    model = build_model(OFFLOAD_MODEL, num_layers=OFFLOAD_REF_LAYERS, remat="full")
+    return dst.initialize(model=model, config=offload_config(offload, **over))[0]
+
+
+def leaf_distances(torch, params, ref):
+    """Each leaf's relative Frobenius distance from ``ref`` (by path)."""
+    from deepspeed_tpu_torch.utils.tree import tree_paths
+    out = {}
+    for k, p in tree_paths(params):
+        d = float((p.detach().float() - ref[k]).norm() / ref[k].norm().clamp_min(1e-30))
+        out[k] = d
+    return out
+
+
+def offload_reference_check(torch, smi):
+    """offload_reference_check: 4 of llama2-7b's layers at its widths, three
+    steps on one batch from the seeded weights, on the card (K10), with the
+    host Adam, Twin-Flow at 0.5, ``native: false`` and NVMe (a temporary
+    directory): each loss within OFFLOAD_LOSS_TOL of the card's run, and
+    every leaf after step 2 within OFFLOAD_PARAM_TOL (WarmupLR's first lr is
+    0, so step 2 is the first update that moves the weights); a control
+    with a doubled lr must miss the gate. Returns K10's launches in the
+    Twin-Flow run (its device half)."""
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch.ops.fused_adam import fused_adam_flat
+    from deepspeed_tpu_torch.utils.tree import tree_paths
+    tmp = tempfile.mkdtemp(prefix="offload_ref_")
+    ref, rows, k10_twin = None, [], None
+    cases = list(OFFLOAD_CASES) + [("control_lr_x2", {"device": "cpu"})]
+    for name, off in cases:
+        if off is not None and off["device"] == "nvme":
+            off = {**off, "nvme_path": tmp}
+        over = {"lr": 2e-4} if name.startswith("control") else {}
+        engine = ref_engine(torch, off, **over)
+        batch = offload_batch(torch, engine.model.cfg.vocab_size, seed=2)
+        before = fused_adam_flat.launches
+        losses, dist, wall = [], [], 0.0
+        snaps = []
+        for i in range(OFFLOAD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            if ref is None:
+                snaps.append({k: p.detach().float().clone() for k, p in
+                              tree_paths(engine.module_params)})
+            else:
+                dist.append(leaf_distances(torch, engine.module_params, ref["params"][i]))
+        k10 = fused_adam_flat.launches - before
+        if ref is None:
+            ref = {"losses": losses, "params": snaps}
+            row = dict(case=name, losses=losses, k10_launches=k10, wall_s=wall)
+        else:
+            loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+            worst = [max(d.values()) for d in dist]
+            row = dict(case=name, losses=losses, loss_rel=loss_rel,
+                       param_rel_by_step=worst, k10_launches=k10, wall_s=wall,
+                       worst_leaves_step2=sorted(dist[1].items(), key=lambda kv_: -kv_[1])[:3],
+                       met=max(loss_rel) <= OFFLOAD_LOSS_TOL and worst[1] <= OFFLOAD_PARAM_TOL)
+            if name == "twinflow":
+                k10_twin = k10
+                row["device_leaves"] = sum(not m for m in engine._twinflow["mask"])
+        rows.append(row)
+        del engine, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit("offload_reference_check", model=OFFLOAD_MODEL, layers=OFFLOAD_REF_LAYERS,
+         tokens_per_step=OFFLOAD_GAS * OFFLOAD_SEQ, loss_tol=OFFLOAD_LOSS_TOL,
+         param_tol=OFFLOAD_PARAM_TOL, param_gate="each leaf after step 2, relative Frobenius",
+         cases=rows, card=smi)
+    for r in rows[1:]:
+        if r["case"].startswith("control"):
+            if r["met"]:
+                fail(f"offload_reference_check: the control met the gate: {r}")
+        elif not r["met"]:
+            fail(f"offload_reference_check: {r}")
+    twin = [r for r in rows if r["case"] == "twinflow"][0]
+    if k10_twin != twin["device_leaves"] * OFFLOAD_STEPS or rows[1]["k10_launches"] != 0:
+        fail("offload_reference_check: K10 launches "
+             f"{[(r['case'], r['k10_launches']) for r in rows]}")
+    return k10_twin
+
+
+def checkpoint_check(torch, smi):
+    """checkpoint_check: the same 4 layers on the card's optimizer and with
+    the host Adam: two steps, ``save_checkpoint``, step 3; a fresh engine
+    loads and takes step 3, which must equal the unbroken run's bit for bit
+    (loss and every parameter). With the host Adam also a universal round
+    trip (``ds_to_universal`` after step 2, a fresh engine's
+    ``load_universal_checkpoint``, the lr schedule set from the meta's step
+    count: bit for bit too) and ``zero_to_fp32`` of the checkpoint equal to
+    the host masters. Bytes and seconds of each save and load."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from deepspeed_tpu_torch.checkpoint import ds_to_universal, load_universal_checkpoint
+    from deepspeed_tpu_torch.utils import zero_to_fp32
+    from deepspeed_tpu_torch.utils.tree import tree_paths
+    rows = []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for name, off in (("device", None), ("host", {"device": "cpu"})):
+        tmp = tempfile.mkdtemp(prefix="ckpt_check_")
+        ckpt, uni = f"{tmp}/ckpt", f"{tmp}/universal"
+        a = ref_engine(torch, off)
+        batch = offload_batch(torch, a.model.cfg.vocab_size, seed=3)
+        for _ in range(2):
+            a.train_batch(batch)
+        row = dict(case=name)
+        _, row["save_s"] = timed(lambda: a.save_checkpoint(ckpt))
+        row["save_gb"] = dir_bytes(ckpt) / 1e9
+        if off is not None:
+            _, row["universal_save_s"] = timed(lambda: ds_to_universal(a, uni))
+            row["universal_gb"] = dir_bytes(uni) / 1e9
+            fp32, row["zero_to_fp32_s"] = timed(
+                lambda: zero_to_fp32.get_fp32_state_dict_from_zero_checkpoint(ckpt))
+            masters = dict(tree_paths(a._host_optimizer.params()))
+            row["zero_to_fp32_equal"] = sorted(fp32) == sorted(masters) and all(
+                np.array_equal(fp32[k], masters[k].numpy()) for k in masters)
+            del fp32, masters
+        want = float(a.train_batch(batch))
+        want_p = {k: p.detach().clone() for k, p in tree_paths(a.module_params)}
+        del a
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def resumed(load):
+            e = ref_engine(torch, off)
+            _, secs = timed(lambda: load(e))
+            loss = float(e.train_batch(batch))
+            same = loss == want and all(torch.equal(p, want_p[k])
+                                        for k, p in tree_paths(e.module_params))
+            del e
+            gc.collect()
+            torch.cuda.empty_cache()
+            return secs, loss, same
+
+        row["load_s"], row["resumed_loss3"], row["bit_identical"] = resumed(
+            lambda e: e.load_checkpoint(ckpt))
+        if off is not None:
+            def load_uni(e):
+                meta = load_universal_checkpoint(e, uni)
+                e.lr_scheduler.load_state_dict({"last_batch_iteration": meta["global_steps"] - 1})
+            (row["universal_load_s"], row["universal_loss3"],
+             row["universal_bit_identical"]) = resumed(load_uni)
+        row["loss3"] = want
+        rows.append(row)
+        del want_p, batch
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("checkpoint_check", model=OFFLOAD_MODEL, layers=OFFLOAD_REF_LAYERS, cases=rows,
+         card=smi)
+    for r in rows:
+        if not (r["bit_identical"] and r.get("universal_bit_identical", True)
+                and r.get("zero_to_fp32_equal", True)):
+            fail(f"checkpoint_check: {r}")
+
+
+def offload_phases(torch, smi):
+    """The offload and checkpoint slice: offload_path, offload_reference_check,
+    checkpoint_check. Returns the launches of K3-K5 and K10 on offload_path
+    and K10's in the Twin-Flow run."""
+    launches = offload_path(torch, smi)
+    launches["fused_adam_flat_twinflow"] = offload_reference_check(torch, smi)
+    checkpoint_check(torch, smi)
+    return launches
+
+
 # ------------------------------------------- the ring across four cards (NCCL)
 
 NCCL_RANKS = 4
@@ -5577,7 +5977,7 @@ ZERO_WARM, ZERO_TIMED = 1, 4
 ZERO_REF_LAYERS, ZERO_REF_ROWS, ZERO_REF_STEPS = 4, 8, 3
 ZERO_GRAD_TOL = 1e-5       # step 1's reduced gradient vs one card, relative Frobenius
 ZERO_LOSS_TOL = 2e-4       # each loss vs one card, relative (JAX tests/test_engine.py:54-59)
-ZERO_TIMEOUT_S = 480
+ZERO_TIMEOUT_S = 720
 
 
 def zero_config(stage, gas, dp=ZERO_RANKS):
@@ -5880,6 +6280,130 @@ def zero_reference_check(torch, rank, smi, ref):
                      f"zero_reference_check: {r}")
 
 
+def zero_offload_check(torch, rank, smi):
+    """zero_offload_check: 4 layers, stage 2 over the four ranks with the
+    host Adam (each rank hosting its quarter of the optimizer state) against
+    stage 2 on the cards, three steps on the reference check's batch: each
+    loss within ZERO_LOSS_TOL and every leaf after step 2 within
+    OFFLOAD_PARAM_TOL (stage 2 keeps whole parameters on every rank)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.utils.tree import tree_paths
+    gas = ZERO_REF_ROWS // ZERO_RANKS
+    rows, ref = [], None
+    for name, off in (("stage2", None), ("stage2_host", {"device": "cpu"})):
+        engine, _, _, _ = dst.initialize(model=zero_ref_model(),
+                                         config=offload_config(off, gas=gas, dp=ZERO_RANKS))
+        batch = zero_ref_batch(torch, engine.model.cfg.vocab_size)
+        losses, snaps, dist, wall = [], [], [], 0.0
+        for i in range(ZERO_REF_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            if ref is None:
+                snaps.append({k: p.detach().float().clone()
+                              for k, p in tree_paths(engine.module_params)})
+            else:
+                dist.append(max(leaf_distances(torch, engine.module_params,
+                                               ref["params"][i]).values()))
+        row = dict(case=name, losses=losses, wall_s=wall)
+        if ref is None:
+            ref = {"losses": losses, "params": snaps}
+        else:
+            host = engine._host_optimizer
+            row.update(loss_rel=[abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])],
+                       param_rel_by_step=dist, host_elements=host.local_element_count(),
+                       host_adam_s_last=host.stats.get("adam_s"))
+        rows.append(row)
+        del engine, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ref
+    every = tp_gather(rows)
+    if rank == 0:
+        emit("zero_offload_check", model=ZERO_MODEL, layers=ZERO_REF_LAYERS, ranks=ZERO_RANKS,
+             zero_stage=2, loss_tol=ZERO_LOSS_TOL, param_tol=OFFLOAD_PARAM_TOL,
+             per_rank=every, card=smi)
+    host = rows[1]
+    tp_check(max(host["loss_rel"]) <= ZERO_LOSS_TOL
+             and host["param_rel_by_step"][1] <= OFFLOAD_PARAM_TOL,
+             f"zero_offload_check: {host}")
+
+
+def zero_checkpoint_check(torch, rank, smi):
+    """zero_checkpoint_check: 4 layers at stage 3 over the four ranks, two
+    steps, then ``save_checkpoint`` (each rank its shards) and
+    ``ds_to_universal``, then step 3. A fresh stage-3 engine loads the
+    checkpoint: its step 3 bit for bit on every rank. A stage-1 engine over
+    the same ranks loads the universal checkpoint (the lr schedule set from
+    the meta's step count): its step 3 loss within ZERO_LOSS_TOL of stage
+    3's (ZERO_LOSS_TOL: bf16 roundings may flip once the layouts differ)."""
+    import shutil
+    import tempfile
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint import ds_to_universal, load_universal_checkpoint
+    from deepspeed_tpu_torch.utils.tree import tree_paths
+    tmp = tp_gather(tempfile.mkdtemp(prefix="zero_ckpt_") if rank == 0 else None)[0]
+    ckpt, uni = f"{tmp}/ckpt", f"{tmp}/universal"
+    gas = ZERO_REF_ROWS // ZERO_RANKS
+
+    def engine(stage):
+        return dst.initialize(model=zero_ref_model(), config=zero_config(stage, gas))[0]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    a = engine(3)
+    batch = zero_ref_batch(torch, a.model.cfg.vocab_size)
+    for _ in range(2):
+        a.train_batch(batch)
+    row = {}
+    _, row["save_s"] = timed(lambda: a.save_checkpoint(ckpt))
+    _, row["universal_save_s"] = timed(lambda: ds_to_universal(a, uni))
+    want = float(a.train_batch(batch))
+    want_p = {k: p.detach().clone() for k, p in tree_paths(a.module_params)}
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = engine(3)
+    _, row["load_s"] = timed(lambda: b.load_checkpoint(ckpt))
+    got = float(b.train_batch(batch))
+    row["bit_identical"] = got == want and all(torch.equal(p, want_p[k])
+                                               for k, p in tree_paths(b.module_params))
+    del b, want_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = engine(1)
+
+    def load_uni():
+        meta = load_universal_checkpoint(c, uni)
+        c.lr_scheduler.load_state_dict({"last_batch_iteration": meta["global_steps"] - 1})
+    _, row["universal_load_s"] = timed(load_uni)
+    row["universal_stage1_loss3"] = float(c.train_batch(batch))
+    row["stage3_loss3"] = want
+    row["universal_loss_rel"] = abs(row["universal_stage1_loss3"] - want) / abs(want)
+    del c, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    every = tp_gather(row)
+    if rank == 0:
+        emit("zero_checkpoint_check", model=ZERO_MODEL, layers=ZERO_REF_LAYERS,
+             ranks=ZERO_RANKS, saved_stage=3, universal_loaded_at_stage=1,
+             checkpoint_gb=dir_bytes(ckpt) / 1e9, universal_gb=dir_bytes(uni) / 1e9,
+             loss_tol=ZERO_LOSS_TOL, per_rank=every, card=smi)
+    tp_check(row["bit_identical"], f"zero_checkpoint_check: stage-3 resume {row}")
+    tp_check(row["universal_loss_rel"] <= ZERO_LOSS_TOL,
+             f"zero_checkpoint_check: universal at stage 1 {row}")
+    tp_gather(None)
+    if rank == 0:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def zero_kernel_phases(torch):
     """K3-K5 at llama2-7b's attention (B 1, S 4096, H 32, D 128, causal)
     and K10 at the zero path's largest shard, each checked against its plain
@@ -5929,6 +6453,8 @@ def zero_nccl_rank(torch):
         launches = zero_train_path(torch, rank, smi)
         zero_reference_check(torch, rank, smi, ref)
         del ref
+        zero_offload_check(torch, rank, smi)
+        zero_checkpoint_check(torch, rank, smi)
         if rank == 0:
             entries = zero_kernel_phases(torch)
             for e in entries:
@@ -5949,9 +6475,10 @@ def zero_nccl_rank(torch):
 
 def zero_nccl(torch, smi):
     """``python3 chip_smoke.py zero-nccl`` on a machine with four cards:
-    builds K3-K5 and K10, prints the cards' links (``nvidia-smi topo -m``),
-    starts one process per card (RANK 0-3, NCCL over tcp://localhost), and
-    stops them all as soon as one fails or at ZERO_TIMEOUT_S."""
+    builds K3-K5, K10 and the host Adam, prints the cards' links
+    (``nvidia-smi topo -m``), starts one process per card (RANK 0-3, NCCL
+    over tcp://localhost), and stops them all as soon as one fails or at
+    ZERO_TIMEOUT_S."""
     import os
     import socket
     from deepspeed_tpu_torch.ops import op_builder
@@ -5959,6 +6486,7 @@ def zero_nccl(torch, smi):
         fail(f"zero-nccl needs {ZERO_RANKS} cards, found {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     op_builder.build(["flash_attention", "fused_adam"])
+    op_builder.load_host("cpu_adam")         # the host Adam, once for the four ranks
     topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True)
     emit("zero_build", seconds=time.perf_counter() - t0, topology=topo.stdout.splitlines())
     with socket.socket() as sock:
@@ -6039,6 +6567,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     entries += ring_phases(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    offload = offload_phases(torch, smi)
+    for e in entries:
+        key = {"fused_adam": "fused_adam_flat"}.get(e["name"], e["name"])
+        if key in offload:
+            e["launches_offload_path"] = offload[key]
+        if key == "fused_adam_flat":
+            e["launches_offload_twinflow"] = offload["fused_adam_flat_twinflow"]
     print(json.dumps({"kernels": [entry] + entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,13 +8,18 @@ include shared headers ``csrc/*.cuh``. Building happens at first use,
 never at import, so the CPU tests import every module without a CUDA
 toolkit. A library newer than its source and every header is reused.
 
-Host C++ (``HOST_SOURCES``: the async I/O engine of ``ops/aio.py``) is not
-a kernel: ``load_host`` builds it with ``g++`` into the same ``build/``,
-outside the ``nvcc`` loop, so it builds on a machine with no CUDA toolkit.
+Host C++ (``HOST_SOURCES``: the async I/O engine of ``ops/aio.py`` and the
+host Adam / Adagrad / Lion of ``ops/cpu_adam_native.py``) is not a kernel:
+``load_host`` builds it with ``g++`` into the same ``build/``, outside the
+``nvcc`` loop, so it builds on a machine with no CUDA toolkit. The host
+Adam takes the JAX package's flags (``deepspeed_tpu/ops/op_builder/
+__init__.py`` ``CPUAdamBuilder``), ``-fopenmp-simd`` standing for
+``-fopenmp``: the same source and code generation give the same bits.
 """
 
 import ctypes
 import os
+import platform
 import re
 import shutil
 import subprocess
@@ -25,9 +30,15 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
-# host libraries by name: their source under csrc/
-HOST_SOURCES = {"deepspeed_aio": "aio/deepspeed_aio.cpp"}
+GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+# host libraries by name: their source under csrc/ and their own g++ flags
+HOST_SOURCES = {"deepspeed_aio": "aio/deepspeed_aio.cpp", "cpu_adam": "adam/cpu_adam.cpp"}
+# the host Adam: JAX's flags, with -fopenmp-simd for -fopenmp (the source uses
+# OpenMP's simd directive only, which needs no OpenMP runtime; some hosts lack
+# libgomp's spec file, and -fopenmp then fails to build)
+HOST_FLAGS = {"deepspeed_aio": ["-pthread"],
+              "cpu_adam": ["-fopenmp-simd"] + (["-march=native"]
+                                               if platform.machine() == "x86_64" else [])}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -141,7 +152,8 @@ def _load_host(name: str) -> ctypes.CDLL:
         if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-            proc = subprocess.run([gxx(), *GXX_FLAGS, "-o", str(tmp), str(src)],
+            proc = subprocess.run([gxx(), *GXX_FLAGS, *HOST_FLAGS[name], "-o", str(tmp),
+                                   str(src)],
                                   capture_output=True, text=True)
             BUILD_LOGS[name] = proc.stdout + proc.stderr
             if proc.returncode != 0:

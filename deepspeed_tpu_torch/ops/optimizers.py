@@ -22,8 +22,11 @@ On CUDA every leaf's update is one launch of the fused Adam kernel K10
 computes AdamW with bias correction: ``amsgrad``, ``bias_correction=False``
 and L2 weight decay (``adam_w_mode=False`` with a non-zero decay) raise
 ``NotImplementedError`` on CUDA and run the plain PyTorch update on the
-CPU. LAMB, Lion, Adagrad, SGD, the CPU-offload and 1-bit optimizers of the
-JAX registry are not ported yet (ROADMAP.md section A, item 16).
+CPU. ``DeepSpeedCPUAdam`` (``cpuadam``, the name the engine gives Adam
+under optimizer offload) is Adam's math: the engine places its state
+(``runtime/zero/offload_host.py``). LAMB, Lion, Adagrad, SGD, the CPU
+Adagrad and Lion and the 1-bit optimizers of the JAX registry are not
+ported yet (ROADMAP.md section A, item 16).
 """
 
 from typing import Any, Dict, Optional
@@ -55,7 +58,11 @@ class Optimizer:
         return self.master_weights and p.dtype != torch.float32
 
     def init(self, params):
+        """``{"step": 0, "slots": tree}``; a ``None`` leaf (one another
+        optimizer updates: Twin-Flow's host half) gets a ``None`` slot."""
         def slot(p):
+            if p is None:
+                return None
             s = self._init_slot(p)
             if self._needs_master(p):
                 s["master"] = p.detach().float().clone()
@@ -71,6 +78,8 @@ class Optimizer:
         ctx["step"] = float(state["step"])
         for p, g, s in zip(tree_leaves(params), tree_leaves(grads),
                            tree_leaves(state["slots"], is_leaf=is_slot)):
+            if p is None:
+                continue
             p_eff = s["master"] if "master" in s else p
             self._update_one(g.float(), p_eff, s, ctx)
             if "master" in s:
@@ -159,16 +168,27 @@ class FusedAdamW(FusedAdam):
     defaults = {**FusedAdam.defaults, "adam_w_mode": True}
 
 
+class DeepSpeedCPUAdam(FusedAdam):
+    """Adam under optimizer offload (the JAX ``DeepSpeedCPUAdam``): the same
+    math; with ``offload_optimizer.native`` the host Adam of
+    ``runtime/zero/offload_host.py`` runs it, otherwise this update over
+    state the engine keeps in host memory or on NVMe."""
+
+    name = "cpu_adam"
+
+
 OPTIMIZER_REGISTRY = {
     "adam": FusedAdam,
     "adamw": FusedAdamW,
     "fusedadam": FusedAdam,
     "fusedadamw": FusedAdamW,
+    "deepspeedcpuadam": DeepSpeedCPUAdam,
+    "cpuadam": DeepSpeedCPUAdam,
 }
 
 # the rest of the JAX registry, by config name
 NOT_PORTED_OPTIMIZERS = (
-    "deepspeedcpuadam", "cpuadam", "lamb", "fusedlamb", "lion", "fusedlion",
+    "lamb", "fusedlamb", "lion", "fusedlion",
     "deepspeedcpulion", "cpulion", "adagrad", "deepspeedcpuadagrad", "cpuadagrad",
     "sgd", "onebitadam", "onebitlamb", "zerooneadam")
 

@@ -5,8 +5,8 @@ dataclasses and plain dict parsing: one JSON dict (or path, or JSON
 string) with the reference's field names. The port keeps what its
 training path reads: the batch-size algebra and its errors, fp16/bf16,
 optimizer, scheduler, ``gradient_clipping``, ``steps_per_print``,
-``activation_checkpointing``, ``zero_optimization``, ``sparse_gradients``,
-``wall_clock_breakdown``, ``seed`` and the JAX ``mesh`` block (read only to
+``activation_checkpointing``, ``zero_optimization``, ``checkpoint``,
+``sparse_gradients``, ``wall_clock_breakdown``, ``seed`` and the JAX ``mesh`` block (read only to
 refuse layouts over more than one card). Other blocks stay in
 ``_param_dict`` unread.
 
@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from .config_utils import DeepSpeedConfigModel, dict_raise_error_on_duplicate_keys
-from .constants import (ACTIVATION_CHECKPOINTING, BFLOAT16, BFLOAT16_OLD, FP16,
+from .constants import (ACTIVATION_CHECKPOINTING, BFLOAT16, BFLOAT16_OLD, CHECKPOINT, FP16,
                         GRADIENT_ACCUMULATION_STEPS, GRADIENT_ACCUMULATION_STEPS_DEFAULT,
                         GRADIENT_CLIPPING, GRADIENT_CLIPPING_DEFAULT, MESH, OPTIMIZER,
                         SCHEDULER, SPARSE_GRADIENTS, STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT,
@@ -107,6 +107,17 @@ def _to_dict(config: Union[str, dict, None]) -> dict:
     raise TypeError(f"Unsupported config type: {type(config)}")
 
 
+@dataclasses.dataclass
+class CheckpointConfig(DeepSpeedConfigModel):
+    """The ``checkpoint`` block (JAX ``CheckpointConfig``); the engine
+    refuses ``async_save``."""
+    tag_validation: str = "Warn"
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    async_save: bool = False
+
+
 class DeepSpeedConfig:
     """Parsed, validated view over the user's JSON config dict."""
 
@@ -143,6 +154,7 @@ class DeepSpeedConfig:
         self.zero_config = DeepSpeedZeroConfig.from_dict(d.get(ZERO_OPTIMIZATION, {}))
         self.activation_checkpointing = ActivationCheckpointingConfig.from_dict(
             d.get(ACTIVATION_CHECKPOINTING, {}))
+        self.checkpoint_config = CheckpointConfig.from_dict(d.get(CHECKPOINT, {}))
 
         self.world_size = world_size
         if world_size is not None:

@@ -1,9 +1,10 @@
 """Tensor swapping to files through the async I/O engine.
 
-Mirrors ``AsyncTensorSwapper`` of
+Mirrors ``AsyncTensorSwapper`` and ``OptimizerSwapper`` of
 ``deepspeed_tpu/runtime/swap_tensor/swapper.py``: host tensors swap out to
-files through the port's aio engine (``ops/aio.py``) and swap back in.
-``OptimizerSwapper`` is not ported yet (ROADMAP.md section A, item 16).
+files through the port's aio engine (``ops/aio.py``) and swap back in; an
+optimizer state tree swaps out leaf by leaf (``opt_<i>``, in the tree's
+sorted-key order) and back in as the same tree.
 
 A file holds a tensor's raw bytes, as the JAX swapper writes them: a bf16
 tensor goes to disk as its 16-bit words and comes back through a view, so
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ...ops.aio import AsyncIOHandle
+from ...utils.tree import tree_from_paths, tree_paths
 
 
 def dtype_name(dtype) -> str:
@@ -147,3 +149,43 @@ class AsyncTensorSwapper:
                     os.remove(path)
                 except OSError:
                     pass
+
+
+class OptimizerSwapper:
+    """Whole-tree swapping of an optimizer state (the JAX
+    ``OptimizerSwapper``): ``swap_out_optimizer`` writes every leaf of
+    ``{"step", "slots"}`` (host tensors; a Python int, the step, travels
+    as a 0-d int64 tensor and comes back an int) and ``swap_in_optimizer``
+    reads them back as the tree."""
+
+    def __init__(self, swap_dir: str, aio_handle: Optional[AsyncIOHandle] = None):
+        self.swapper = AsyncTensorSwapper(swap_dir, aio_handle)
+        self._paths = None
+        self._ints = set()
+        self._resident = None
+
+    def swap_out_optimizer(self, opt_state, async_op: bool = False):
+        pairs = tree_paths(opt_state)
+        self._paths = [p for p, _ in pairs]
+        self._ints = set()
+        for i, (_, leaf) in enumerate(pairs):
+            if isinstance(leaf, int):
+                self._ints.add(i)
+                leaf = torch.tensor(leaf, dtype=torch.int64)
+            self.swapper.swap_out(f"opt_{i}", leaf.detach().cpu(), async_op=True)
+        if not async_op:
+            self.swapper.wait()
+        self._resident = False
+        return len(pairs)
+
+    def swap_in_optimizer(self):
+        if self._paths is None:
+            raise RuntimeError("swap_in_optimizer before swap_out_optimizer")
+        bufs = [self.swapper.swap_in(f"opt_{i}", async_op=True)
+                for i in range(len(self._paths))]
+        errs = self.swapper.aio.wait()
+        if errs:
+            raise IOError(f"optimizer swap_in: {errs} aio errors")
+        self._resident = True
+        return tree_from_paths((p, int(b) if i in self._ints else b)
+                               for i, (p, b) in enumerate(zip(self._paths, bufs)))

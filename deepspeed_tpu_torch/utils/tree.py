@@ -15,12 +15,13 @@ def tree_leaves(tree, is_leaf=None):
     return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k], is_leaf)]
 
 
-def tree_paths(tree, prefix=""):
-    """(dotted path, leaf) pairs of a nested dict, in sorted-key order."""
-    if not isinstance(tree, dict):
+def tree_paths(tree, prefix="", is_leaf=None):
+    """(dotted path, leaf) pairs of a nested dict, in sorted-key order.
+    ``is_leaf(node)`` may stop the descent at a dict."""
+    if not isinstance(tree, dict) or (is_leaf is not None and is_leaf(tree)):
         return [(prefix, tree)]
     return [pair for k in sorted(tree)
-            for pair in tree_paths(tree[k], f"{prefix}.{k}" if prefix else k)]
+            for pair in tree_paths(tree[k], f"{prefix}.{k}" if prefix else k, is_leaf)]
 
 
 def tree_map(fn, tree, *rest):
@@ -32,3 +33,19 @@ def tree_map(fn, tree, *rest):
             raise ValueError(f"tree structures differ: {sorted(tree)} vs "
                              f"{sorted(other) if isinstance(other, dict) else type(other)}")
     return {k: tree_map(fn, tree[k], *(o[k] for o in rest)) for k in tree}
+
+
+def tree_from_paths(pairs):
+    """The nested dict of (dotted path, leaf) pairs (``tree_paths``'s
+    inverse; a single pair of path "" is the leaf itself)."""
+    pairs = list(pairs)
+    if len(pairs) == 1 and pairs[0][0] == "":
+        return pairs[0][1]
+    root = {}
+    for path, leaf in pairs:
+        *parents, last = path.split(".")
+        node = root
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return root

@@ -6,8 +6,8 @@ setup(
     description="TPU-native training & inference framework (DeepSpeed capability set on JAX/XLA/Pallas)",
     packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*",
                                     "deepspeed_tpu_torch", "deepspeed_tpu_torch.*"]),
-    # the port's CUDA sources, compiled by nvcc at first use
-    package_data={"deepspeed_tpu_torch": ["ops/csrc/*.cu"]},
+    # the port's CUDA and host C++ sources, compiled by nvcc / g++ at first use
+    package_data={"deepspeed_tpu_torch": ["ops/csrc/*.cu", "ops/csrc/*.cuh", "ops/csrc/*/*.cpp"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "pydantic"],
     # the PyTorch/CUDA port (deepspeed_tpu_torch) needs torch, not jax

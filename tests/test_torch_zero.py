@@ -20,8 +20,17 @@ gradients overflow on one rank only is skipped by both, as JAX skips it;
 ``train_batch`` bit for bit at stage 3; ``eval_batch`` is JAX's; stage 3's
 ``GatheredParameters`` and ``module_state_dict()`` give whole tensors;
 ``param_persistence_threshold`` keeps JAX's leaves whole; and the stage-3
-init at world 2, gathered, is world 1's bit for bit. Every engine is f32
-on tiny models, torch on one thread.
+init at world 2, gathered, is world 1's bit for bit.
+
+ZeRO-Offload and checkpoints across the two ranks, in the same spawn:
+stages 1-3 with the optimizer on the host (native) give JAX's losses and
+parameters, and each rank's host m / v / master shard is JAX's host slice
+for that rank; a stage-3 ``save_checkpoint`` / ``load_checkpoint`` resumes
+step 3 bit for bit, and ``zero_to_fp32`` joins the ranks' shards into the
+gathered parameters; a universal checkpoint written at dp 2, stage 3 loads
+at dp 1, and one written at dp 1 loads at dp 2, stage 3, each continuing
+within rtol 1e-5 of the writer's own step 3. Every engine is f32 on tiny
+models, torch on one thread.
 """
 
 import json
@@ -48,6 +57,7 @@ from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.models import build_model
 from deepspeed_tpu_torch.parallel import sharding as TS
 from deepspeed_tpu_torch.runtime import zero
+from deepspeed_tpu_torch.checkpoint import ds_to_universal, load_universal_checkpoint
 from deepspeed_tpu_torch.utils import groups
 from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_paths
 
@@ -55,6 +65,7 @@ REPO = Path(__file__).resolve().parents[1]
 CHILD_TIMEOUT_S = 120
 PRESETS = ("tiny", "tiny-gpt2")
 STAGES = (0, 1, 2, 3)
+OFFLOAD_STAGES = (1, 2, 3)
 DP = 2
 STEPS = 3
 
@@ -177,7 +188,9 @@ import deepspeed_tpu_torch as tds
 from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.models import build_model
 from deepspeed_tpu_torch.ops.optimizers import is_slot
+from deepspeed_tpu_torch.checkpoint import ds_to_universal, load_universal_checkpoint
 from deepspeed_tpu_torch.runtime import zero
+from deepspeed_tpu_torch.utils import zero_to_fp32
 from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_paths
 
 comm.init_distributed(dist_backend="gloo")
@@ -276,6 +289,41 @@ out["fp16/unchanged"] = np.asarray(all(torch.equal(a.detach(), b) for a, b in
 out["fp16/scale"] = np.asarray(e.scaler_state.scale)
 out["fp16/opt_step"] = np.asarray(e.opt_state["step"])
 
+# host offload at stages 1-3: each rank's host shards
+for stage in spec["offload_stages"]:
+    e = engine("tiny", spec["offload_config"][str(stage)])
+    losses = [e.train_batch(b).item() for b in batches]
+    out[f"offload/{stage}/loss"] = np.asarray(losses)
+    for k, v in tree_paths(e.module_state_dict()):
+        out[f"offload/{stage}/param/{k}"] = v.numpy()
+    for k, t in tree_paths(e._host_optimizer.state_dict()["slots"]):
+        out[f"offload/{stage}/host/{k}"] = t.numpy()
+
+# stage 3: a port-format save and load, zero_to_fp32, universal at dp 2
+cfg3 = spec["config"]["3"]
+e = engine("tiny", cfg3)
+for b in batches[:2]:
+    e.train_batch(b)
+saved = {k: v.numpy().copy() for k, v in tree_paths(e.module_state_dict())}
+e.save_checkpoint(spec["ckpt_dir"])
+ds_to_universal(e, spec["uni_dp2"])
+out["ckpt/loss3"] = np.asarray(e.train_batch(batches[2]).item())
+full = {k: v.numpy() for k, v in tree_paths(e.module_state_dict())}
+f = engine("tiny", cfg3, load=False)
+f.load_checkpoint(spec["ckpt_dir"])
+out["ckpt/resumed_loss3"] = np.asarray(f.train_batch(batches[2]).item())
+out["ckpt/resumed_equal"] = np.asarray(all(
+    np.array_equal(v.numpy(), full[k]) for k, v in tree_paths(f.module_state_dict())))
+fp32 = zero_to_fp32.get_fp32_state_dict_from_zero_checkpoint(spec["ckpt_dir"])
+out["ckpt/fp32_equal"] = np.asarray(sorted(fp32) == sorted(saved) and all(
+    np.array_equal(fp32[k], saved[k]) for k in saved))
+
+# the universal checkpoint written at dp 1 (by the test process), at dp 2, stage 3
+u = engine("tiny", cfg3, load=False)
+load_universal_checkpoint(u, spec["uni_dp1"])
+out["uni/from_dp1_loss3"] = np.asarray(u.train_batch(batches[2]).item())
+out["uni/from_dp1_steps"] = np.asarray(u.global_steps)
+
 np.savez(out_path, **out)
 print("done", rank)
 '''
@@ -335,6 +383,30 @@ def _shard(arr, rank):
     return np.asarray(shard.data)
 
 
+def _jax_host_shards(e, keys):
+    """JAX's host optimizer slices by (rank, field, dotted path): each data
+    rank's device's slice of each leaf (``keys``: the leaves' paths in tree
+    order)."""
+    out = {}
+    for key, leaf in zip(keys, e._host_optimizer._leaves):
+        for dev, idx, _ in leaf["devices"]:
+            for f in ("master", "m", "v"):
+                out[(jax.devices().index(dev), f, key)] = leaf["slices"][idx][f]
+    return out
+
+
+def _offload_config(stage):
+    cfg = _config(stage)
+    cfg["zero_optimization"]["offload_optimizer"] = {"device": "cpu"}
+    return cfg
+
+
+def _jax_run_host(e, batches):
+    losses = [float(e.train_batch(b)) for b in batches]
+    params = _flat(jax.tree.map(np.asarray, e.module_params))
+    return {"loss": losses, "params": params, "host": _jax_host_shards(e, list(params))}
+
+
 def _jax_run(e, batches):
     losses = [float(e.train_batch(b)) for b in batches]
     params = _flat(jax.tree.map(np.asarray, e.module_params))
@@ -363,7 +435,21 @@ def battery(tmp_path_factory):
     persist = _config(3, zero_optimization={"stage": 3,
                                             "stage3_param_persistence_threshold": 10000})
     fp16 = _config(2, fp16={"enabled": True, "initial_scale_power": 4, "hysteresis": 1})
+    # a universal checkpoint written at dp 1 (stage 3 in a world of one), for
+    # the children to load at dp 2
+    one = tds.initialize(model=build_model("tiny"), device="cpu", config=_config(3, dp=1))[0]
+    one.load_module_state_dict(inits["tiny"])
+    for b in batches[:2]:
+        one.train_batch(b)
+    ds_to_universal(one, str(tmp / "uni_dp1"))
+    dp1_loss3 = one.train_batch(batches[2]).item()
+    del one
+    groups.reset()
     spec = {"presets": PRESETS, "stages": STAGES,
+            "offload_stages": OFFLOAD_STAGES,
+            "offload_config": {str(s): _offload_config(s) for s in OFFLOAD_STAGES},
+            "ckpt_dir": str(tmp / "ckpt"), "uni_dp2": str(tmp / "uni_dp2"),
+            "uni_dp1": str(tmp / "uni_dp1"),
             "batches": [{k: v.tolist() for k, v in b.items()} for b in batches],
             "plain_batches": [{k: v.tolist() for k, v in b.items()} for b in plain],
             "init": {p: str(tmp / f"init_{p}.npz") for p in PRESETS},
@@ -385,6 +471,12 @@ def battery(tmp_path_factory):
             e.micro_steps = e.gradient_accumulation_steps()
             e.step()
             return {"scale": float(e.scaler_state.scale), "step": int(e.opt_state["step"])}
+        if job[0] == "offload":
+            # its own model object: the fp16 job recasts the shared one's dtype
+            e, _, _, _ = jds.initialize(model=jax_build_model("tiny"),
+                                        config=_offload_config(job[1]))
+            e.load_module_state_dict(jax.tree.map(np.asarray, inits["tiny"]))
+            return _jax_run_host(e, batches)
         preset, stage = job
         e = stage0[preset] if stage == 0 else _jax_engine(preset, _config(stage), inits[preset])
         out = _jax_run(e, batches)
@@ -392,13 +484,16 @@ def battery(tmp_path_factory):
             out["eval"] = float(e.eval_batch(batches[0]))
         return out
 
-    jobs = [(p, s) for p in PRESETS for s in STAGES] + ["persist", "fp16"]
+    jobs = [(p, s) for p in PRESETS for s in STAGES] + ["persist", "fp16"] + \
+        [("offload", s) for s in OFFLOAD_STAGES]
     children = _spawn(tmp / "spec.json", tmp)
     try:
         with ThreadPoolExecutor(4) as pool:
             refs = dict(zip(jobs, pool.map(run, jobs)))
     finally:
         results = _collect(children, tmp)
+    refs["dp1_loss3"] = dp1_loss3
+    refs["uni_dp2"] = str(tmp / "uni_dp2")
     return results, refs
 
 
@@ -484,3 +579,54 @@ def test_dp2_stage3_init_is_world_one_init(battery, preset):
         for key, want in tree_paths(e.module_params):
             np.testing.assert_array_equal(r[f"init/{preset}/{key}"], want.detach().numpy(),
                                           err_msg=key)
+
+
+@pytest.mark.parametrize("stage", OFFLOAD_STAGES)
+def test_dp2_host_offload_matches_jax(battery, stage):
+    """Host offload over two ranks at stage ``stage``: JAX's losses and
+    parameters, and each rank's host master / m / v shard is JAX's host
+    slice on that rank (the same shape)."""
+    results, refs = battery
+    ref = refs[("offload", stage)]
+    for rank, r in enumerate(results):
+        np.testing.assert_allclose(r[f"offload/{stage}/loss"], ref["loss"], rtol=1e-5,
+                                   err_msg=f"rank {rank}")
+        for key, want in ref["params"].items():
+            np.testing.assert_allclose(r[f"offload/{stage}/param/{key}"], want, rtol=0,
+                                       atol=2e-6, err_msg=f"rank {rank} {key}")
+            for f in ("master", "m", "v"):
+                got, jx = r[f"offload/{stage}/host/{key}.{f}"], ref["host"][(rank, f, key)]
+                assert got.shape == jx.shape, (rank, f, key)
+                np.testing.assert_allclose(got, jx, rtol=0, atol=2e-6 if f == "master" else 1e-6,
+                                           err_msg=f"rank {rank} {f} {key}")
+
+
+def test_dp2_stage3_checkpoint_resumes_bit_identical(battery):
+    """A stage-3 save after step 2 and a fresh engine's load: step 3 is the
+    unbroken run's bit for bit on both ranks; ``zero_to_fp32`` joins the
+    ranks' shards into the gathered parameters."""
+    results, _ = battery
+    for r in results:
+        assert float(r["ckpt/resumed_loss3"]) == float(r["ckpt/loss3"])
+        assert bool(r["ckpt/resumed_equal"]) and bool(r["ckpt/fp32_equal"])
+
+
+def test_dp2_universal_loads_at_dp1(battery):
+    """The universal checkpoint the two stage-3 ranks wrote after step 2
+    loads into a one-process engine, whose step 3 is theirs within 1e-5."""
+    results, refs = battery
+    e, _, _, _ = tds.initialize(model=build_model("tiny"), device="cpu",
+                                config=_config(3, dp=1))
+    meta = load_universal_checkpoint(e, refs["uni_dp2"])
+    assert meta["zero_stage"] == 3 and e.global_steps == 2
+    np.testing.assert_allclose(e.train_batch(_batches()[2]).item(),
+                               float(results[0]["ckpt/loss3"]), rtol=1e-5)
+
+
+def test_dp1_universal_loads_at_dp2(battery):
+    """A universal checkpoint written by one process loads into two
+    stage-3 ranks, whose step 3 is the writer's within 1e-5."""
+    results, refs = battery
+    for r in results:
+        assert int(r["uni/from_dp1_steps"]) == 3
+        np.testing.assert_allclose(float(r["uni/from_dp1_loss3"]), refs["dp1_loss3"], rtol=1e-5)
